@@ -8,16 +8,21 @@ before the last line):
 
   device   the card's name and power limit (nvidia-smi), torch and CUDA
   build    seconds to compile every kernel under infgen_torch/ops/csrc
-  kernels  each hand-written kernel against its plain PyTorch version on the
-           card at the flagship shapes, fp32 and bf16, with its time, the
-           plain version's time and its bound
-  parity   a small closed-loop rollout on the card (through the kernel) equal
-           to the same rollout on the CPU (through the plain version)
-  rollout  the flagship rollout (configs/ours_long_term.yaml, full width,
-           300 frames = 60 token steps, bf16, random weights from the
-           config's seed) through the command line's rollout function, once
-           without forced insertion (the seed head biased to decline) and
-           once with it, with the kernels' launch counts of that run
+  kernels  each hand-written kernel (seed_eval, seed_eval_full, refine,
+           motion_column) against its plain PyTorch version on the card at
+           the flagship shapes, fp32 and bf16, over its mask cases, with its
+           time, the plain version's time and its bound
+  parity   a small closed-loop rollout on the card (through the kernels)
+           equal to the same rollout on the CPU (through the plain
+           versions), with the flagship's flags and, as `parity_latency`,
+           with the latency preset's three kernel flags
+  rollout  the flagship rollout (configs/ours_long_term.yaml) and the
+           latency preset's (configs/ours_long_term_latency.yaml), each at
+           full width, 300 frames = 60 token steps, bf16, random weights
+           from the config's seed, through the command line's rollout
+           function: once without forced insertion (the seed head biased to
+           decline) and once with it, with every kernel's launch count of
+           that run
 
 then the summary line of every kernel ({"kernels": [...]}) and, last, the
 device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
@@ -35,25 +40,59 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "ours_long_term.yaml")
+LATENCY = os.path.join(ROOT, "configs", "ours_long_term_latency.yaml")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and operations/s
 # for fp32 outside the tensor cores and for bf16 operands
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
-# seed_eval tolerances (max abs error against the plain version on the same
-# inputs, outputs of order 1-10). fp32: both sides compute in fp32 and
-# differ only in summation order over <= 4D terms per dot product, nine
-# sublayers deep. bf16: both round the same matmul operands to bf16 on the
-# same card, so again only summation order differs; the limit sits about 30x
-# above the largest bf16 error read on an H100 at these shapes (3.55e-5),
-# and far below what skipping the operand rounding (a relative 2^-9 per
-# mat-vec) would give.
-SEED_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
-# the flagship's unforced run: shift of the seed state head's "enter" logit
-# (see run_flagship)
+F32, BF16 = torch.float32, torch.bfloat16
+# Kernel tolerances: max abs error against the plain version on the same
+# inputs and card, outputs of order 1-10. fp32: both sides compute in fp32
+# and differ only in summation order. bf16: both round the same matmul
+# operands to bf16 and sum in fp32, so again only summation order differs,
+# until a last-bit difference in an fp32 sum rounds an operand to the
+# neighbouring bf16 value (a relative 2^-8) in one of them. Over many rows
+# and sublayers such flips cascade, so the two kernels with stages are held
+# stage by stage, each stage on the same inputs as the kernel's: the column
+# one layer at a time (the plain layer l starts from the kernel's layer
+# l - 1), the full seed evaluation's precompute and its stack (the plain
+# stack reads the kernel's precompute). Flips are sparse: they set the max
+# abs error (TOL) but hardly the mean abs error (MEAN_TOL), while a kernel
+# that skipped the operand rounding would be off by up to 2^-9 on every
+# operand, so every output moves. Each bf16 limit sits above the error read
+# on an H100 at these shapes, and MEAN_TOL below what such a kernel reads
+# (PERF.md, the mutant). E2E_TOL holds the whole call, whose bf16 error is
+# the whole cascade's.
+# Readings on an H100 (bf16 max / mean; the mutant's in brackets):
+# seed_eval 3.6e-5 / 4.3e-8 (1.1e-2 / 2.4e-3), refine 2.4e-7 / 2.4e-8
+# (7.3e-3 / 2.2e-3), seed_eval_full 9.7e-3 / 8.0e-4 (2.3e-2 / 3.3e-3),
+# motion_column 2.3e-2 / 8.1e-4 (3.5e-2 / 5.2e-3); fp32 all below 2e-5.
+TOL = {"seed_eval": {F32: 1e-4, BF16: 1e-3},
+       "seed_eval_full": {F32: 1e-4, BF16: 3e-2},
+       "refine": {F32: 1e-4, BF16: 1e-3},
+       "motion_column": {F32: 1e-4, BF16: 0.1}}
+MEAN_TOL = {"seed_eval": {F32: 1e-5, BF16: 1e-4},
+            "seed_eval_full": {F32: 1e-5, BF16: 1.6e-3},
+            "refine": {F32: 1e-5, BF16: 1e-4},
+            "motion_column": {F32: 1e-5, BF16: 2e-3}}
+E2E_TOL = {"seed_eval_full": {F32: 1e-4, BF16: 5e-2},
+           "motion_column": {F32: 1e-4, BF16: 0.5}}
+SOURCES = {"seed_eval": ("infgen_torch/ops/csrc/seed_eval.cu",
+                         "infgen_tpu/ops/seed_kernel.py:286"),
+           "seed_eval_full": ("infgen_torch/ops/csrc/seed_eval_full.cu",
+                              "infgen_tpu/ops/seed_kernel.py:404"),
+           "refine": ("infgen_torch/ops/csrc/refine.cu",
+                      "infgen_tpu/ops/refine_kernel.py:192"),
+           "motion_column": ("infgen_torch/ops/csrc/motion_column.cu",
+                             "infgen_tpu/ops/column_kernel.py:291")}
+KERNEL_LAUNCHES, PLAIN_CALLS = 200, 30   # timed calls per kernel / plain
+# the unforced rollouts: shift of the seed state head's "enter" logit (see
+# run_preset)
 ENTER_LOGIT_SHIFT = -30.0
 POSE_TOL = 1e-3          # parity poses: fp32 reduction order only
+REFINE_ROWS, REFINE_AGENTS = 32, 24   # the rollout's refine neighbourhood
 
 
 def emit(phase, **fields):
@@ -107,6 +146,29 @@ def randomize(model, seed):
             p.copy_(torch.as_tensor(val, dtype=torch.float32))
 
 
+def decoder_for(cfg, attr, dtype, dev):
+    """The agent decoder with the compute dtype of a check and the same
+    numpy-seeded weights for every dtype."""
+    from infgen_torch.model.infgen import InfGenModel
+
+    model = InfGenModel(cfg.replace(compute_dtype=str(dtype)[6:]),
+                        attr.grid, attr.grid_size, attr.angle_size)
+    randomize(model, seed=17)
+    return model.to(dev).eval().agent_decoder
+
+
+def _tensor(dev):
+    return lambda a, dt=F32: torch.as_tensor(
+        np.asarray(a, np.float32), device=dev).to(dt)
+
+
+def _geo(rng, t, *shape, radius=75.0):
+    """Relation features (distance, angle, heading) of `shape` pairs."""
+    return t(np.stack([rng.uniform(0, radius, shape),
+                       rng.uniform(-3, 3, shape),
+                       rng.uniform(-3, 3, shape)], -1))
+
+
 def seed_eval_inputs(dec, cfg, G, dtype, rng, case, dev):
     """The kernel's inputs at the main path's shapes, built as the rollout
     builds them (ops/seed_fast.py) from numpy-seeded raw features."""
@@ -114,9 +176,7 @@ def seed_eval_inputs(dec, cfg, G, dtype, rng, case, dev):
 
     L, P, A, D = (cfg.num_seed_layers, cfg.max_map_tokens, cfg.max_agents,
                   cfg.hidden_dim)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    geo = lambda n: t(np.stack([rng.uniform(0, 75, n), rng.uniform(-3, 3, n),
-                                rng.uniform(-3, 3, n)], -1))
+    t = _tensor(dev)
     x_pt, agent_col = t(rng.normal(size=(P, D))), t(rng.normal(size=(A, D)))
     pl_mask = torch.as_tensor(rng.uniform(size=P) < 0.7, device=dev)
     a_mask = torch.as_tensor(rng.uniform(size=A) < 0.8, device=dev)
@@ -126,7 +186,8 @@ def seed_eval_inputs(dec, cfg, G, dtype, rng, case, dev):
         a_mask[:] = False
     occ = torch.as_tensor(rng.uniform(size=G) < 0.05, device=dev)
     with torch.no_grad():
-        r_pl, r_sa = dec.embed_pl2sa_r(geo(P)), dec.embed_a2sa_r(geo(A))
+        r_pl, r_sa = dec.embed_pl2sa_r(_geo(rng, t, P)), \
+            dec.embed_a2sa_r(_geo(rng, t, A))
         occ_emb = dec.embed_occ(occ)
         chain = dec.seed_key_chain(agent_col)
         K_pt, V_pt, K_a, V_a, v_occ = [], [], [], [], []
@@ -147,85 +208,421 @@ def seed_eval_inputs(dec, cfg, G, dtype, rng, case, dev):
             pl_mask, torch.stack(K_a), torch.stack(V_a), a_mask)
 
 
+def _nbytes(*ts):
+    return sum(x.numel() * x.element_size() for x in ts)
+
+
 def seed_eval_cost(pack, args, outs):
-    """(bytes, operations) one evaluation needs: each input read once, each
-    output written once; 2 per multiply-add of the mat-vecs, scores and
-    aggregates. A masked key's K and V rows take no part in the result
-    (its softmax weight is exactly 0), so only the valid keys' rows are
-    counted, as this run's masks give them. The pack holds only what the
-    evaluation reads (no query projection for occ2sa)."""
+    """(bytes, multiply-adds) one evaluation needs: each input read once,
+    each output written once; the mat-vecs, scores and aggregates. A masked
+    key's K and V rows take no part in the result (its softmax weight is
+    exactly 0), so only the valid keys' rows are counted, as this run's
+    masks give them. The pack holds only what the evaluation reads (no
+    query projection for occ2sa)."""
     sd0, v_occ, K_pt, _, mask_pl, K_a, _, mask_a = args
     L, D, G = pack.L, pack.D, pack.G
     n_pl, n_a = int(mask_pl.sum()), int(mask_a.sum())
     kv_rows = 2 * L * (n_pl + n_a)             # K and V, every layer
-    nbytes = kv_rows * D * K_pt.element_size() + sum(
-        x.numel() * x.element_size()
-        for x in (pack.weights, pack.vectors, sd0, v_occ, mask_pl, mask_a,
-                  *outs))
+    nbytes = kv_rows * D * K_pt.element_size() + _nbytes(
+        pack.weights, pack.vectors, sd0, v_occ, mask_pl, mask_a, *outs)
+    return nbytes, _stack_macs(L, D, G, kv_rows)
+
+
+def _stack_macs(L, D, G, kv_rows):
     macs = 3 * L * 12 * D * D                  # wg 2, ws, wo, wf0 4, wf1 4
     macs += 2 * L * D * D                      # wq of pt2sa and a2sa
     macs += kv_rows * D                        # scores + aggregates
-    macs += 4 * D * D + 8 * D + D * G          # heads
-    return nbytes, 2 * macs
+    return macs + 4 * D * D + 8 * D + D * G    # heads
+
+
+def seed_full_inputs(dec, cfg, G, dtype, rng, case, dev):
+    """The full kernel's raw inputs as the rollout passes them: k0 / v0
+    from the map features, the geometry embeddings from the model, the
+    agent column in the compute dtype."""
+    from infgen_torch.ops import seed_fast as SF
+
+    L, P, A, D = (cfg.num_seed_layers, cfg.max_map_tokens, cfg.max_agents,
+                  cfg.hidden_dim)
+    t = _tensor(dev)
+    cdt = dtype or F32
+    x_pt = t(rng.normal(size=(P, D)))
+    pl_mask = torch.as_tensor(rng.uniform(size=P) < 0.7, device=dev)
+    a_mask = torch.as_tensor(rng.uniform(size=A) < 0.8, device=dev)
+    if case == "map_all_masked":
+        pl_mask[:] = False
+    if case == "agents_all_masked":
+        a_mask[:] = False
+    with torch.no_grad():
+        kv = [SF.precompute_src_kv(dec.pt2sa_attn_layers[i], x_pt, dtype)
+              for i in range(L)]
+        args = (t(rng.normal(size=D)), torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]),
+                dec.embed_pl2sa_r(_geo(rng, t, P)), pl_mask,
+                t(rng.normal(size=(A, D)), cdt),
+                dec.embed_a2sa_r(_geo(rng, t, A)), a_mask,
+                torch.as_tensor(rng.uniform(size=G) < 0.05, device=dev))
+    return args
+
+
+def seed_full_cost(pack, args, outs):
+    """(bytes, multiply-adds in the compute dtype, fp32 multiply-adds) of
+    one full evaluation: the stack as seed_eval_cost counts it, plus the
+    precompute of the rows it reads. Masked map and agent rows' k0 / v0,
+    geometry, chain and K/V take no part in the result; the occupancy MLP
+    reads the W0 rows of the occupied cells only (the others add 0)."""
+    sd0, k0, _, _, mask_pl, _, _, mask_a, occ = args
+    base = pack.base
+    L, D, G = base.L, base.D, base.G
+    n_pl, n_a, n_occ = (int(mask_pl.sum()), int(mask_a.sum()),
+                        int(occ.sum()))
+    es = k0.element_size()
+    nbytes = (2 * L * n_pl + n_pl + 2 * n_a) * D * es  # k0 v0 r_pl col r_sa
+    nbytes += _nbytes(base.weights, base.vectors, pack.weights, sd0,
+                      mask_pl, mask_a, occ, *outs)
+    nbytes += (pack.vectors.numel() - (G - n_occ) * D) * 4
+    macs = n_pl * L * 2 * D * D                         # map geometry terms
+    macs += n_a * ((3 * L - 1) * 11 * D * D + L * 4 * D * D)  # chain, K/V
+    macs += L * D * D                                   # occ2sa values
+    macs += _stack_macs(L, D, G, 2 * L * (n_pl + n_a))
+    return nbytes, macs, n_occ * D + D * D              # occupancy MLP
+
+
+def refine_inputs(dec, cfg, dtype, rng, case, dev):
+    """The refine pass's padded inputs as the rollout builds them: row 0
+    the inserted agent, rows 1..24 its neighbours, map key k in row k."""
+    R, Ka, D = REFINE_ROWS, REFINE_AGENTS, cfg.hidden_dim
+    t = _tensor(dev)
+    cdt = dtype or F32
+    x = torch.zeros((R, D), device=dev)
+    x[:1 + Ka] = t(rng.normal(size=(1 + Ka, D)), cdt).float()
+    r_aa = torch.zeros((R, D), dtype=cdt, device=dev)
+    mask_a = torch.zeros(R, dtype=torch.bool, device=dev)
+    mask_pl = torch.as_tensor(rng.uniform(size=R) < 0.6, device=dev)
+    with torch.no_grad():
+        r_pl = dec.embed_pl2a_r(_geo(rng, t, R, radius=10.0))
+        r_aa[1:1 + Ka] = dec.embed_a2a_r(_geo(rng, t, Ka, radius=10.0))
+    mask_a[1:1 + Ka] = torch.as_tensor(rng.uniform(size=Ka) < 0.6,
+                                       device=dev)
+    if case == "agents_all_masked":
+        mask_a[:] = False
+    if case == "map_all_masked":
+        mask_pl[:] = False
+    return (x, t(rng.normal(size=(R, D)), cdt), r_pl, mask_pl, r_aa, mask_a)
+
+
+def refine_cost(pack, args, outs):
+    """(bytes, multiply-adds) of one refine pass as this run's masks need
+    it: K/V of the valid map keys and agent rows, the epilogue of row 0 and
+    of the valid agent rows (their features are row 0's later keys; after
+    the last agent sublayer only row 0 is read), the heads. Each input row
+    that takes part is read once, the pack once, the outputs written
+    once."""
+    x, pl_keys, _, mask_pl, _, mask_a = args
+    L, D = pack.L, pack.D
+    n_pl, n_a = int(mask_pl.sum()), int(mask_a.sum())
+    es = pl_keys.element_size()
+    nbytes = (1 + n_a) * D * 4 + (2 * n_pl + n_a) * D * es + _nbytes(
+        pack.weights, pack.vectors, mask_pl, mask_a, *outs)
+    macs = 0
+    for j in range(2 * L):
+        n_keys = n_pl if j % 2 == 0 else n_a
+        macs += n_keys * (4 * D * D + 2 * D) + D * D    # K/V, scores, q
+        macs += 12 * D * D                               # row 0 epilogue
+        if j < 2 * L - 1:
+            macs += n_a * 11 * D * D                     # zero-agg rows
+    macs += 2 * D * D + D * (pack.angle_size + 2)        # heads
+    return nbytes, macs
+
+
+def column_inputs(dec, cfg, dtype, rng, case, dev):
+    """The column's inputs at the flagship shapes, as the rollout builds
+    them (relation embeddings from the model; keys and relations in the
+    compute dtype; the column fp32). Returns (args, n_rows): rows at or
+    above n_rows are inactive slots with every key masked."""
+    from infgen_torch.config import SHIFT
+
+    L, A, D = cfg.num_agent_layers, cfg.max_agents, cfg.hidden_dim
+    Ti = (cfg.num_recurrent_steps_val + cfg.num_historical_steps) // SHIFT
+    W, K = min(cfg.time_span // SHIFT, Ti), cfg.pl2a_num_neighbors
+    t = _tensor(dev)
+    cdt = dtype or F32
+    n_rows = 77 if case == "n_rows" else A
+    act = torch.arange(A, device=dev) < n_rows
+    m = lambda *s, p: torch.as_tensor(rng.uniform(size=s) < p, device=dev)
+    t_mask = m(A, W, p=0.8) & act[:, None]
+    pl_mask = m(A, K, p=0.8) & act[:, None]
+    aa_mask = (m(A, A, p=0.5) & act[:, None] & act[None]
+               & ~torch.eye(A, dtype=torch.bool, device=dev))
+    t_mask[5] = False                       # rows with no temporal key,
+    pl_mask[5] = False                      # no map key, no agent key
+    aa_mask[9] = False
+    if case == "aa_all_masked":
+        aa_mask[:] = False
+    t_raw = torch.cat([_geo(rng, t, A, W),
+                       t(rng.integers(-W, 0, (A, W, 1)))], -1)
+    with torch.no_grad():
+        args = (t(rng.normal(size=(A, D)), cdt).float(),
+                t(rng.normal(size=(L, A, W, D)), cdt),
+                dec.r_t_emb(t_raw).to(cdt), t_mask,
+                t(rng.normal(size=(A, K, D)), cdt),
+                dec.r_pt2a_emb(_geo(rng, t, A, K, radius=30.0)).to(cdt),
+                pl_mask,
+                dec.r_a2a_emb(_geo(rng, t, A, A, radius=60.0)).to(cdt),
+                aa_mask)
+    return args, n_rows
+
+
+def column_cost(pack, args, n_rows):
+    """(bytes, multiply-adds) of one column as this run's masks need it:
+    the valid (query, key) pairs' key / relation projections (4 D^2 for a
+    temporal or map pair, 2 D^2 for an agent pair, whose key side is the
+    row's shared projection), scores and aggregates, the shared K/V of the
+    rows that are some live query's agent key, the query and aggregate
+    projections of live rows and the epilogue of every row, in every layer.
+    Inputs that take part are read once, the output written once."""
+    x0, key_stack, _, t_mask, _, _, pl_mask, _, aa_mask = args
+    L, D = pack.L, pack.D
+    A = x0.shape[0]
+    live = (torch.arange(A, device=x0.device) < n_rows)[:, None]
+    n_t, n_pl = int((t_mask & live).sum()), int((pl_mask & live).sum())
+    n_aa = int((aa_mask & live).sum())
+    key_rows = int((aa_mask & live).any(0).sum())
+    n_live = min(n_rows, A)
+    es = key_stack.element_size()
+    nbytes = ((L + 1) * n_t + 2 * n_pl + n_aa) * D * es + _nbytes(
+        x0, t_mask, pl_mask, aa_mask, pack.weights, pack.vectors)
+    nbytes += L * A * D * 4                                   # output
+    per_layer = (n_t + n_pl) * 4 * D * D + n_aa * 2 * D * D
+    per_layer += (n_t + n_pl + n_aa) * 2 * D
+    per_layer += 3 * (A * 11 * D * D + n_live * 2 * D * D)
+    per_layer += key_rows * 2 * D * D
+    return nbytes, L * per_layer
+
+
+def finish(kernel, dtype, errs, means, ms, plain_ms, nbytes, macs,
+           macs_f32=0, e2e=None, **extra):
+    """Emit one `kernels` line (with the bound computed from this run's
+    inputs) and hold the errors to the kernel's tolerances: the stage-wise
+    max and mean abs errors `errs` and `means` (per case), and the whole
+    call's max abs error `e2e` where the kernel has stages."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * macs / PEAK_OPS[dtype] + 2 * macs_f32 / PEAK_OPS[F32]) * 1e3
+    tol = TOL[kernel][dtype]
+    if e2e is not None:
+        extra.update(end_to_end_err=max(e2e.values()), end_to_end_errors=e2e,
+                     end_to_end_tolerance=E2E_TOL[kernel][dtype])
+    mean_tol = MEAN_TOL[kernel][dtype]
+    res = dict(dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=max(errs.values()), errors=errs, tolerance=tol,
+               mean_abs_err=max(means.values()), mean_errors=means,
+               mean_tolerance=mean_tol, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, operations=2 * (macs + macs_f32), **extra)
+    emit("kernels", kernel=kernel, **res)
+    require(res["max_abs_err"] <= tol and res["mean_abs_err"] <= mean_tol,
+            f"{kernel} {dtype} disagrees with its plain version: max {errs} "
+            f"> {tol} or mean {means} > {mean_tol}")
+    require(e2e is None or res["end_to_end_err"] <= E2E_TOL[kernel][dtype],
+            f"{kernel} {dtype}: the whole call disagrees with its plain "
+            f"version: {e2e}")
+    return res
+
+
+def _flat(out):
+    return torch.cat([o.reshape(-1) for o in out]) \
+        if isinstance(out, tuple) else out.reshape(-1)
+
+
+def _err(got, ref, what):
+    """(max, mean) abs error of `got` against `ref`."""
+    got, ref = _flat(got), _flat(ref)
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    d = (got - ref).abs()
+    return float(d.max()), float(d.mean())
 
 
 def check_seed_eval(cfg, attr, dev):
     """seed_eval kernel vs seed_eval_reference on the card at the flagship
-    shapes, in fp32 and bf16, over three mask cases; times at the main
-    path's dtype."""
-    from infgen_torch.model.infgen import InfGenModel
+    shapes, in fp32 and bf16, over three mask cases; times at each dtype."""
     from infgen_torch.ops import seed_kernel as SK
 
     G = attr.grid_size
     H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        # the same weights, with the module compute dtype of this check
-        model = InfGenModel(cfg.replace(compute_dtype=str(dtype)[6:]),
-                            attr.grid, attr.grid_size, attr.angle_size)
-        randomize(model, seed=17)
-        dec = model.to(dev).eval().agent_decoder
-        pack = SK.pack_seed_params(dec, L, G,
-                                   None if dtype == torch.float32 else dtype)
-        errs = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = SK.pack_seed_params(dec, L, G, pdt)
+        errs, means = {}, {}
         for case in ("masked", "map_all_masked", "agents_all_masked"):
-            rng = np.random.default_rng(23)
-            args = seed_eval_inputs(dec, cfg, G,
-                                    None if dtype == torch.float32 else dtype,
-                                    rng, case, dev)
+            args = seed_eval_inputs(dec, cfg, G, pdt,
+                                    np.random.default_rng(23), case, dev)
             with torch.no_grad():
-                small, pos = SK.seed_eval_kernel(pack, *args, H, Hd)
-                rs, rp = SK.seed_eval_reference(pack, *args, H, Hd)
+                got = SK.seed_eval_kernel(pack, *args, H, Hd)
+                ref = SK.seed_eval_reference(pack, *args, H, Hd)
             torch.cuda.synchronize()
-            got = torch.cat([small[0, :2], small[1, :3], small[2, :3], pos])
-            ref = torch.cat([rs[0, :2], rs[1, :3], rs[2, :3], rp])
-            require(bool(torch.isfinite(got).all()),
-                    f"seed_eval {dtype} {case}: non-finite output")
-            errs[case] = float((got - ref).abs().max())
-        rng = np.random.default_rng(23)
-        args = seed_eval_inputs(dec, cfg, G,
-                                None if dtype == torch.float32 else dtype,
-                                rng, "masked", dev)
+            errs[case], means[case] = _err(got, ref,
+                                           f"seed_eval {dtype} {case}")
+        args = seed_eval_inputs(dec, cfg, G, pdt, np.random.default_rng(23),
+                                "masked", dev)
         with torch.no_grad():
             ms = median_ms(lambda: SK.seed_eval_kernel(pack, *args, H, Hd),
-                           200)
+                           KERNEL_LAUNCHES)
             plain_ms = median_ms(
-                lambda: SK.seed_eval_reference(pack, *args, H, Hd), 30)
+                lambda: SK.seed_eval_reference(pack, *args, H, Hd),
+                PLAIN_CALLS)
             outs = SK.seed_eval_kernel(pack, *args, H, Hd)
-        nbytes, ops = seed_eval_cost(pack, args, outs)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[dtype] * 1e3
-        res = dict(dtype=str(dtype).replace("torch.", ""),
-                   max_abs_err=max(errs.values()), errors=errs,
-                   tolerance=SEED_TOL[dtype], ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, operations=ops)
-        emit("kernels", kernel="seed_eval", **res)
-        require(res["max_abs_err"] <= SEED_TOL[dtype],
-                f"seed_eval {dtype} disagrees with its plain version: "
-                f"{errs} > {SEED_TOL[dtype]}")
-        results[dtype] = res
+        results[dtype] = finish("seed_eval", dtype, errs, means, ms,
+                                plain_ms,
+                                *seed_eval_cost(pack, args, outs))
+    return results
+
+
+def seed_full_stage_errors(pack, args, got, pre, H, Hd, what):
+    """(max, mean) abs error of one full evaluation's two stages, the larger
+    of each: the kernel's precompute against the plain one over the rows it
+    computes (the valid keys'), and its output against the plain stack run
+    on the kernel's own precompute (the masked rows, which the kernel leaves
+    unwritten, zeroed: their weight is 0)."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    sd0, k0, v0, r_pl, mask_pl, col, r_sa, mask_a, occ = args
+    twin = SK.seed_eval_full_precompute(pack, k0, v0, r_pl, col, r_sa, occ)
+    rows = (mask_pl, mask_pl, mask_a, mask_a)
+    pre_err = _err(
+        tuple([pre[0]] + [a[:, m] for a, m in zip(pre[1:], rows)]),
+        tuple([twin[0]] + [b[:, m] for b, m in zip(twin[1:], rows)]), what)
+    z = lambda t, m: t.masked_fill(~m[None, :, None], 0.0)
+    ref = SK.seed_eval_reference(
+        pack.base, sd0, pre[0], z(pre[1], mask_pl), z(pre[2], mask_pl),
+        mask_pl, z(pre[3], mask_a), z(pre[4], mask_a), mask_a, H, Hd)
+    stack_err = _err(got, ref, what)
+    return max(pre_err[0], stack_err[0]), max(pre_err[1], stack_err[1])
+
+
+def check_seed_eval_full(cfg, attr, dev):
+    """seed_eval_full kernel vs its plain version at the flagship shapes, in
+    fp32 and bf16, over three mask cases, stage by stage (see TOL) and as a
+    whole; times at each dtype."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    G = attr.grid_size
+    H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = SK.pack_seed_params_full(dec, L, G, pdt)
+        run = lambda fn, args, **kw: fn(pack, *args, H, Hd, **kw)
+        errs, means, e2e = {}, {}, {}
+        for case in ("masked", "map_all_masked", "agents_all_masked"):
+            args = seed_full_inputs(dec, cfg, G, pdt,
+                                    np.random.default_rng(29), case, dev)
+            what = f"seed_eval_full {dtype} {case}"
+            with torch.no_grad():
+                *got, pre = run(SK.seed_eval_full_kernel, args,
+                                return_precompute=True)
+                ref = run(SK.seed_eval_full_reference, args)
+                errs[case], means[case] = seed_full_stage_errors(
+                    pack, args, tuple(got), pre, H, Hd, what)
+            torch.cuda.synchronize()
+            e2e[case] = _err(tuple(got), ref, what)[0]
+        args = seed_full_inputs(dec, cfg, G, pdt, np.random.default_rng(29),
+                                "masked", dev)
+        with torch.no_grad():
+            ms = median_ms(lambda: run(SK.seed_eval_full_kernel, args),
+                           KERNEL_LAUNCHES)
+            plain_ms = median_ms(
+                lambda: run(SK.seed_eval_full_reference, args), PLAIN_CALLS)
+            outs = run(SK.seed_eval_full_kernel, args)
+        results[dtype] = finish("seed_eval_full", dtype, errs, means, ms,
+                                plain_ms,
+                                *seed_full_cost(pack, args, outs), e2e=e2e)
+    return results
+
+
+def check_refine(cfg, attr, dev):
+    """refine kernel vs refine_reference, as check_seed_eval."""
+    from infgen_torch.ops import refine_kernel as RK
+
+    H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = RK.pack_refine_params(dec, L, attr.angle_size, pdt)
+        run = lambda fn, args: fn(pack, *args, H, Hd)
+        errs, means = {}, {}
+        for case in ("masked", "map_all_masked", "agents_all_masked"):
+            args = refine_inputs(dec, cfg, pdt, np.random.default_rng(31),
+                                 case, dev)
+            with torch.no_grad():
+                got = run(RK.refine_kernel, args)
+                ref = run(RK.refine_reference, args)
+            torch.cuda.synchronize()
+            errs[case], means[case] = _err(got, ref,
+                                           f"refine {dtype} {case}")
+        args = refine_inputs(dec, cfg, pdt, np.random.default_rng(31),
+                             "masked", dev)
+        with torch.no_grad():
+            ms = median_ms(lambda: run(RK.refine_kernel, args),
+                           KERNEL_LAUNCHES)
+            plain_ms = median_ms(lambda: run(RK.refine_reference, args),
+                                 PLAIN_CALLS)
+            outs = run(RK.refine_kernel, args)
+        results[dtype] = finish("refine", dtype, errs, means, ms,
+                                plain_ms,
+                                *refine_cost(pack, args, outs))
+    return results
+
+
+def check_motion_column(cfg, attr, dev):
+    """motion_column kernel vs motion_column_reference at the flagship
+    shapes, fp32 and bf16, one layer at a time (see TOL) and as a whole:
+    some keys masked (rows with a whole key set masked among them), every
+    agent key masked, and an occupancy bound n_rows = 77 < A, where the
+    kernel with the bound must equal the kernel without it bit for bit.
+    Timed with every row live."""
+    from infgen_torch.ops import column_kernel as CK
+
+    H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_agent_layers
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = CK.pack_column_params(dec, L, pdt)
+        run = lambda fn, args, nr=None: fn(pack, *args, H, Hd, n_rows=nr)
+        errs, means, e2e = {}, {}, {}
+        for case in ("masked", "aa_all_masked", "n_rows"):
+            args, n_rows = column_inputs(dec, cfg, pdt,
+                                         np.random.default_rng(37), case,
+                                         dev)
+            nr = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+            what = f"motion_column {dtype} {case}"
+            with torch.no_grad():
+                got = run(CK.motion_column_kernel, args, nr)
+                full = run(CK.motion_column_kernel, args)
+                layers = CK.motion_column_reference(
+                    pack, *args, H, Hd, n_rows=nr, layer_inputs=got)
+                ref = run(CK.motion_column_reference, args, nr)
+            torch.cuda.synchronize()
+            require(torch.equal(got, full),
+                    f"{what}: the n_rows={n_rows} skip changed the output")
+            errs[case], means[case] = _err(got, layers, what)
+            e2e[case] = _err(got, ref, what)[0]
+        args, n_rows = column_inputs(dec, cfg, pdt,
+                                     np.random.default_rng(37), "masked",
+                                     dev)
+        with torch.no_grad():
+            ms = median_ms(lambda: run(CK.motion_column_kernel, args),
+                           KERNEL_LAUNCHES)
+            plain_ms = median_ms(
+                lambda: run(CK.motion_column_reference, args), PLAIN_CALLS)
+        results[dtype] = finish("motion_column", dtype, errs, means, ms,
+                                plain_ms,
+                                *column_cost(pack, args, n_rows), e2e=e2e,
+                                launches_per_call=2 * L)
     return results
 
 
@@ -268,11 +665,12 @@ def check_rollout(out, cfg, n_steps):
     require(active.sum() <= A, "more active slots than slots")
 
 
-def check_parity(dev):
-    """A small rollout on the card (seed kernel in fp32) against the same
-    rollout on the CPU (plain version): beam 1 makes both deterministic, so
+def check_parity(dev, latency=False):
+    """A small rollout on the card (kernels in fp32) against the same
+    rollout on the CPU (plain versions): beam 1 makes both deterministic, so
     token, state and insertion decisions must be equal and poses agree
-    within POSE_TOL."""
+    within POSE_TOL. `latency` turns on the latency preset's three kernel
+    flags."""
     from infgen_torch.cli import build_model, build_tokenizers
     from infgen_torch.config import Config
     from infgen_torch.data.features import build_model_inputs
@@ -280,12 +678,14 @@ def check_parity(dev):
     from infgen_torch.data.synthetic import make_synthetic_scenario
     from infgen_torch.rollout.closed_loop import make_rollout_fn
 
+    flags = dict(use_seed_kernel_full=True, use_refine_kernel=True,
+                 use_column_kernel=True) if latency else {}
     cfg = Config(max_agents=16, max_map_tokens=128, num_agent_layers=3,
                  num_seed_layers=3, num_map_layers=1, hidden_dim=32,
                  num_heads=2, head_dim=16, num_freq_bands=8,
                  num_recurrent_steps_val=30, use_seed_kernel=True,
                  compute_dtype="float32", motion_beam_size=1,
-                 insert_beam_size=1)
+                 insert_beam_size=1, **flags)
     attr, mt, mv = build_tokenizers(cfg)
     scen = make_synthetic_scenario(cfg, seed=2, num_agents=10)
     uniform = np.random.default_rng(5).uniform(size=cfg.max_map_tokens)
@@ -307,7 +707,9 @@ def check_parity(dev):
              "pred_shape", "seed_probs")
     mismatched = [k for k in exact if not np.array_equal(cpu[k], gpu[k])]
     pose_err = max(float(np.abs(cpu[k] - gpu[k]).max()) for k in close)
-    emit("parity", config="A=16 P=128 D=32 L=3 fp32 beam 1 force_insert",
+    emit("parity_latency" if latency else "parity",
+         config="A=16 P=128 D=32 L=3 fp32 beam 1 force_insert"
+         + (" latency kernels" if latency else ""),
          inserted=int(gpu["n_inserted"]), mismatched=mismatched,
          max_pose_err=pose_err, tolerance=POSE_TOL)
     require(not mismatched, f"cuda and cpu rollouts differ in {mismatched}")
@@ -315,20 +717,22 @@ def check_parity(dev):
     require(int(gpu["n_inserted"]) > 0, "parity run inserted no agent")
 
 
-def run_flagship(cfg, dev):
-    """The main path: the command line's rollout function on the card at
-    the flagship config, without and with forced insertion. Every kernel
-    count is set to 0 just before and read just after.
+def run_preset(path, dev):
+    """The main path of one config: the command line's rollout function on
+    the card at full width, without and with forced insertion. Every kernel
+    count is set to 0 just before and read just after; each run's summary
+    carries its own counts.
 
     The random seed state head asks to enter on every evaluation, which
     would make the unforced run repeat the forced one. So its "enter" logit
     is shifted by ENTER_LOGIT_SHIFT: the unforced run then takes the decline
     branch (the head says stop) at full width. The forced run's decisions
     do not read that head."""
-    from infgen_torch.cli import build_model, build_tokenizers, run_rollouts
-    from infgen_torch.config import SHIFT
-    from infgen_torch.ops import seed_kernel as SK
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches, run_rollouts)
+    from infgen_torch.config import SHIFT, load_config
 
+    cfg = load_config(path)
     n_steps = cfg.num_recurrent_steps_val // SHIFT
     tokenizers = build_tokenizers(cfg)
     model = build_model(cfg, tokenizers[0], dev)
@@ -337,40 +741,53 @@ def run_flagship(cfg, dev):
             ENTER_LOGIT_SHIFT
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    SK.seed_eval_kernel.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
     runs = []
     for force in (False, True):
         outs, summary = run_rollouts(cfg, dev, 1, force_insert=force,
                                      model=model, tokenizers=tokenizers)
         check_rollout(outs[0], cfg, n_steps)
         runs.append(summary)
-    launches = {"seed_eval": SK.seed_eval_kernel.launches}
-    seconds = time.perf_counter() - t0
-    emit("rollout", config=os.path.relpath(FLAGSHIP, ROOT),
+    launches = kernel_launches()
+    emit("rollout", config=os.path.relpath(path, ROOT),
          width=dict(D=cfg.hidden_dim, agent_layers=cfg.num_agent_layers,
                     seed_layers=cfg.num_seed_layers, A=cfg.max_agents,
                     P=cfg.max_map_tokens, frames=cfg.num_recurrent_steps_val),
          runs=[{k: s[k] for k in ("force_insert", "token_steps",
                                   "ms_per_token_step", "agents_inserted",
-                                  "seed_kernel_launches", "host_reads")}
+                                  "kernel_launches", "host_reads")}
                for s in runs],
          enter_logit_shift=ENTER_LOGIT_SHIFT,
-         launches=launches, seconds=seconds,
+         launches=launches, seconds=time.perf_counter() - t0,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev))
     free, forced = runs
     require(forced["token_steps"] == n_steps, "token steps")
     require(sum(forced["agents_inserted"]) > 0,
             "forced insertion inserted no agent")
-    require(forced["seed_kernel_launches"] >= n_steps,
-            f"seed kernel launched {forced['seed_kernel_launches']} < "
-            f"{n_steps} times in the forced-insertion run")
+    seed_kernel = "seed_eval_full" if cfg.use_seed_kernel_full \
+        else "seed_eval"
+    evals = lambda s: s["kernel_launches"][seed_kernel]
+    require(evals(forced) >= n_steps,
+            f"{seed_kernel} launched {evals(forced)} < {n_steps} times in "
+            "the forced-insertion run")
     # the unforced run evaluated seeds and declined: fewer inserts and
     # fewer evaluations than the forced run, but at least one evaluation
-    require(0 < free["seed_kernel_launches"] < forced["seed_kernel_launches"]
+    require(0 < evals(free) < evals(forced)
             and sum(free["agents_inserted"]) < sum(forced["agents_inserted"]),
             f"the unforced run did not decline: {free} vs {forced}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the path never launched: {launches}")
+    if cfg.use_seed_kernel_full:
+        for s in runs:
+            k = s["kernel_launches"]
+            require(k["motion_column"] == n_steps,
+                    f"motion_column launched {k['motion_column']} times in "
+                    f"{n_steps} token steps")
+            require(k["seed_eval"] == 0, "seed_eval ran under the preset")
+            require(k["refine"] >= sum(s["agents_inserted"]),
+                    f"refine launched {k['refine']} times for "
+                    f"{sum(s['agents_inserted'])} inserts")
+    used = [n for n, c in launches.items() if c > 0]
+    require(used, f"no kernel of the path launched: {launches}")
     return launches
 
 
@@ -400,24 +817,34 @@ def main():
 
     emit("build", seconds=build(force=True, verbose=True))
 
-    cfg = load_config(FLAGSHIP)
+    cfg, lat = load_config(FLAGSHIP), load_config(LATENCY)
     attr = build_tokenizers(cfg)[0]
-    seed = check_seed_eval(cfg, attr, dev)
+    checks = {"seed_eval": check_seed_eval(cfg, attr, dev),
+              "seed_eval_full": check_seed_eval_full(lat, attr, dev),
+              "refine": check_refine(lat, attr, dev),
+              "motion_column": check_motion_column(lat, attr, dev)}
     check_parity(dev)
-    launches = run_flagship(cfg, dev)
+    check_parity(dev, latency=True)
+    # each kernel's launches on the main path that runs it
+    launches = run_preset(FLAGSHIP, dev)
+    launches.update({k: n for k, n in run_preset(LATENCY, dev).items()
+                     if k != "seed_eval"})
+    missing = [k for k in checks if launches[k] == 0]
+    require(not missing, f"kernels never launched on a main path: {missing}")
 
-    main_dt = torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "bf16") \
-        else torch.float32
-    s = seed[main_dt]
-    print(json.dumps({"kernels": [dict(
-        name="seed_eval", route="cuda",
-        source="infgen_torch/ops/csrc/seed_eval.cu",
-        replaces="infgen_tpu/ops/seed_kernel.py:286",
-        launches=launches["seed_eval"], max_abs_err=s["max_abs_err"],
-        ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-        bound_by=s["bound_by"],
-        # no single PyTorch call computes this nine-sublayer chain
-        library_ms=None)]}), flush=True)
+    main_dt = BF16 if cfg.compute_dtype in ("bfloat16", "bf16") else F32
+    line = []
+    for name, res in checks.items():
+        r = res[main_dt]
+        source, replaces = SOURCES[name]
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            # no single PyTorch call computes any of these sublayer chains
+            library_ms=None))
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,13 +25,28 @@ from infgen_torch.data.scenario import to_device
 from infgen_torch.data.synthetic import make_synthetic_scenario
 from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.model.layers import init_params
-from infgen_torch.ops.seed_kernel import seed_eval_kernel
+from infgen_torch.ops import column_kernel as CK
+from infgen_torch.ops import refine_kernel as RFK
+from infgen_torch.ops import seed_kernel as SKN
 from infgen_torch.rollout.closed_loop import make_rollout_fn
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
 from infgen_torch.utils.device import resolve_device
+
+
+# every hand-written kernel of the port, by name: each wrapper counts its
+# launches in `.launches`
+KERNELS = {"seed_eval": SKN.seed_eval_kernel,
+           "seed_eval_full": SKN.seed_eval_full_kernel,
+           "refine": RFK.refine_kernel,
+           "motion_column": CK.motion_column_kernel}
+
+
+def kernel_launches():
+    """{kernel name: launches so far}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def build_tokenizers(cfg: Config):
@@ -65,8 +80,10 @@ def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
                  tokenizers=None):
     """Closed-loop rollouts of `num_scenarios` synthetic scenarios (seeds
     0, 1, ...). Returns (outputs, summary): the rollout dicts and one
-    summary of wall time per token step, inserted agents, seed-kernel
-    launches and host reads. `model` / `tokenizers` reuse built ones."""
+    summary of wall time per token step, inserted agents, the launches of
+    every kernel (`kernel_launches`, by name; `seed_kernel_launches` sums
+    the two seed-evaluation kernels) and host reads. `model` / `tokenizers`
+    reuse built ones."""
     device = resolve_device(device)
     attr, motion_tok, map_vocab = tokenizers or build_tokenizers(cfg)
     model = model or build_model(cfg, attr, device, params)
@@ -76,7 +93,7 @@ def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     n_steps = R // SHIFT
     map_tok = MapTokenizer(map_vocab)
-    launches0 = seed_eval_kernel.launches
+    launches0 = kernel_launches()
     outputs, ms_per_step, inserted, host_reads = [], [], [], 0
     for i in range(num_scenarios):
         scenario = to_device(make_synthetic_scenario(
@@ -91,6 +108,7 @@ def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
         inserted.append(int(out["n_inserted"]))
         host_reads += rollout.host_reads
         outputs.append(out)
+    launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
     summary = dict(
         device=str(device),
         device_name=(torch.cuda.get_device_name(device)
@@ -101,7 +119,9 @@ def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
         force_insert=force_insert,
         ms_per_token_step=ms_per_step,
         agents_inserted=inserted,
-        seed_kernel_launches=seed_eval_kernel.launches - launches0,
+        kernel_launches=launches,
+        seed_kernel_launches=(launches["seed_eval"]
+                              + launches["seed_eval_full"]),
         host_reads=host_reads,
     )
     return outputs, summary

@@ -15,6 +15,7 @@ from infgen_torch.config import Config
 from infgen_torch.model.layers import (DenseAttention, Embed,
                                        FourierEmbedding, MLPEmbedding,
                                        MLPLayer)
+from infgen_torch.ops import column_kernel as CK
 from infgen_torch.ops.precision import compute_dtype_of
 from infgen_torch.utils.geometry import angle_between_2d_vectors
 
@@ -168,17 +169,40 @@ class AgentDecoder(nn.Module):
     # ------------------------------------------------------------------ #
 
     def motion_column(self, x_c, key_stack, t_r_raw, t_mask, a2a_r_raw,
-                      a2a_mask, pl_keys, pl_r_raw, pl_mask):
-        """The trunk for ONE token column (plain branch).
+                      a2a_mask, pl_keys, pl_r_raw, pl_mask, n_rows=None,
+                      column_pack=None):
+        """The trunk for ONE token column.
 
         x_c [A, D]; key_stack [L, A, W, D]; t_r_raw [A, W, 4]; t_mask [A, W];
         a2a_r_raw [A, A, 3]; a2a_mask [A, A]; pl_keys [A, K, D]; pl_r_raw /
         pl_mask per (agent, map key). Returns (new_cols [L, A, D], out
         [A, D]); new_cols[i] is what the cache stores for layer i+1.
+
+        With `cfg.use_column_kernel` the whole column is one call of
+        ops/column_kernel (the relation embeddings stay modules here), its
+        parameters from `column_pack` (pack_column_params, built once per
+        rollout; packed here when None). n_rows: optional int32 device
+        scalar, the occupancy bound the kernel skips rows at; rows at or
+        above it must have every key masked. The module path ignores it.
         """
         r_t = self.r_t_emb(t_r_raw)
         r_aa = self.r_a2a_emb(a2a_r_raw)
         r_pl = self.r_pt2a_emb(pl_r_raw)
+        if self.cfg.use_column_kernel:
+            pack = column_pack or CK.pack_column_params(
+                self, self.cfg.num_agent_layers, self.dtype)
+            cdt = pack.dtype
+            cols = CK.motion_column_kernel(
+                pack, x_c.float().contiguous(), key_stack.to(cdt), r_t.to(cdt),
+                t_mask.contiguous(), pl_keys.to(cdt).contiguous(),
+                r_pl.to(cdt), pl_mask.contiguous(), r_aa.to(cdt),
+                a2a_mask.contiguous(), self.cfg.num_heads, self.cfg.head_dim,
+                n_rows=n_rows)
+            # the cache carries the compute dtype, like the module path's
+            # layer outputs; the column stayed fp32 inside the kernel
+            if self.dtype is not None:
+                cols = cols.to(self.dtype)
+            return cols, cols[-1]
         x = x_c
         new_cols = []
         for i in range(self.cfg.num_agent_layers):

@@ -3,7 +3,8 @@
 Every `csrc/*.cu` compiles with `nvcc` for sm_90a into one shared library
 with a plain C interface, `build/libinfgen_kernels.so` at the repository
 root, at first use; it is loaded with ctypes. One `nvcc -c` runs per source,
-all started together, then one link. Nothing here runs at import time.
+all started together, then one link; `csrc/common.cuh` holds the device
+code the sources share. Nothing here runs at import time.
 """
 
 import ctypes
@@ -39,8 +40,9 @@ def build(force: bool = False, verbose: bool = False) -> float:
     """Compile the kernels if the library is missing or older than a
     source (always with `force`). Returns the seconds spent."""
     sources = sorted(CSRC.glob("*.cu"))
+    inputs = sources + sorted(CSRC.glob("*.cuh"))
     if not force and LIB_PATH.exists() and all(
-            LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in sources):
+            LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in inputs):
         return 0.0
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -72,8 +74,13 @@ def build(force: bool = False, verbose: bool = False) -> float:
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.infgen_seed_eval.argtypes = [ci] + [vp] * 12 + [ci] * 7 + [vp]
-    lib.infgen_seed_eval.restype = ci
+    for name, n_ptrs, n_ints in (("infgen_seed_eval", 12, 7),
+                                 ("infgen_seed_eval_full", 19, 7),
+                                 ("infgen_refine", 9, 6),
+                                 ("infgen_motion_column", 13, 7)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ci] + [vp] * n_ptrs + [ci] * n_ints + [vp]
+        fn.restype = ci
 
 
 def library():

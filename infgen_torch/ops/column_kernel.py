@@ -1,0 +1,263 @@
+"""The whole trunk column of one token step as CUDA kernels (port of
+infgen_tpu/ops/column_kernel.py::motion_column_kernel; the CUDA source is
+csrc/motion_column.cu, whose header states its bound and design).
+
+  pack_column_params       the L trunk layers' temporal, map and agent-agent
+                           DenseAttention parameters, stacked per sublayer
+                           j = 3l + kind (kind 0 t_attn, 1 pt2a, 2 a2a):
+                           matrices in the compute dtype, vectors fp32
+  motion_column_reference  the same math in plain PyTorch (the CPU path,
+                           and what the kernel is held against on the card)
+  motion_column_kernel     the wrapper: launches the kernels on CUDA
+                           tensors, takes the plain version for CPU tensors,
+                           raises otherwise
+
+Rounding follows the TPU kernel, not the per-module path: the key and
+relation inputs arrive in the compute dtype (the caller casts them once),
+the running column stays fp32 through all 3L sublayers, and the caller casts
+the [L, A, D] fp32 output to the compute dtype.
+
+Occupancy bound `n_rows` (a device int32 scalar, read by the kernel, never
+by the host): rows at or above it must have every key masked (inactive agent
+slots); their attention is skipped and they take the zero-aggregate
+epilogue, which is what the full computation gives them, bit for bit.
+"""
+
+from dataclasses import dataclass
+from typing import Dict
+
+import ctypes
+import torch
+import torch.nn.functional as F
+
+from infgen_torch.ops.seed_kernel import (_DTYPE_CODE, _check, _flat, _ln,
+                                          _ptr_array)
+
+NEG_INF = -1e30
+_KINDS = (("t_attn", False), ("pt2a", True), ("a2a", False))
+
+
+@dataclass
+class ColumnPack:
+    weights: torch.Tensor          # flat, compute dtype
+    vectors: torch.Tensor          # flat, fp32
+    w: Dict[str, torch.Tensor]     # views into `weights`, [3L, ...]
+    v: Dict[str, torch.Tensor]     # views into `vectors`, [3L, ...]
+    ptrs: ctypes.Array             # data_ptr of each view, layout order
+    L: int
+    D: int
+
+    @property
+    def dtype(self):
+        return self.weights.dtype
+
+
+def _layouts(L: int, D: int):
+    """(name, shape) of each packed array, in the order of the pointer
+    array that csrc/motion_column.cu reads (its `Arg` enum). to_g is split
+    at row HD: `wga` takes the aggregate, `wgd` the normalised query."""
+    J = 3 * L
+    mats = [(n, (J, D, D)) for n in ("wq", "wk", "wv", "wkr", "wvr", "wga",
+                                     "wgd", "ws", "wo")]
+    mats += [("wf0", (J, D, 4 * D)), ("wf1", (J, 4 * D, D))]
+    vecs = [(n, (J, D)) for n in ("lnd_s", "lnd_b", "lns_s", "lns_b",
+                                  "lnr_s", "lnr_b", "bq", "bv", "bvr", "bg",
+                                  "bs", "bo", "post_s", "post_b", "ffp_s",
+                                  "ffp_b")]
+    vecs += [("bf0", (J, 4 * D))]
+    vecs += [(n, (J, D)) for n in ("bf1", "ffq_s", "ffq_b")]
+    return mats, vecs
+
+
+@torch.no_grad()
+def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
+    """Stack an AgentDecoder's L trunk layers per sublayer. Matrices go to
+    the compute dtype (`dtype`, None = fp32) in [in, out] layout; LayerNorm
+    parameters and biases stay fp32. The query LayerNorm is prenorm_dst for
+    the bipartite map layers and prenorm_src for the others."""
+    dtype = dtype or torch.float32
+    subs = []
+    for i in range(L):
+        subs += [(getattr(decoder, f"{name}_{i}"), bip)
+                 for name, bip in _KINDS]
+    st = lambda get: torch.stack([get(p, bip) for p, bip in subs])
+    HD = subs[0][0].to_s.weight.shape[0]
+    lnd = lambda p, bip: p.prenorm_dst if bip else p.prenorm_src
+    parts = dict(
+        wq=st(lambda p, b: p.to_q.weight.T), bq=st(lambda p, b: p.to_q.bias),
+        wk=st(lambda p, b: p.to_k.weight.T),
+        wv=st(lambda p, b: p.to_v.weight.T), bv=st(lambda p, b: p.to_v.bias),
+        wkr=st(lambda p, b: p.w_kr), wvr=st(lambda p, b: p.w_vr),
+        bvr=st(lambda p, b: p.b_vr),
+        wga=st(lambda p, b: p.to_g.weight.T[:HD]),
+        wgd=st(lambda p, b: p.to_g.weight.T[HD:]),
+        bg=st(lambda p, b: p.to_g.bias),
+        ws=st(lambda p, b: p.to_s.weight.T), bs=st(lambda p, b: p.to_s.bias),
+        wo=st(lambda p, b: p.to_out.weight.T),
+        bo=st(lambda p, b: p.to_out.bias),
+        wf0=st(lambda p, b: p.ff_0.weight.T), bf0=st(lambda p, b: p.ff_0.bias),
+        wf1=st(lambda p, b: p.ff_1.weight.T), bf1=st(lambda p, b: p.ff_1.bias),
+        lnd_s=st(lambda p, b: lnd(p, b).weight),
+        lnd_b=st(lambda p, b: lnd(p, b).bias),
+        lns_s=st(lambda p, b: p.prenorm_src.weight),
+        lns_b=st(lambda p, b: p.prenorm_src.bias),
+        lnr_s=st(lambda p, b: p.prenorm_r.weight),
+        lnr_b=st(lambda p, b: p.prenorm_r.bias),
+        post_s=st(lambda p, b: p.postnorm.weight),
+        post_b=st(lambda p, b: p.postnorm.bias),
+        ffp_s=st(lambda p, b: p.ff_prenorm.weight),
+        ffp_b=st(lambda p, b: p.ff_prenorm.bias),
+        ffq_s=st(lambda p, b: p.ff_postnorm.weight),
+        ffq_b=st(lambda p, b: p.ff_postnorm.bias),
+    )
+    D = parts["wq"].shape[1]
+    mats, vecs = _layouts(L, D)
+    device = parts["wq"].device
+    weights, w = _flat(parts, mats, dtype, device)
+    vectors, v = _flat(parts, vecs, torch.float32, device)
+    return ColumnPack(weights, vectors, w, v,
+                      _ptr_array({**w, **v}, mats + vecs), L, D)
+
+
+def _sublayer(pack, j, x, keys, r, mask, H, Hd, live):
+    """One DenseAttention forward for the A query rows of the column.
+    keys [A, N, D] per query, or None for the agent-agent sublayer, whose
+    keys are the rows of x themselves; r [A, N, D]; mask [A, N] bool;
+    live [A, 1] bool or None (rows past the occupancy bound)."""
+    f32, cdt = torch.float32, pack.dtype
+    w, v = pack.w, pack.v
+    A = x.shape[0]
+    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
+
+    dst_n = _ln(x, v["lnd_s"][j], v["lnd_b"][j])
+    q = mm(dst_n, w["wq"][j]) + v["bq"][j]
+    rn = _ln(r.to(f32), v["lnr_s"][j], v["lnr_b"][j])
+    kr = mm(rn, w["wkr"][j])
+    vr = mm(rn, w["wvr"][j]) + v["bvr"][j]
+    if keys is None:
+        src_n = _ln(x, v["lns_s"][j], v["lns_b"][j])
+        k_eff = mm(src_n, w["wk"][j])[None] + kr
+        v_eff = (mm(src_n, w["wv"][j]) + v["bv"][j])[None] + vr
+    else:
+        sn = _ln(keys.to(f32), v["lns_s"][j], v["lns_b"][j])
+        k_eff = mm(sn, w["wk"][j]) + kr
+        v_eff = mm(sn, w["wv"][j]) + v["bv"][j] + vr
+    N = k_eff.shape[1]
+    sim = (k_eff.reshape(A, N, H, Hd) * q.reshape(A, 1, H, Hd)).sum(-1) \
+        * Hd ** -0.5                                       # [A, N, H]
+    mf = mask.to(f32)[..., None]
+    sim = sim * mf + (1.0 - mf) * NEG_INF
+    p = torch.exp(sim - sim.max(1, keepdim=True).values) * mf
+    den = p.sum(1)                                         # [A, H]
+    agg = (p[..., None] * v_eff.reshape(A, N, H, Hd)).sum(1) \
+        / torch.clamp(den, min=1e-30)[..., None]
+    agg = agg.reshape(A, H * Hd)
+    if live is not None:
+        agg = torch.where(live, agg, 0.0)
+
+    g = torch.sigmoid(mm(agg, w["wga"][j]) + mm(dst_n, w["wgd"][j])
+                      + v["bg"][j])
+    agg = agg + g * (mm(dst_n, w["ws"][j]) + v["bs"][j] - agg)
+    x1 = x + _ln(mm(agg, w["wo"][j]) + v["bo"][j], v["post_s"][j],
+                 v["post_b"][j])
+    h = _ln(x1, v["ffp_s"][j], v["ffp_b"][j])
+    h = F.relu(mm(h, w["wf0"][j]) + v["bf0"][j])
+    h = mm(h, w["wf1"][j]) + v["bf1"][j]
+    return x1 + _ln(h, v["ffq_s"][j], v["ffq_b"][j])
+
+
+def motion_column_reference(pack: ColumnPack, x0, key_stack, r_t, t_mask,
+                            pl_keys, r_pl, pl_mask, r_aa, aa_mask,
+                            num_heads: int, head_dim: int, n_rows=None,
+                            layer_inputs=None) -> torch.Tensor:
+    """Plain-PyTorch trunk column, the kernel's math: matmul inputs rounded
+    to the compute dtype, products and sums in fp32; fp32 LayerNorm (eps
+    1e-6), scores and softmax; a fully masked query aggregates to zero.
+    Returns [L, A, D] fp32 (row l = layer l's output). With layer_inputs
+    [L, A, D] (another run's outputs), layer l > 0 starts from
+    layer_inputs[l - 1] instead of this run's layer l - 1: one layer at a
+    time, on the same inputs as that run's."""
+    x = x0.to(torch.float32)
+    A = x.shape[0]
+    live = None if n_rows is None else \
+        (torch.arange(A, device=x.device) < n_rows)[:, None]
+    cols = []
+    for l in range(pack.L):
+        if layer_inputs is not None and l > 0:
+            x = layer_inputs[l - 1].to(torch.float32)
+        x = _sublayer(pack, 3 * l, x, key_stack[l], r_t, t_mask, num_heads,
+                      head_dim, live)
+        x = _sublayer(pack, 3 * l + 1, x, pl_keys, r_pl, pl_mask, num_heads,
+                      head_dim, live)
+        x = _sublayer(pack, 3 * l + 2, x, None, r_aa, aa_mask, num_heads,
+                      head_dim, live)
+        cols.append(x)
+    return torch.stack(cols)
+
+
+def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
+                         pl_keys, r_pl, pl_mask, r_aa, aa_mask,
+                         num_heads: int, head_dim: int, n_rows=None
+                         ) -> torch.Tensor:
+    """The L-layer trunk column. x0 [A, D] fp32; key_stack [L, A, W, D],
+    r_t [A, W, D], pl_keys / r_pl [A, K, D] and r_aa [A, A, D] in the
+    pack's compute dtype; t_mask [A, W], pl_mask [A, K], aa_mask [A, A]
+    bool; n_rows an int32 scalar tensor on the same device, or None (all
+    rows). Returns [L, A, D] fp32. CUDA tensors launch
+    csrc/motion_column.cu on the current stream (2L kernels, counted once
+    in `motion_column_kernel.launches`); CPU tensors take
+    motion_column_reference."""
+    dev = x0.device
+    if dev.type == "cpu":
+        return motion_column_reference(pack, x0, key_stack, r_t, t_mask,
+                                       pl_keys, r_pl, pl_mask, r_aa,
+                                       aa_mask, num_heads, head_dim, n_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"motion_column_kernel: unsupported device {dev}")
+    L, D, cdt = pack.L, pack.D, pack.dtype
+    A, W, K = x0.shape[0], key_stack.shape[2], pl_keys.shape[1]
+    if cdt not in _DTYPE_CODE:
+        raise ValueError(f"motion_column_kernel: compute dtype {cdt} "
+                         "unsupported")
+    if num_heads * head_dim != D or D > 512 or max(A, W, K) > 256:
+        raise ValueError("motion_column_kernel needs num_heads * head_dim "
+                         "== D <= 512 and at most 256 keys per query")
+    _check("x0", x0, torch.float32, (A, D), dev)
+    _check("key_stack", key_stack, cdt, (L, A, W, D), dev)
+    _check("r_t", r_t, cdt, (A, W, D), dev)
+    _check("t_mask", t_mask, torch.bool, (A, W), dev)
+    _check("pl_keys", pl_keys, cdt, (A, K, D), dev)
+    _check("r_pl", r_pl, cdt, (A, K, D), dev)
+    _check("pl_mask", pl_mask, torch.bool, (A, K), dev)
+    _check("r_aa", r_aa, cdt, (A, A, D), dev)
+    _check("aa_mask", aa_mask, torch.bool, (A, A), dev)
+    if n_rows is not None:
+        _check("n_rows", n_rows, torch.int32, n_rows.shape, dev)
+        if n_rows.numel() != 1:
+            raise ValueError("n_rows must hold one value")
+    _check("weights", pack.weights, cdt, pack.weights.shape, dev)
+    _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
+
+    from infgen_torch.ops.build import library
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((L, A, D), **f32)
+    # per-layer hand-over from the row kernel to the agent-agent kernel:
+    # x after the map sublayer, its normalised query / key rows, q, k, v
+    scratch = torch.empty((5, A, D), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.infgen_motion_column(
+        _DTYPE_CODE[cdt], x0.data_ptr(), key_stack.data_ptr(),
+        r_t.data_ptr(), t_mask.data_ptr(), pl_keys.data_ptr(),
+        r_pl.data_ptr(), pl_mask.data_ptr(), r_aa.data_ptr(),
+        aa_mask.data_ptr(), 0 if n_rows is None else n_rows.data_ptr(),
+        ctypes.addressof(pack.ptrs), out.data_ptr(), scratch.data_ptr(),
+        L, A, W, K, D, num_heads, head_dim, stream)
+    if err != 0:
+        raise RuntimeError(f"motion_column kernel launch failed: cudaError "
+                           f"{err}")
+    motion_column_kernel.launches += 1
+    return out
+
+
+motion_column_kernel.launches = 0

@@ -31,7 +31,8 @@
 // bytes.
 //
 // Design, and what it leaves on the table. One thread block of 512 threads
-// per evaluation; the running [D] vector and every intermediate stay in
+// per evaluation (the stack and heads live in common.cuh, shared with
+// seed_eval_full.cu); the running [D] vector and every intermediate stay in
 // shared memory. Mat-vecs use one thread per output column (consecutive
 // threads read consecutive weights of a row, so loads coalesce), with the
 // input split across thread groups when a layer has fewer columns than
@@ -41,316 +42,40 @@
 // bound at best: splitting the keys over a cluster and streaming K/V with
 // TMA is the work of a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kSmallCols = 4;  // state 2 / type 3 / shape 3, padded to 4
-constexpr float kLnEps = 1e-6f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-struct Params {
-  const float* sd0;        // [D]
-  const void* v_occ;       // [L, D] T
-  const void* k_pt;        // [L, P, D] T
-  const void* v_pt;        // [L, P, D] T
-  const uint8_t* mask_pl;  // [P]
-  const void* k_a;         // [L, A, D] T
-  const void* v_a;         // [L, A, D] T
-  const uint8_t* mask_a;   // [A]
-  const void* weights;     // packed T matrices, [in, out] each (see below)
-  const float* vectors;    // packed fp32 vectors (see below)
-  float* out_small;        // [3, kSmallCols]
-  float* out_pos;          // [G]
-  int L, P, A, D, H, Hd, G;
-};
-
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// out = LayerNorm(in) * s + b over n values (two-pass fp32 statistics);
-// in and out must not alias.
-__device__ void layer_norm(const float* in, float* out, const float* s,
-                           const float* b, int n, float* red) {
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += in[i];
-  const float mean = block_sum(acc, red) / n;
-  acc = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = in[i] - mean;
-    acc += d * d;
-  }
-  const float r = rsqrtf(block_sum(acc, red) / n + kLnEps);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[i] = (in[i] - mean) * r * s[i] + b[i];
-  __syncthreads();
-}
-
-// xr[i] = in[i] rounded to the compute dtype (the matmul operand).
-template <typename T>
-__device__ void round_vec(const float* in, float* xr, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) xr[i] = round_to<T>(in[i]);
-  __syncthreads();
-}
-
-// y[c] = sum_k xr[k] * W[k, c] + bias[c] for c < n_out; W is [n_in, n_out].
-// With fewer columns than threads, groups of threads split k and `part`
-// (blockDim floats) holds their partial sums, added in a fixed order.
-template <typename T>
-__device__ void matvec(const float* xr, int n_in, const T* W, int n_out,
-                       const float* bias, float* y, float* part) {
-  const int bd = blockDim.x, tid = threadIdx.x;
-  if (n_out >= bd) {
-    for (int c = tid; c < n_out; c += bd) {
-      float acc = 0.f;
-      for (int k = 0; k < n_in; ++k)
-        acc = fmaf(xr[k], to_f(W[(size_t)k * n_out + c]), acc);
-      y[c] = acc + bias[c];
-    }
-    __syncthreads();
-    return;
-  }
-  const int groups = bd / n_out;
-  const int c = tid % n_out, g = tid / n_out;
-  if (g < groups) {
-    const int chunk = (n_in + groups - 1) / groups;
-    const int k0 = g * chunk, k1 = min(n_in, k0 + chunk);
-    float acc = 0.f;
-    for (int k = k0; k < k1; ++k)
-      acc = fmaf(xr[k], to_f(W[(size_t)k * n_out + c]), acc);
-    part[g * n_out + c] = acc;
-  }
-  __syncthreads();
-  if (tid < n_out) {
-    float acc = 0.f;
-    for (int gg = 0; gg < groups; ++gg) acc += part[gg * n_out + tid];
-    y[tid] = acc + bias[tid];
-  }
-  __syncthreads();
-}
-
-// agg = masked-softmax attention of query q over N keys (K, V [N, D] T).
-// A masked key's K and V rows are never read: its weight is exactly 0 in
-// the plain version too (exp(...) * 0), and the max over a head with any
-// valid key is a valid key's score (a masked score sits 1e9 below), so the
-// result is the same as scoring every key.
-template <typename T>
-__device__ void attend(const float* q, const T* K, const T* V,
-                       const uint8_t* mask, int N, int D, int H, int Hd,
-                       float* sc, float* ssum, float* agg, float* part) {
-  const int bd = blockDim.x, tid = threadIdx.x;
-  const float scale = rsqrtf((float)Hd);
-  for (int i = tid; i < N * H; i += bd) {
-    const int n = i / H, h = i % H;
-    if (!mask[n]) {
-      sc[i] = -INFINITY;
-      continue;
-    }
-    const T* kr = K + (size_t)n * D + h * Hd;
-    const float* qh = q + h * Hd;
-    float acc = 0.f;
-    for (int d = 0; d < Hd; ++d) acc = fmaf(to_f(kr[d]), qh[d], acc);
-    sc[i] = acc * scale;
-  }
-  __syncthreads();
-  const int warp = tid >> 5, lane = tid & 31, nwarps = bd >> 5;
-  for (int h = warp; h < H; h += nwarps) {
-    float mx = -INFINITY;
-    for (int n = lane; n < N; n += 32) mx = fmaxf(mx, sc[n * H + h]);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float s = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float e = mask[n] ? expf(sc[n * H + h] - mx) : 0.f;
-      sc[n * H + h] = e;
-      s += e;
-    }
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) ssum[h] = fmaxf(s, 1e-30f);
-  }
-  __syncthreads();
-  for (int i = tid; i < N * H; i += bd) sc[i] = sc[i] / ssum[i % H];
-  __syncthreads();
-  // agg[d] = sum_n attn[n, d / Hd] * V[n, d], keys split over thread groups
-  const int groups = max(bd / D, 1);
-  const int chunk = (N + groups - 1) / groups;
-  for (int i = tid; i < groups * D; i += bd) {
-    const int d = i % D, g = i / D;
-    const int n0 = g * chunk, n1 = min(N, n0 + chunk);
-    const int h = d / Hd;
-    float acc = 0.f;
-    for (int n = n0; n < n1; ++n)
-      if (mask[n]) acc = fmaf(sc[n * H + h], to_f(V[(size_t)n * D + d]), acc);
-    part[g * D + d] = acc;
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += bd) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += part[g * D + d];
-    agg[d] = acc;
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) seed_eval_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1) seed_eval_kernel(
+    const float* sd0, const void* v_occ, const void* k_pt, const void* v_pt,
+    const uint8_t* mask_pl, const void* k_a, const void* v_a,
+    const uint8_t* mask_a, const void* weights, const float* vectors,
+    float* out_small, float* out_pos, int L, int P, int A, int D, int H,
+    int Hd, int G) {
   extern __shared__ float smem[];
-  const int D = p.D, J = 3 * p.L, tid = threadIdx.x, bd = blockDim.x;
-  float* sd = smem;            // [D] running seed feature
-  float* dst_n = sd + D;       // [D]
-  float* q = dst_n + D;        // [D]
-  float* agg = q + D;          // [D]
-  float* x = agg + D;          // [D]
-  float* t1 = x + D;           // [D]
-  float* t2 = t1 + D;          // [D]
-  float* h = t2 + D;           // [4D]
-  float* xr = h + 4 * D;       // [4D] rounded matmul input
-  float* part = xr + 4 * D;    // [blockDim] partial sums
-  float* red = part + bd;      // [32]
-  float* ssum = red + 32;      // [H]
-  float* sc = ssum + p.H;      // [max(P, A) * H] scores / weights
-
-  // packed matrices, in this order (infgen_torch/ops/seed_kernel.py):
-  // wq [2L,D,D] (pt2sa and a2sa only, k = 2i + s - 1) wg [J,2D,D]
-  // ws [J,D,D] wo [J,D,D] wf0 [J,D,4D] wf1 [J,4D,D] wh0 [4,D,D] wsm [3,D,4]
-  // wpos [D,G]
-  const T* wq = static_cast<const T*>(p.weights);
-  const T* wg = wq + (size_t)2 * p.L * D * D;
-  const T* ws = wg + (size_t)J * 2 * D * D;
-  const T* wo = ws + (size_t)J * D * D;
-  const T* wf0 = wo + (size_t)J * D * D;
-  const T* wf1 = wf0 + (size_t)J * D * 4 * D;
-  const T* wh0 = wf1 + (size_t)J * 4 * D * D;
-  const T* wsm = wh0 + (size_t)4 * D * D;
-  const T* wpos = wsm + (size_t)3 * D * kSmallCols;
-  // packed vectors: lnq_s lnq_b [J,D]; bq [2L,D]; bg bs bo post_s post_b
-  // ffp_s ffp_b [J,D]; bf0 [J,4D]; bf1 ffq_s ffq_b [J,D]; bh0 lnh_s lnh_b
-  // [4,D]; bsm [3,4]; bpos [G]
-  const float* lnq_s = p.vectors;
-  const float* lnq_b = lnq_s + J * D;
-  const float* bq = lnq_b + J * D;
-  const float* bg = bq + 2 * p.L * D;
-  const float* bs = bg + J * D;
-  const float* bo = bs + J * D;
-  const float* post_s = bo + J * D;
-  const float* post_b = post_s + J * D;
-  const float* ffp_s = post_b + J * D;
-  const float* ffp_b = ffp_s + J * D;
-  const float* bf0 = ffp_b + J * D;
-  const float* bf1 = bf0 + J * 4 * D;
-  const float* ffq_s = bf1 + J * D;
-  const float* ffq_b = ffq_s + J * D;
-  const float* bh0 = ffq_b + J * D;
-  const float* lnh_s = bh0 + 4 * D;
-  const float* lnh_b = lnh_s + 4 * D;
-  const float* bsm = lnh_b + 4 * D;
-  const float* bpos = bsm + 3 * kSmallCols;
-
-  for (int i = tid; i < D; i += bd) sd[i] = p.sd0[i];
-  __syncthreads();
-
-  for (int j = 0; j < J; ++j) {
-    const int li = j / 3, s = j % 3;
-    layer_norm(sd, dst_n, lnq_s + j * D, lnq_b + j * D, D, red);
-    if (s == 0) {  // occ2sa: one always-valid key, agg = its value
-      const T* vo = static_cast<const T*>(p.v_occ) + (size_t)li * D;
-      for (int i = tid; i < D; i += bd) agg[i] = to_f(vo[i]);
-      __syncthreads();
-    } else {
-      const int N = s == 1 ? p.P : p.A;
-      const T* K = static_cast<const T*>(s == 1 ? p.k_pt : p.k_a) +
-                   (size_t)li * N * D;
-      const T* V = static_cast<const T*>(s == 1 ? p.v_pt : p.v_a) +
-                   (size_t)li * N * D;
-      const uint8_t* mask = s == 1 ? p.mask_pl : p.mask_a;
-      const int k = 2 * li + s - 1;
-      round_vec<T>(dst_n, xr, D);
-      matvec<T>(xr, D, wq + (size_t)k * D * D, D, bq + k * D, q, part);
-      attend<T>(q, K, V, mask, N, D, p.H, p.Hd, sc, ssum, agg, part);
-    }
-    // gate: sigmoid(to_g([agg, dst_n])); update toward to_s(dst_n)
-    round_vec<T>(agg, xr, D);
-    round_vec<T>(dst_n, xr + D, D);
-    matvec<T>(xr, 2 * D, wg + (size_t)j * 2 * D * D, D, bg + j * D, t1, part);
-    round_vec<T>(dst_n, xr, D);
-    matvec<T>(xr, D, ws + (size_t)j * D * D, D, bs + j * D, t2, part);
-    for (int i = tid; i < D; i += bd) {
-      const float g = 1.f / (1.f + expf(-t1[i]));
-      agg[i] = agg[i] + g * (t2[i] - agg[i]);
-    }
-    __syncthreads();
-    // x = sd + postnorm(to_out(agg))
-    round_vec<T>(agg, xr, D);
-    matvec<T>(xr, D, wo + (size_t)j * D * D, D, bo + j * D, t1, part);
-    layer_norm(t1, t2, post_s + j * D, post_b + j * D, D, red);
-    for (int i = tid; i < D; i += bd) x[i] = sd[i] + t2[i];
-    __syncthreads();
-    // sd = x + ff_postnorm(ff_1(relu(ff_0(ff_prenorm(x)))))
-    layer_norm(x, t1, ffp_s + j * D, ffp_b + j * D, D, red);
-    round_vec<T>(t1, xr, D);
-    matvec<T>(xr, D, wf0 + (size_t)j * D * 4 * D, 4 * D, bf0 + j * 4 * D, h,
-              part);
-    for (int i = tid; i < 4 * D; i += bd) h[i] = fmaxf(h[i], 0.f);
-    __syncthreads();
-    round_vec<T>(h, xr, 4 * D);
-    matvec<T>(xr, 4 * D, wf1 + (size_t)j * 4 * D * D, D, bf1 + j * D, t1,
-              part);
-    layer_norm(t1, t2, ffq_s + j * D, ffq_b + j * D, D, red);
-    for (int i = tid; i < D; i += bd) sd[i] = x[i] + t2[i];
-    __syncthreads();
-  }
-
-  // heads: MLPLayer = dense -> LayerNorm -> relu -> dense
-  for (int hi = 0; hi < 4; ++hi) {
-    round_vec<T>(sd, xr, D);
-    matvec<T>(xr, D, wh0 + (size_t)hi * D * D, D, bh0 + hi * D, t1, part);
-    layer_norm(t1, t2, lnh_s + hi * D, lnh_b + hi * D, D, red);
-    for (int i = tid; i < D; i += bd) xr[i] = round_to<T>(fmaxf(t2[i], 0.f));
-    __syncthreads();
-    if (hi < 3)
-      matvec<T>(xr, D, wsm + (size_t)hi * D * kSmallCols, kSmallCols,
-                bsm + hi * kSmallCols, p.out_small + hi * kSmallCols, part);
-    else
-      matvec<T>(xr, D, wpos, p.G, bpos, p.out_pos, part);
-  }
+  seed_stack_and_heads<T, T>(
+      seed_weights<T>(weights, vectors, L, D), sd0,
+      static_cast<const T*>(v_occ), static_cast<const T*>(k_pt),
+      static_cast<const T*>(v_pt), mask_pl, static_cast<const T*>(k_a),
+      static_cast<const T*>(v_a), mask_a, out_small, out_pos, L, P, A, D, H,
+      Hd, G, smem);
 }
 
 template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  const int nkeys = p.P > p.A ? p.P : p.A;
-  const size_t floats = (size_t)16 * p.D + kThreads + 32 + p.H +
-                        (size_t)nkeys * p.H;
-  const size_t bytes = floats * sizeof(float);
+int launch(const float* sd0, const void* v_occ, const void* k_pt,
+           const void* v_pt, const uint8_t* mask_pl, const void* k_a,
+           const void* v_a, const uint8_t* mask_a, const void* weights,
+           const float* vectors, float* out_small, float* out_pos, int L,
+           int P, int A, int D, int H, int Hd, int G, cudaStream_t stream) {
+  const size_t bytes = seed_stack_floats(D, H, P, A) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       seed_eval_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  seed_eval_kernel<T><<<1, kThreads, bytes, stream>>>(p);
+  seed_eval_kernel<T><<<1, kThreads, bytes, stream>>>(
+      sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a, mask_a, weights, vectors,
+      out_small, out_pos, L, P, A, D, H, Hd, G);
   return (int)cudaGetLastError();
 }
 
@@ -364,10 +89,14 @@ extern "C" int infgen_seed_eval(
     const void* v_a, const uint8_t* mask_a, const void* weights,
     const float* vectors, float* out_small, float* out_pos, int L, int P,
     int A, int D, int H, int Hd, int G, void* stream) {
-  Params p{sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a, mask_a, weights,
-           vectors, out_small, out_pos, L, P, A, D, H, Hd, G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
+  if (dtype == 0)
+    return launch<float>(sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a, mask_a,
+                         weights, vectors, out_small, out_pos, L, P, A, D, H,
+                         Hd, G, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a,
+                                 mask_a, weights, vectors, out_small,
+                                 out_pos, L, P, A, D, H, Hd, G, s);
   return (int)cudaErrorInvalidValue;
 }

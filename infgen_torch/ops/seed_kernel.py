@@ -1,6 +1,7 @@
 """One insertion-seed evaluation: the seed stack + heads as one CUDA kernel
-(port of infgen_tpu/ops/seed_kernel.py::seed_eval_kernel; the CUDA source
-is csrc/seed_eval.cu, whose header states its bound and design).
+(port of infgen_tpu/ops/seed_kernel.py::seed_eval_kernel and
+::seed_eval_full_kernel; the CUDA sources are csrc/seed_eval.cu and
+csrc/seed_eval_full.cu, whose headers state their bounds and designs).
 
   pack_seed_params   the 3L sublayers' and 4 heads' parameters in two flat
                      buffers: matrices in the compute dtype, vectors fp32
@@ -9,12 +10,20 @@ is csrc/seed_eval.cu, whose header states its bound and design).
   seed_eval_kernel   the wrapper: launches the kernel on CUDA tensors, takes
                      the plain version for CPU tensors, raises otherwise
 
+  pack_seed_params_full / seed_eval_full_reference / seed_eval_full_kernel
+                     the same with the per-step precompute folded in: the
+                     occupancy MLP (fp32) and occ2sa values, the map K/V
+                     (rollout-invariant k0 / v0 plus the geometry terms) and
+                     the agent rows' zero-aggregate key chain and K/V, all
+                     from raw inputs
+
 Outputs: small [3, 4] fp32 (rows state / type / shape; leading 2 / 3 / 3
 columns meaningful) and pos [G] fp32 grid-cell logits. The TPU version's
 padding (small heads to D, the grid head to a multiple of 128) and its
 head-selector matrix are gone.
 """
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -248,3 +257,237 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
 
 
 seed_eval_kernel.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# the full variant: per-step precompute folded into the evaluation
+# --------------------------------------------------------------------- #
+
+@dataclass
+class SeedFullPack:
+    base: SeedPack                 # the stack + heads, as pack_seed_params
+    weights: torch.Tensor          # flat precompute matrices, compute dtype
+    vectors: torch.Tensor          # flat precompute vectors + occupancy MLP
+    w: Dict[str, torch.Tensor]
+    v: Dict[str, torch.Tensor]
+    ptrs: ctypes.Array             # data_ptr of each view, layout order
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+
+def _full_layouts(L: int, D: int, G: int):
+    """(name, shape) of the precompute's arrays, in the order of the
+    pointer array that csrc/seed_eval_full.cu reads (its `FullArg` enum).
+    The occupancy MLP stays fp32: the module has no compute dtype."""
+    mats = [(n, (L, D, D)) for n in ("ptr_wkr", "ptr_wvr", "sar_wkr",
+                                     "sar_wvr", "ka_wk", "ka_wv", "occ_wv")]
+    vecs = [(n, (L, D)) for n in (
+        "ptr_lnr_s", "ptr_lnr_b", "ptr_bvr", "sar_lnr_s", "sar_lnr_b",
+        "sar_bvr", "ka_lns_s", "ka_lns_b", "ka_bv", "occ_lns_s", "occ_lns_b",
+        "occ_bv")]
+    vecs += [("oe_w0", (G, D)), ("oe_b0", (D,)), ("oe_ln_s", (D,)),
+             ("oe_ln_b", (D,)), ("oe_w1", (D, D)), ("oe_b1", (D,))]
+    return mats, vecs
+
+
+def _ptr_array(views, layout):
+    return (ctypes.c_uint64 * len(layout))(
+        *(views[name].data_ptr() for name, _ in layout))
+
+
+@torch.no_grad()
+def pack_seed_params_full(decoder, L: int, grid_size: int,
+                          dtype=None) -> SeedFullPack:
+    """pack_seed_params plus what the precompute reads: the pt2sa and a2sa
+    geometry projections, the a2sa source K/V projections, the occ2sa value
+    projections (matrices in the compute dtype) and the occupancy MLP
+    `seed_agent_occ_embed` (fp32)."""
+    base = pack_seed_params(decoder, L, grid_size, dtype)
+    dtype = base.dtype
+    pt = [getattr(decoder, f"pt2sa_{i}") for i in range(L)]
+    sa = [getattr(decoder, f"a2sa_{i}") for i in range(L)]
+    oc = [getattr(decoder, f"occ2sa_{i}") for i in range(L)]
+    st = lambda layers, get: torch.stack([get(p) for p in layers])
+    parts = {}
+    for tag, layers in (("ptr", pt), ("sar", sa)):
+        parts[f"{tag}_wkr"] = st(layers, lambda p: p.w_kr)
+        parts[f"{tag}_wvr"] = st(layers, lambda p: p.w_vr)
+        parts[f"{tag}_bvr"] = st(layers, lambda p: p.b_vr)
+        parts[f"{tag}_lnr_s"] = st(layers, lambda p: p.prenorm_r.weight)
+        parts[f"{tag}_lnr_b"] = st(layers, lambda p: p.prenorm_r.bias)
+    parts["ka_wk"] = st(sa, lambda p: p.to_k.weight.T)
+    parts["ka_wv"] = st(sa, lambda p: p.to_v.weight.T)
+    parts["ka_bv"] = st(sa, lambda p: p.to_v.bias)
+    parts["ka_lns_s"] = st(sa, lambda p: p.prenorm_src.weight)
+    parts["ka_lns_b"] = st(sa, lambda p: p.prenorm_src.bias)
+    parts["occ_wv"] = st(oc, lambda p: p.to_v.weight.T)
+    parts["occ_bv"] = st(oc, lambda p: p.to_v.bias)
+    parts["occ_lns_s"] = st(oc, lambda p: p.prenorm_src.weight)
+    parts["occ_lns_b"] = st(oc, lambda p: p.prenorm_src.bias)
+    oe = decoder.seed_agent_occ_embed
+    parts.update(oe_w0=oe.Dense_0.weight.T, oe_b0=oe.Dense_0.bias,
+                 oe_ln_s=oe.LayerNorm_0.weight, oe_ln_b=oe.LayerNorm_0.bias,
+                 oe_w1=oe.Dense_1.weight.T, oe_b1=oe.Dense_1.bias)
+    mats, vecs = _full_layouts(L, base.D, grid_size)
+    device = base.weights.device
+    weights, w = _flat(parts, mats, dtype, device)
+    vectors, v = _flat(parts, vecs, torch.float32, device)
+    return SeedFullPack(base, weights, vectors, w, v,
+                        _ptr_array({**w, **v}, mats + vecs))
+
+
+def _zero_agg(pack: SeedPack, x, j):
+    """Sublayer j of the seed stack on rows with no incident edge
+    (agg == 0): the key chain's step. fp32 residual carrier."""
+    f32, cdt = torch.float32, pack.dtype
+    w, v, D = pack.w, pack.v, pack.D
+    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
+    dst_n = _ln(x, v["lnq_s"][j], v["lnq_b"][j])
+    g = torch.sigmoid(mm(dst_n, w["wg"][j][D:]) + v["bg"][j])
+    agg = g * (mm(dst_n, w["ws"][j]) + v["bs"][j])
+    x = x + _ln(mm(agg, w["wo"][j]) + v["bo"][j], v["post_s"][j],
+                v["post_b"][j])
+    h = _ln(x, v["ffp_s"][j], v["ffp_b"][j])
+    h = F.relu(mm(h, w["wf0"][j]) + v["bf0"][j])
+    return x + _ln(mm(h, w["wf1"][j]) + v["bf1"][j], v["ffq_s"][j],
+                   v["ffq_b"][j])
+
+
+def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
+                              r_sa, occ):
+    """The per-step precompute of the full kernel, in plain PyTorch:
+    (v_occ [L, D], K_pt, V_pt [L, P, D], K_a, V_a [L, A, D]), all fp32 and
+    never rounded to the compute dtype (map K/V = k0 + the geometry term in
+    fp32, unlike the non-full path, which rounds the sum)."""
+    f32, cdt = torch.float32, pack.dtype
+    w, v = pack.w, pack.v
+    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
+    L = pack.base.L
+
+    h = occ.to(f32) @ v["oe_w0"] + v["oe_b0"]
+    h = F.relu(_ln(h, v["oe_ln_s"], v["oe_ln_b"]))
+    occ_emb = h @ v["oe_w1"] + v["oe_b1"]
+    v_occ = torch.stack([
+        mm(_ln(occ_emb, v["occ_lns_s"][i], v["occ_lns_b"][i]), w["occ_wv"][i])
+        + v["occ_bv"][i] for i in range(L)])
+
+    rpl = r_pl.to(f32)
+    K_pt, V_pt = [], []
+    for i in range(L):
+        rn = _ln(rpl, v["ptr_lnr_s"][i], v["ptr_lnr_b"][i])
+        K_pt.append(k0[i].to(f32) + mm(rn, w["ptr_wkr"][i]))
+        V_pt.append(v0[i].to(f32) + mm(rn, w["ptr_wvr"][i])
+                    + v["ptr_bvr"][i])
+
+    rsa, ag = r_sa.to(f32), agent_col.to(f32)
+    K_a, V_a = [], []
+    for i in range(L):
+        for s in (0, 1):                                  # occ2sa, pt2sa
+            ag = _zero_agg(pack.base, ag, 3 * i + s)
+        # this layer's a2sa reads the chain before its own zero-agg step
+        src_n = _ln(ag, v["ka_lns_s"][i], v["ka_lns_b"][i])
+        rn = _ln(rsa, v["sar_lnr_s"][i], v["sar_lnr_b"][i])
+        K_a.append(mm(src_n, w["ka_wk"][i]) + mm(rn, w["sar_wkr"][i]))
+        V_a.append(mm(src_n, w["ka_wv"][i]) + v["ka_bv"][i]
+                   + mm(rn, w["sar_wvr"][i]) + v["sar_bvr"][i])
+        if i + 1 < L:               # the last layer's step is never read
+            ag = _zero_agg(pack.base, ag, 3 * i + 2)
+    return (v_occ, torch.stack(K_pt), torch.stack(V_pt), torch.stack(K_a),
+            torch.stack(V_a))
+
+
+def seed_eval_full_reference(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
+                             agent_col, r_sa, mask_a, occ, num_heads: int,
+                             head_dim: int):
+    """Plain-PyTorch full evaluation: the precompute, then the stack and
+    heads of seed_eval_reference on its fp32 results."""
+    v_occ, K_pt, V_pt, K_a, V_a = seed_eval_full_precompute(
+        pack, k0, v0, r_pl, agent_col, r_sa, occ)
+    return seed_eval_reference(pack.base, sd0, v_occ, K_pt, V_pt, mask_pl,
+                               K_a, V_a, mask_a, num_heads, head_dim)
+
+
+def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
+                          agent_col, r_sa, mask_a, occ, num_heads: int,
+                          head_dim: int, return_precompute: bool = False):
+    """One full seed evaluation from raw inputs. sd0 [D] fp32; k0 / v0
+    [L, P, D] (the rollout-invariant x_pt projections), r_pl [P, D] (map
+    geometry embedding), agent_col [A, D] (the raw feature column) and r_sa
+    [A, D] (agent geometry embedding) in the pack's compute dtype; mask_pl
+    [P], mask_a [A] and occ [G] bool. CUDA tensors launch
+    csrc/seed_eval_full.cu (two kernels in order on the current stream,
+    counted once in `seed_eval_full_kernel.launches`); CPU tensors take
+    seed_eval_full_reference. With return_precompute, the precompute's fp32
+    results (v_occ, K_pt, V_pt, K_a, V_a; the rows of masked keys are not
+    computed by the kernel) come back as a third output, so that the two
+    stages can be checked one at a time."""
+    dev = sd0.device
+    if dev.type == "cpu":
+        pre = seed_eval_full_precompute(pack, k0, v0, r_pl, agent_col, r_sa,
+                                        occ)
+        out = seed_eval_reference(pack.base, sd0, pre[0], pre[1], pre[2],
+                                  mask_pl, pre[3], pre[4], mask_a, num_heads,
+                                  head_dim)
+        return out + (pre,) if return_precompute else out
+    if dev.type != "cuda":
+        raise ValueError(f"seed_eval_full_kernel: unsupported device {dev}")
+    base = pack.base
+    L, D, G = base.L, base.D, base.G
+    P, A = k0.shape[1], agent_col.shape[0]
+    cdt = pack.dtype
+    if cdt not in _DTYPE_CODE:
+        raise ValueError(f"seed_eval_full_kernel: compute dtype {cdt} "
+                         "unsupported")
+    if num_heads * head_dim != D or D > 512:
+        raise ValueError("seed_eval_full_kernel needs num_heads * head_dim "
+                         "== D <= 512")
+    _check("sd0", sd0, torch.float32, (D,), dev)
+    _check("k0", k0, cdt, (L, P, D), dev)
+    _check("v0", v0, cdt, (L, P, D), dev)
+    _check("r_pl", r_pl, cdt, (P, D), dev)
+    _check("mask_pl", mask_pl, torch.bool, (P,), dev)
+    _check("agent_col", agent_col, cdt, (A, D), dev)
+    _check("r_sa", r_sa, cdt, (A, D), dev)
+    _check("mask_a", mask_a, torch.bool, (A,), dev)
+    _check("occ", occ, torch.bool, (G,), dev)
+    for name, t, dt in (("weights", base.weights, cdt),
+                        ("vectors", base.vectors, torch.float32),
+                        ("full weights", pack.weights, cdt),
+                        ("full vectors", pack.vectors, torch.float32)):
+        _check(name, t, dt, t.shape, dev)
+    smem = 4 * (16 * D + 512 + 32 + num_heads + max(P, A) * num_heads)
+    if smem > 232448:
+        raise ValueError(f"seed_eval_full_kernel: {smem} B of shared memory "
+                         "exceeds the 227 KB a block can use")
+
+    from infgen_torch.ops.build import library
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    # fp32 precompute results, written by the first kernel, read by the
+    # second; rows of masked keys are left unwritten and never read
+    v_occ = torch.empty((L, D), **f32)
+    K_pt, V_pt = torch.empty((L, P, D), **f32), torch.empty((L, P, D), **f32)
+    K_a, V_a = torch.empty((L, A, D), **f32), torch.empty((L, A, D), **f32)
+    small = torch.empty((3, SMALL_COLS), **f32)
+    pos = torch.empty((G,), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.infgen_seed_eval_full(
+        _DTYPE_CODE[cdt], sd0.data_ptr(), k0.data_ptr(), v0.data_ptr(),
+        r_pl.data_ptr(), mask_pl.data_ptr(), agent_col.data_ptr(),
+        r_sa.data_ptr(), mask_a.data_ptr(), occ.data_ptr(),
+        base.weights.data_ptr(), base.vectors.data_ptr(),
+        ctypes.addressof(pack.ptrs), v_occ.data_ptr(), K_pt.data_ptr(),
+        V_pt.data_ptr(), K_a.data_ptr(), V_a.data_ptr(), small.data_ptr(),
+        pos.data_ptr(), L, P, A, D, num_heads, head_dim, G, stream)
+    if err != 0:
+        raise RuntimeError(f"seed_eval_full kernel launch failed: cudaError "
+                           f"{err}")
+    seed_eval_full_kernel.launches += 1
+    if return_precompute:
+        return small, pos, (v_occ, K_pt, V_pt, K_a, V_a)
+    return small, pos
+
+
+seed_eval_full_kernel.launches = 0

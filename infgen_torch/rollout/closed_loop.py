@@ -28,6 +28,19 @@ Profiler spans (`torch.profiler.record_function`, near free when no
 profiler runs): `rollout.insertion` and `rollout.motion` per token step;
 `infgen_torch/trace_rollout.py` reads them.
 
+Kernels, as in the JAX package (each flag picks a CUDA kernel; the wrapper
+takes its plain twin for CPU tensors):
+  use_seed_kernel       the seed stack + heads from per-step K/V
+                        (ops/seed_kernel.seed_eval_kernel)
+  use_seed_kernel_full  the same with the per-step precompute folded in
+                        (seed_eval_full_kernel); supersedes the former. Each
+                        insert then patches only the raw feature row, its
+                        geometry embedding, the mask row and the occupancy bit
+  use_refine_kernel     the per-insert refine pass (ops/refine_kernel)
+  use_column_kernel     the whole trunk column (ops/column_kernel), with the
+                        occupancy bound n_rows computed on the device
+All packs are built once per rollout.
+
 Column convention (num_historical_steps=11, SHIFT=5): token columns 0..1
 hold history; rollout step t has "current" column c = 1 + t and writes
 c + 1.
@@ -45,6 +58,8 @@ from infgen_torch.config import (Config, ENTER_STATE, EXIT_STATE,
 from infgen_torch.model import edges as E
 from infgen_torch.model.agent_decoder import (INVALID_SHAPE_VALUE, SEED_TYPE,
                                               map_token_index)
+from infgen_torch.ops import column_kernel as CK
+from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_fast as SF
 from infgen_torch.ops import seed_kernel as SKN
 from infgen_torch.ops.neighbors import topk_neighbors
@@ -58,8 +73,7 @@ REFINE_A2SA_K = 24   # reference max_num_neighbors=24
 REFINE_PL2SA_K = 32  # 10 m radius holds far fewer map tokens
 
 # flags whose kernels are later slices of the port
-_NOT_PORTED = ("use_seed_kernel_full", "use_refine_kernel",
-               "use_column_kernel", "use_fused_block", "use_pallas_attention")
+_NOT_PORTED = ("use_fused_block", "use_pallas_attention")
 
 
 class RolloutCarry(NamedTuple):
@@ -151,7 +165,11 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     dec = model.agent_decoder
     device = next(model.parameters()).device
     sf_dt = compute_dtype_of(cfg.compute_dtype)          # seed-path dtype
-    use_skn = cfg.use_seed_kernel and cfg.use_grid_token
+    use_sknf = cfg.use_seed_kernel_full and cfg.use_grid_token
+    use_skn = ((cfg.use_seed_kernel or cfg.use_seed_kernel_full)
+               and cfg.use_grid_token and not use_sknf)
+    use_refk = (cfg.use_refine_kernel and cfg.use_head_token
+                and cfg.use_grid_token)
 
     f32, i32 = torch.float32, torch.int32
     token_traj_all = torch.as_tensor(np.stack(
@@ -188,12 +206,20 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         if cfg.disable_insertion:
             seed = None
         else:
-            seed = dict(
-                vec=_seed_vector(tables),
-                ptkv0=[SF.precompute_src_kv(dec.pt2sa_attn_layers[i], x_pt,
-                                            sf_dt) for i in range(L_s)],
-                pack=(SKN.pack_seed_params(dec, L_s, G, sf_dt)
-                      if use_skn else None))
+            ptkv0 = [SF.precompute_src_kv(dec.pt2sa_attn_layers[i], x_pt,
+                                          sf_dt) for i in range(L_s)]
+            seed = dict(vec=_seed_vector(tables), ptkv0=ptkv0)
+            if use_sknf:
+                seed["pack"] = SKN.pack_seed_params_full(dec, L_s, G, sf_dt)
+                seed["k0"] = torch.stack([kv[0] for kv in ptkv0])
+                seed["v0"] = torch.stack([kv[1] for kv in ptkv0])
+            elif use_skn:
+                seed["pack"] = SKN.pack_seed_params(dec, L_s, G, sf_dt)
+            if use_refk:
+                seed["refine_pack"] = RFK.pack_refine_params(
+                    dec, L_s, attr.angle_size, sf_dt)
+        column_pack = (CK.pack_column_params(dec, L, sf_dt)
+                       if cfg.use_column_kernel else None)
 
         tok = inputs.tokens
         T0 = tok.token_idx.shape[1]
@@ -281,7 +307,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
         outs = []
         for t in range(n_steps):
-            carry, out = _step(carry, t, pt, tables, av, slot_active, seed)
+            carry, out = _step(carry, t, pt, tables, av, slot_active, seed,
+                               column_pack)
             outs.append(out)
         outs = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
@@ -300,7 +327,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     # motion pass for one column
     # ---------------------------------------------------------------- #
 
-    def _motion_pass(carry, c, pt):
+    def _motion_pass(carry, c, pt, column_pack):
         pos_c, head_c = carry.pos[:, c], carry.head[:, c]
         state_c, inter_c = carry.state[:, c], carry.interact[:, c]
         hv_c = hv_of(head_c)
@@ -371,9 +398,18 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                           rel_or)
         pl_keys = pt["x"][idx5]
 
+        n_rows = None
+        if cfg.use_column_kernel:
+            # occupancy bound: 1 + the highest active slot (slots fill
+            # lowest-free first), 0 with none; rows past it are inactive
+            # with every key masked. A device scalar: no host read.
+            act = carry.slot_active
+            n_rows = torch.where(act.any(), A - _argmax_first(act.flip(0)),
+                                 0).to(i32)
         new_cols, out = dec.motion_column(
             carry.raw_feat[:, c], key_stack, t_r_raw, k_valid, a2a_r_raw,
-            a2a_mask, pl_keys, pl_r_raw, val5)
+            a2a_mask, pl_keys, pl_r_raw, val5, n_rows=n_rows,
+            column_pack=column_pack)
         carry.cache[:, :, c] = new_cols
         return carry, out
 
@@ -401,11 +437,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         # agent-row projections are computed once per step, and single rows
         # are patched per insert
         r_pl_emb = dec.embed_pl2sa_r(pl_r_raw)
-        K_pt, V_pt = [], []
-        for i in range(L_s):
-            kr, vr = SF.r_contrib(dec.pt2sa_attn_layers[i], r_pl_emb, sf_dt)
-            K_pt.append(seed["ptkv0"][i][0] + kr)
-            V_pt.append(seed["ptkv0"][i][1] + vr)
+        if not use_sknf:
+            K_pt, V_pt = [], []
+            for i in range(L_s):
+                kr, vr = SF.r_contrib(dec.pt2sa_attn_layers[i], r_pl_emb,
+                                      sf_dt)
+                K_pt.append(seed["ptkv0"][i][0] + kr)
+                V_pt.append(seed["ptkv0"][i][1] + vr)
         if use_skn:
             K_pt_s, V_pt_s = torch.stack(K_pt), torch.stack(V_pt)
 
@@ -435,8 +473,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         rawf_c0 = carry.raw_feat[:, c]
 
         # agent-row key snapshots (zero-aggregate chains, independent of
-        # the seed query), once per step; only the inserted row changes
-        ag_keys0 = dec.seed_key_chain(rawf_c0)
+        # the seed query), once per step; only the inserted row changes.
+        # The full kernel computes the chains itself from the raw column.
         occ_hit = (grid_c0 >= 0) & carry.slot_active
         occ_vec0 = torch.zeros(G, device=device).index_add_(
             0, torch.where(grid_c0 >= 0, grid_c0, 0).long(),
@@ -447,18 +485,22 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         r_sa_emb0 = dec.embed_a2sa_r(stack3(
             d_a0, angle_between_2d_vectors(ego_hv[None], rel_a0),
             wrap_angle(head_c0 - ego_head)))
-        K_a0, V_a0 = [], []
-        for i in range(L_s):
-            layer = dec.a2sa_attn_layers[i]
-            ka, va = SF.precompute_src_kv(layer, ag_keys0[i], sf_dt)
-            kar, var_ = SF.r_contrib(layer, r_sa_emb0, sf_dt)
-            K_a0.append(ka + kar)
-            V_a0.append(va + var_)
-        fast0 = dict(K_a=torch.stack(K_a0), V_a=torch.stack(V_a0),
-                     a2sa_mask=km0 & (d_a0 <= cfg.pl2seed_radius),
+        fast0 = dict(a2sa_mask=km0 & (d_a0 <= cfg.pl2seed_radius),
                      occ_vec=occ_vec0)
-        if cfg.use_grid_token:
-            fast0["v_occ"] = _occ_values(occ_vec0)
+        if use_sknf:
+            fast0.update(agent_col=rawf_c0.contiguous(), r_sa=r_sa_emb0)
+        else:
+            ag_keys0 = dec.seed_key_chain(rawf_c0)
+            K_a0, V_a0 = [], []
+            for i in range(L_s):
+                layer = dec.a2sa_attn_layers[i]
+                ka, va = SF.precompute_src_kv(layer, ag_keys0[i], sf_dt)
+                kar, var_ = SF.r_contrib(layer, r_sa_emb0, sf_dt)
+                K_a0.append(ka + kar)
+                V_a0.append(va + var_)
+            fast0.update(K_a=torch.stack(K_a0), V_a=torch.stack(V_a0))
+            if cfg.use_grid_token:
+                fast0["v_occ"] = _occ_values(occ_vec0)
 
         def eval_seed(slim, fast, p_used):
             """One seed-head evaluation: the seed stack + heads + grid-cell
@@ -472,7 +514,17 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             draws consumed). p_used: budget already consumed; the proposal
             reports n_draws >= 1."""
             occ_vec = fast["occ_vec"]
-            if use_skn:
+            if use_sknf:
+                # precompute + stack + heads from raw inputs, one call
+                small, posl = SKN.seed_eval_full_kernel(
+                    seed["pack"], seed["vec"].to(f32), seed["k0"],
+                    seed["v0"], r_pl_emb, pl_mask, fast["agent_col"],
+                    fast["r_sa"], fast["a2sa_mask"], occ_vec, cfg.num_heads,
+                    cfg.head_dim)
+                heads = dict(state_logits=small[0, :2],
+                             type_logits=small[1, :3], shape=small[2, :3],
+                             pos_logits=posl[:G])
+            elif use_skn:
                 # the whole stack + heads in one CUDA kernel
                 small, posl = SKN.seed_eval_kernel(
                     seed["pack"], seed["vec"].to(f32), fast["v_occ"],
@@ -550,7 +602,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             slim, recs, new_feat, ins_pos, ins_head = _do_insert(
                 slim, recs, n_new, slot, do_insert, prop["next_pos"],
                 prop["g_idx"], prop["type_idx"], prop["shape"], ego_pos,
-                ego_head, cand, tables)
+                ego_head, cand, tables, seed)
 
             # ---- patch the inserted row into the fast-eval state ----
             rel = ins_pos - ego_pos
@@ -558,26 +610,35 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             r_row_emb = dec.embed_a2sa_r(torch.stack([
                 d_row, angle_between_2d_vectors(ego_hv, rel),
                 wrap_angle(ins_head - ego_head)])[None])
-            row_chain = dec.seed_key_chain(new_feat[None, :])[:, 0]  # [L, D]
-            K_rows, V_rows = [], []
-            for i in range(L_s):
-                layer = dec.a2sa_attn_layers[i]
-                ka, va = SF.precompute_src_kv(layer, row_chain[i][None],
-                                              sf_dt)
-                kar, var_ = SF.r_contrib(layer, r_row_emb, sf_dt)
-                K_rows.append((ka + kar)[0])
-                V_rows.append((va + var_)[0])
             fast = dict(fast)
-            fast["K_a"] = _put(fast["K_a"], slot, torch.stack(K_rows),
-                               do_insert, dim=1)
-            fast["V_a"] = _put(fast["V_a"], slot, torch.stack(V_rows),
-                               do_insert, dim=1)
+            if use_sknf:
+                # the full kernel recomputes chains and K/V from the raw
+                # inputs: only the raw row and its geometry embedding change
+                fast["agent_col"] = _put(fast["agent_col"], slot, new_feat,
+                                         do_insert)
+                fast["r_sa"] = _put(fast["r_sa"], slot, r_row_emb[0],
+                                    do_insert)
+            else:
+                row_chain = dec.seed_key_chain(new_feat[None, :])[:, 0]
+                K_rows, V_rows = [], []
+                for i in range(L_s):
+                    layer = dec.a2sa_attn_layers[i]
+                    ka, va = SF.precompute_src_kv(layer, row_chain[i][None],
+                                                  sf_dt)
+                    kar, var_ = SF.r_contrib(layer, r_row_emb, sf_dt)
+                    K_rows.append((ka + kar)[0])
+                    V_rows.append((va + var_)[0])
+                fast["K_a"] = _put(fast["K_a"], slot, torch.stack(K_rows),
+                                   do_insert, dim=1)
+                fast["V_a"] = _put(fast["V_a"], slot, torch.stack(V_rows),
+                                   do_insert, dim=1)
             fast["a2sa_mask"] = _put(fast["a2sa_mask"], slot,
                                      d_row <= cfg.pl2seed_radius, do_insert)
             if cfg.use_grid_token:
                 fast["occ_vec"] = _put(fast["occ_vec"], prop["g_idx"], True,
                                        do_insert)
-                fast["v_occ"] = _occ_values(fast["occ_vec"])
+                if not use_sknf:
+                    fast["v_occ"] = _occ_values(fast["occ_vec"])
 
             # the reference records the enter prob at index num_new_agents
             # after a successful insert
@@ -661,7 +722,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                      g_idx.reshape(1))[0]
 
     def _do_insert(slim, recs, n_new, slot, do_insert, next_pos, g_idx,
-                   type_idx, shape_pred, ego_pos, ego_head, cand, tables):
+                   type_idx, shape_pred, ego_pos, ego_head, cand, tables,
+                   seed):
         """Refine + record one insertion against the column-c loop state;
         every write is masked by `do_insert`. Full-carry row writes are
         deferred to `_apply_inserts` after the loop."""
@@ -699,9 +761,30 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                       wrap_angle(cand["orient"][idx_p] - slot_head))
 
         x_sub = torch.cat([col_feat[None], slim["rawf_c"][idx_a]], 0)
-        refined = dec.refine_column_sub(x_sub, cand["x"][idx_p], r_pp, val_p,
-                                        r_aa, val_a)
-        heads = {k: v.to(f32) for k, v in dec.refine_heads(refined).items()}
+        if use_refk:
+            # the whole refine pass in one kernel on a padded 32-row
+            # neighbourhood: row 0 the insert, rows 1..24 its agent keys
+            # (their relations there, zero rows past them, all masked but
+            # the real ones); map key k and its relation in row k
+            R_, Ka = REFINE_PL2SA_K, idx_a.shape[0]
+            rdt = seed["refine_pack"].dtype
+            x_pad = torch.zeros((R_, D), device=device)
+            x_pad[:1 + Ka] = x_sub
+            raa_pad = torch.zeros((R_, D), dtype=rdt, device=device)
+            raa_pad[1:1 + Ka] = dec.embed_a2a_r(r_aa)
+            ma_pad = torch.zeros(R_, dtype=torch.bool, device=device)
+            ma_pad[1:1 + Ka] = val_a
+            head_logits, off = RFK.refine_kernel(
+                seed["refine_pack"], x_pad, cand["x"][idx_p],
+                dec.embed_pl2a_r(r_pp), val_p, raa_pad, ma_pad,
+                cfg.num_heads, cfg.head_dim)
+            heads = dict(head_logits=head_logits,
+                         offset_xy=torch.tanh(off) * 2.0)
+        else:
+            refined = dec.refine_column_sub(x_sub, cand["x"][idx_p], r_pp,
+                                            val_p, r_aa, val_a)
+            heads = {k: v.to(f32)
+                     for k, v in dec.refine_heads(refined).items()}
         if cfg.use_head_token:
             h_idx = _argmax_first(heads["head_logits"]).to(i32)
             new_head = wrap_angle(_decode_heading(h_idx) + ego_head)
@@ -785,7 +868,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     # one token step
     # ---------------------------------------------------------------- #
 
-    def _step(carry, t, pt, tables, av, init_active, seed):
+    def _step(carry, t, pt, tables, av, init_active, seed, column_pack):
         c = t + 1  # current column
 
         # 1. insertion (skipped at t=0)
@@ -799,7 +882,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
         # 2. motion for all agents
         with record_function("rollout.motion"):
-            carry, feat_c = _motion_pass(carry, c, pt)
+            carry, feat_c = _motion_pass(carry, c, pt, column_pack)
         token_logits, state_logits = dec.motion_heads(feat_c)
         token_logits, state_logits = token_logits.to(f32), state_logits.to(f32)
         probs = torch.softmax(token_logits, -1)

@@ -2,6 +2,9 @@
 
     python -m infgen_torch.trace_rollout [--config configs/ours_long_term.yaml]
 
+(`--config configs/ours_long_term_latency.yaml` traces the latency preset,
+with its three kernels.)
+
 Builds the model from the config's seed, runs one short warm-up rollout,
 times one full rollout without the profiler (host clock around work that
 ends in a synchronise), then runs the same rollout under `torch.profiler`
@@ -122,7 +125,7 @@ def main(argv=None):
         token_steps=n_steps,
         wall_ms_per_step=plain["ms_per_token_step"][0],
         agents_inserted=plain["agents_inserted"][0],
-        seed_kernel_launches=traced["seed_kernel_launches"],
+        kernel_launches=traced["kernel_launches"],
         host_reads=traced["host_reads"],
         **summarize(prof, n_steps, wall_ms))), flush=True)
 

@@ -58,8 +58,14 @@ def random_flax_params(jcfg, seed: int = 0) -> dict:
     shapes = jax.eval_shape(lambda i: model.init(
         {"params": key, "dropout": key}, i, scen.map, mt.vocab,
         mv["traj_src"], key, deterministic=True), inputs)["params"]
-    rng = np.random.default_rng(seed)
+    return fill_tree(shapes, np.random.default_rng(seed))
 
+
+def fill_tree(shapes, rng) -> dict:
+    """numpy leaves for a flax params structure, in traversal order:
+    kernels ~ N(0, 1/fan_in), biases ~ N(0, 0.1^2), LayerNorm scales
+    ~ 1 + N(0, 0.1^2), embeddings ~ N(0, 0.3^2), Fourier frequencies
+    ~ N(0, 0.2^2)."""
     def fill(path, s):
         leaf = path[-1].key
         if leaf in ("kernel", "w_kr", "w_vr"):

@@ -1,7 +1,9 @@
 """The port's seed evaluation (`ops/seed_kernel.py`: `pack_seed_params` +
 the plain `seed_eval_reference`, which the CUDA kernel is held against on
 the card) against the JAX package's Pallas `seed_eval_kernel` run in
-interpret mode, on the CPU.
+interpret mode, on the CPU; and its full variant (`pack_seed_params_full` +
+`seed_eval_full_reference`, the per-step precompute folded in) against the
+Pallas `seed_eval_full_kernel`, from the same raw inputs.
 
 Shapes as tests/test_model.py's seed-kernel test (A=12, P=32, D=32, two
 heads of 16, three seed layers). fp32: atol 1e-5 (summation order only).
@@ -37,6 +39,7 @@ A, P, D, H, Hd, L = 12, 32, 32, 2, 16, 3
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 _JAX_EVALS = {}          # compute dtype -> jitted JAX evaluation
+_JAX_FULL_EVALS = {}     # compute dtype -> jitted JAX full evaluation
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +54,7 @@ def setup():
     return jcfg, tree["agent_decoder"], jdec, jattr.grid_size, model
 
 
-def _inputs(G, all_masked: bool):
+def _inputs(G, all_masked: bool, map_masked: bool = False):
     rng = np.random.default_rng(29)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     x = dict(agent_col=f(A, D), seed_vec=f(D),
@@ -61,6 +64,8 @@ def _inputs(G, all_masked: bool):
              x_pt=f(P, D))
     if all_masked:
         x["a2sa_mask"][:] = False
+    if map_masked:
+        x["pl_mask"][:] = False
     return x
 
 
@@ -203,3 +208,103 @@ def test_wrapper_rejects_other_devices(setup):
                             meta(L, P, D), meta(P, dtype=torch.bool),
                             meta(L, A, D), meta(L, A, D),
                             meta(A, dtype=torch.bool), H, Hd)
+
+
+# --------------------------------------------------------------------- #
+# the full variant
+# --------------------------------------------------------------------- #
+
+def _jax_eval_full(jdec, p, G, x, dt):
+    """The JAX package's full evaluation: the Pallas kernel in interpret
+    mode on raw inputs (the rollout-invariant k0 / v0 from seed_fast),
+    compiled once per dtype."""
+    if dt not in _JAX_FULL_EVALS:
+        _JAX_FULL_EVALS[dt] = jax.jit(
+            lambda p_, x_: _jax_full_body(jdec, p_, G, x_, dt))
+    small, pos = _JAX_FULL_EVALS[dt](p, x)
+    small, pos = np.asarray(small), np.asarray(pos)
+    return np.concatenate([small[0, :2], small[1, :3], small[2, :3],
+                           pos[0, :G]])
+
+
+def _jax_full_body(jdec, p, G, x, dt):
+    def prep(mdl):
+        return (mdl.embed_pl2sa_r(x["pl_r_raw"]),
+                mdl.embed_a2sa_r(x["a2sa_r_raw"]))
+    r_pl, r_sa = jdec.apply({"params": p}, method=prep)
+    kv = [JSF.precompute_src_kv(p[f"pt2sa_{i}"], x["x_pt"], dt)
+          for i in range(L)]
+    Gp = -(-G // 128) * 128
+    occ_row = jnp.pad(jnp.asarray(x["occ_vec"], jnp.float32),
+                      (0, Gp - G))[None]
+    lane = lambda m, n: jnp.broadcast_to(jnp.asarray(m)[:, None],
+                                         (n, D)).astype(jnp.float32)
+    return JSK.seed_eval_full_kernel(
+        JSK.pack_seed_params_full(p, L, G, dt or jnp.float32),
+        jnp.asarray(x["seed_vec"])[None], jnp.stack([k for k, _ in kv]),
+        jnp.stack([v for _, v in kv]), r_pl, lane(x["pl_mask"], P),
+        jnp.asarray(x["agent_col"]), r_sa, lane(x["a2sa_mask"], A), occ_row,
+        JSK.selector(D, H, Hd), H, Hd, interpret=True)
+
+
+def _torch_eval_full(model, G, x, dt, fn=SK.seed_eval_full_reference):
+    dec = model.agent_decoder
+    t = lambda a: torch.as_tensor(np.asarray(a))
+    with torch.no_grad():
+        kv = [SF.precompute_src_kv(dec.pt2sa_attn_layers[i], t(x["x_pt"]),
+                                   dt) for i in range(L)]
+        small, pos = fn(
+            SK.pack_seed_params_full(dec, L, G, dt), t(x["seed_vec"]),
+            torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]),
+            dec.embed_pl2sa_r(t(x["pl_r_raw"])), t(x["pl_mask"]),
+            t(x["agent_col"]), dec.embed_a2sa_r(t(x["a2sa_r_raw"])),
+            t(x["a2sa_mask"]), t(x["occ_vec"]), H, Hd)
+    return torch.cat([small[0, :2], small[1, :3], small[2, :3],
+                      pos]).numpy()
+
+
+@pytest.mark.parametrize("case", ["masked", "agents_all_masked",
+                                  "map_all_masked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seed_eval_full_matches_jax_kernel(setup, dtype, case):
+    _, p, jdec, G, model = setup
+    x = _inputs(G, case == "agents_all_masked", case == "map_all_masked")
+    jdt = None if dtype == "float32" else jnp.bfloat16
+    tdt = None if dtype == "float32" else torch.bfloat16
+    np.testing.assert_allclose(_torch_eval_full(model, G, x, tdt),
+                               _jax_eval_full(jdec, p, G, x, jdt),
+                               atol=TOL[dtype], rtol=0)
+
+
+def test_seed_eval_full_matches_precomputed_path(setup):
+    """At fp32 nothing is rounded, so the full evaluation equals the
+    evaluation from K/V precomputed outside (the two differ at bf16 only:
+    the non-full path rounds the map K/V sum to bf16)."""
+    _, _, _, G, model = setup
+    x = _inputs(G, False)
+    np.testing.assert_allclose(_torch_eval_full(model, G, x, None),
+                               _torch_eval(model, G, x, None), atol=1e-5,
+                               rtol=0)
+
+
+def test_full_wrapper_takes_plain_version_on_cpu(setup):
+    _, _, _, G, model = setup
+    x = _inputs(G, False)
+    before = SK.seed_eval_full_kernel.launches
+    np.testing.assert_array_equal(
+        _torch_eval_full(model, G, x, None, fn=SK.seed_eval_full_kernel),
+        _torch_eval_full(model, G, x, None))
+    assert SK.seed_eval_full_kernel.launches == before
+
+
+def test_full_wrapper_rejects_other_devices(setup):
+    _, _, _, G, model = setup
+    pack = SK.pack_seed_params_full(model.agent_decoder, L, G)
+    meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype,
+                                                       device="meta")
+    b = torch.bool
+    with pytest.raises(ValueError):
+        SK.seed_eval_full_kernel(pack, meta(D), meta(L, P, D), meta(L, P, D),
+                                 meta(P, D), meta(P, dtype=b), meta(A, D),
+                                 meta(A, D), meta(A, dtype=b),
+                                 meta(G, dtype=b), H, Hd)
