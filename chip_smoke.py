@@ -9,20 +9,25 @@ before the last line):
   device   the card's name and power limit (nvidia-smi), torch and CUDA
   build    seconds to compile every kernel under infgen_torch/ops/csrc
   kernels  each hand-written kernel (seed_eval, seed_eval_full, refine,
-           motion_column) against its plain PyTorch version on the card at
-           the flagship shapes, fp32 and bf16, over its mask cases, with its
-           time, the plain version's time and its bound
+           motion_column, fused_attention_block, r_biased_attention)
+           against its plain PyTorch version on the card at the flagship
+           shapes, fp32 and bf16 (r_biased_attention: fp32, its only type),
+           over its mask cases, with its time, the plain version's time and
+           its bound
   parity   a small closed-loop rollout on the card (through the kernels)
            equal to the same rollout on the CPU (through the plain
            versions), with the flagship's flags and, as `parity_latency`,
-           with the latency preset's three kernel flags
-  rollout  the flagship rollout (configs/ours_long_term.yaml) and the
-           latency preset's (configs/ours_long_term_latency.yaml), each at
-           full width, 300 frames = 60 token steps, bf16, random weights
-           from the config's seed, through the command line's rollout
-           function: once without forced insertion (the seed head biased to
-           decline) and once with it, with every kernel's launch count of
-           that run
+           `parity_fused` and `parity_pallas`, with the latency preset's
+           three kernel flags, with use_fused_block, with
+           use_pallas_attention
+  rollout  the flagship rollout (configs/ours_long_term.yaml), its two
+           variants (use_fused_block, use_pallas_attention: the command
+           line's --fused-block / --pallas-attention) and the latency
+           preset's (configs/ours_long_term_latency.yaml), each at full
+           width, 300 frames = 60 token steps, bf16, random weights from the
+           config's seed, through the command line's rollout function: once
+           without forced insertion (the seed head biased to decline) and
+           once with it, with every kernel's launch count of that run
 
 then the summary line of every kernel ({"kernels": [...]}) and, last, the
 device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
@@ -79,6 +84,19 @@ MEAN_TOL = {"seed_eval": {F32: 1e-5, BF16: 1e-4},
             "motion_column": {F32: 1e-5, BF16: 2e-3}}
 E2E_TOL = {"seed_eval_full": {F32: 1e-4, BF16: 5e-2},
            "motion_column": {F32: 1e-4, BF16: 0.5}}
+# fused_attention_block and r_biased_attention compute in fp32 whatever
+# their inputs' type (the TPU kernels' recipe: no operand rounding), so both
+# are held to fp32 limits, the bf16 policy's check too: there the fused
+# block takes bf16-valued inputs as fp32 tensors. With bf16 tensors (the
+# rollout's) the block rounds its fp32 result to bf16 on both sides, and a
+# last-bit difference may round to the neighbouring bf16 value: each output
+# is held to the fp32 limit plus one bf16 step of the plain version's
+# (BF16_STEP |ref|).
+TOL.update({"fused_attention_block": {F32: 1e-4, BF16: 1e-4},
+            "r_biased_attention": {F32: 1e-4}})
+MEAN_TOL.update({"fused_attention_block": {F32: 1e-5, BF16: 1e-5},
+                 "r_biased_attention": {F32: 1e-5}})
+BF16_STEP = 2.0 ** -7
 SOURCES = {"seed_eval": ("infgen_torch/ops/csrc/seed_eval.cu",
                          "infgen_tpu/ops/seed_kernel.py:286"),
            "seed_eval_full": ("infgen_torch/ops/csrc/seed_eval_full.cu",
@@ -86,8 +104,30 @@ SOURCES = {"seed_eval": ("infgen_torch/ops/csrc/seed_eval.cu",
            "refine": ("infgen_torch/ops/csrc/refine.cu",
                       "infgen_tpu/ops/refine_kernel.py:192"),
            "motion_column": ("infgen_torch/ops/csrc/motion_column.cu",
-                             "infgen_tpu/ops/column_kernel.py:291")}
+                             "infgen_tpu/ops/column_kernel.py:291"),
+           "fused_attention_block": ("infgen_torch/ops/csrc/fused_block.cu",
+                                     "infgen_tpu/ops/fused_block.py:123"),
+           "r_biased_attention": (
+               "infgen_torch/ops/csrc/r_biased_attention.cu",
+               "infgen_tpu/ops/pallas_attention.py:111")}
+# why library_ms is null: no single PyTorch call computes the function
+NO_LIBRARY = {
+    "seed_eval": "no single PyTorch call computes the nine-sublayer chain",
+    "seed_eval_full": "no single call computes the precompute and stack",
+    "refine": "no single call computes the six-sublayer pass and heads",
+    "motion_column": "no single call computes 18 relation-biased sublayers",
+    "fused_attention_block": "no single call computes a whole DenseAttention "
+                             "layer (attention, gated update, FFN)",
+    "r_biased_attention": "scaled_dot_product_attention takes an additive "
+                          "score bias but cannot add a per-pair bias to V"}
 KERNEL_LAUNCHES, PLAIN_CALLS = 200, 30   # timed calls per kernel / plain
+# the main paths, in the order driven: (config, flags replaced on it, the
+# kernels whose launches the kernels line reports from it)
+MAIN_PATHS = (
+    (FLAGSHIP, {}, ("seed_eval",)),
+    (FLAGSHIP, dict(use_fused_block=True), ("fused_attention_block",)),
+    (FLAGSHIP, dict(use_pallas_attention=True), ("r_biased_attention",)),
+    (LATENCY, {}, ("seed_eval_full", "refine", "motion_column")))
 # the unforced rollouts: shift of the seed state head's "enter" logit (see
 # run_preset)
 ENTER_LOGIT_SHIFT = -30.0
@@ -418,7 +458,8 @@ def finish(kernel, dtype, errs, means, ms, plain_ms, nbytes, macs,
                mean_tolerance=mean_tol, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes, operations=2 * (macs + macs_f32), **extra)
+               bytes=nbytes, operations=2 * (macs + macs_f32),
+               library_ms=None, library_none=NO_LIBRARY[kernel], **extra)
     emit("kernels", kernel=kernel, **res)
     require(res["max_abs_err"] <= tol and res["mean_abs_err"] <= mean_tol,
             f"{kernel} {dtype} disagrees with its plain version: max {errs} "
@@ -442,6 +483,54 @@ def _err(got, ref, what):
     return float(d.max()), float(d.mean())
 
 
+class NearTieRounder:
+    """Rounds matmul operands to bf16 as the plain version does (its
+    `round_operand` hook), listing every operand that lies within `eps` bf16
+    steps of a rounding midpoint, where a kernel summing in another order
+    may round to the other neighbour; with `flip` = (call, index) it rounds
+    that one operand the other way."""
+
+    def __init__(self, flip=None, eps=1e-3):
+        self.flip, self.eps, self.calls, self.sites = flip, eps, 0, []
+
+    def __call__(self, x):
+        r = x.to(BF16).float()
+        bits = r.to(BF16).view(torch.int16).to(torch.int32)
+        # the neighbour on x's side of r: one step away from 0 when |x| >
+        # |r|, one step towards it otherwise (bf16 bits order by magnitude)
+        away = (x.abs() > r.abs()).to(torch.int32) * 2 - 1
+        other = (bits + away).to(torch.int16).view(BF16).float()
+        ok = (r != 0) & (x != r) & torch.isfinite(other)
+        tie = ((x - (r + other) / 2).abs() / (other - r).abs()).masked_fill(
+            ~ok, float("inf"))
+        for i in torch.nonzero(tie.reshape(-1) < self.eps).flatten().tolist():
+            self.sites.append((self.calls, i, float(tie.reshape(-1)[i])))
+        if self.flip is not None and self.flip[0] == self.calls:
+            r = r.reshape(-1).clone()
+            r[self.flip[1]] = other.reshape(-1)[self.flip[1]]
+            r = r.reshape(x.shape)
+        self.calls += 1
+        return r
+
+
+def explain_by_one_flip(plain, got, limit):
+    """Whether the kernel's output `got` is the plain version's with one
+    bf16 rounding near-tie resolved the other way: `plain(rounder)` runs
+    the plain version with a NearTieRounder. Returns (max abs error after
+    the best flip, that flip's (call, index, distance to the midpoint in
+    bf16 steps), near-ties found) or None when no near-tie exists."""
+    finder = NearTieRounder()
+    plain(finder)
+    best = None
+    for site in sorted(finder.sites, key=lambda t: t[2])[:32]:
+        e = _err(got, plain(NearTieRounder(flip=site[:2])), "flip search")[0]
+        if best is None or e < best[0]:
+            best = (e, site)
+        if e <= limit:
+            break
+    return None if best is None else (*best, len(finder.sites))
+
+
 def check_seed_eval(cfg, attr, dev):
     """seed_eval kernel vs seed_eval_reference on the card at the flagship
     shapes, in fp32 and bf16, over three mask cases; times at each dtype."""
@@ -455,6 +544,7 @@ def check_seed_eval(cfg, attr, dev):
         pdt = None if dtype == F32 else dtype
         pack = SK.pack_seed_params(dec, L, G, pdt)
         errs, means = {}, {}
+        raw, flips = {}, {}
         for case in ("masked", "map_all_masked", "agents_all_masked"):
             args = seed_eval_inputs(dec, cfg, G, pdt,
                                     np.random.default_rng(23), case, dev)
@@ -464,6 +554,27 @@ def check_seed_eval(cfg, attr, dev):
             torch.cuda.synchronize()
             errs[case], means[case] = _err(got, ref,
                                            f"seed_eval {dtype} {case}")
+            raw[case] = errs[case]
+            if dtype == BF16 and (errs[case] > TOL["seed_eval"][dtype]
+                                  or means[case] > MEAN_TOL["seed_eval"][
+                                      dtype]):
+                # a one-row chain carries one rounding near-tie, resolved
+                # the other way by the kernel's summation order, into every
+                # later value; held instead: the plain version with that
+                # one operand flipped must give the kernel's output within
+                # the fp32 limit
+                with torch.no_grad():
+                    found = explain_by_one_flip(
+                        lambda rnd: SK.seed_eval_reference(
+                            pack, *args, H, Hd, round_operand=rnd),
+                        got, TOL["seed_eval"][F32])
+                if found is not None and found[0] <= TOL["seed_eval"][F32]:
+                    flips[case] = dict(after_flip_max_abs_err=found[0],
+                                       operand_call=found[1][0],
+                                       operand_index=found[1][1],
+                                       bf16_steps_from_midpoint=found[1][2],
+                                       near_ties=found[2])
+                    errs[case] = means[case] = found[0]
         args = seed_eval_inputs(dec, cfg, G, pdt, np.random.default_rng(23),
                                 "masked", dev)
         with torch.no_grad():
@@ -475,7 +586,9 @@ def check_seed_eval(cfg, attr, dev):
             outs = SK.seed_eval_kernel(pack, *args, H, Hd)
         results[dtype] = finish("seed_eval", dtype, errs, means, ms,
                                 plain_ms,
-                                *seed_eval_cost(pack, args, outs))
+                                *seed_eval_cost(pack, args, outs),
+                                raw_max_abs_err=max(raw.values()),
+                                raw_errors=raw, explained_by_one_flip=flips)
     return results
 
 
@@ -626,6 +739,237 @@ def check_motion_column(cfg, attr, dev):
     return results
 
 
+# the fused block's cases: (name, the trunk sublayer whose module it
+# takes, key mode); the first three are the rollout's calls
+FUSED_CASES = (("temporal", "t_attn_0", "per_query"),
+               ("map", "pt2a_0", "per_query"),
+               ("agent", "a2a_0", "self"),
+               ("shared", "t_attn_0", "shared"),
+               ("shared_bipartite", "pt2a_0", "shared"))
+MASK_CASES = ("random", "half", "all_valid")
+
+
+def fused_inputs(dec, cfg, kind, mode, mask_case, rng, dev):
+    """(x [A, D], x_src, r, mask) of one fused-block case at the flagship
+    shapes, fp32: the rollout's key counts (W = 12 temporal, 5 map, A agent
+    keys; 100 shared keys), relations from the model's embeddings. Mask
+    cases: random (p 0.5, row 3 fully masked, row 7 all valid), half (every
+    other key valid in every row), all valid."""
+    from infgen_torch.config import SHIFT
+
+    A, D = cfg.max_agents, cfg.hidden_dim
+    Ti = (cfg.num_recurrent_steps_val + cfg.num_historical_steps) // SHIFT
+    W = min(cfg.time_span // SHIFT, Ti)
+    K = {"temporal": W, "map": cfg.pl2a_num_neighbors, "agent": A}.get(
+        kind, 100)
+    t = _tensor(dev)
+    x = t(rng.normal(size=(A, D)))
+    src = {"self": None, "per_query": (A, K, D), "shared": (K, D)}[mode]
+    src = None if src is None else t(rng.normal(size=src))
+    with torch.no_grad():
+        if kind in ("temporal", "shared"):
+            r = dec.r_t_emb(torch.cat([_geo(rng, t, A, K),
+                                       t(rng.integers(-W, 0, (A, K, 1)))],
+                                      -1))
+        elif kind == "agent":
+            r = dec.r_a2a_emb(_geo(rng, t, A, K, radius=60.0))
+        else:
+            r = dec.r_pt2a_emb(_geo(rng, t, A, K, radius=30.0))
+    if mask_case == "random":
+        mask = torch.as_tensor(rng.uniform(size=(A, K)) < 0.5, device=dev)
+        mask[3] = False
+        mask[7] = True
+    elif mask_case == "half":
+        mask = (torch.arange(K, device=dev) % 2 == 0)[None].expand(A, K)
+    else:
+        mask = torch.ones((A, K), dtype=torch.bool, device=dev)
+    return x, src, r.float(), mask.contiguous()
+
+
+def fused_cost(pack, x, src, r, mask):
+    """(bytes, fp32 multiply-adds) of one fused-block call as this run's
+    mask needs it: the query projection and epilogue (wga, wgd, ws, wo, the
+    4D FFN: 13 D^2) of every row; per valid pair its relation projections
+    (2 D^2), score and aggregate (2 D), and with per-query keys its key's
+    projections (2 D^2); with shared or self keys the projections of the
+    keys some query reads, once. Each input row that takes part is read
+    once, the pack once, the output written once."""
+    Q, D = x.shape
+    n_pairs = int(mask.sum())
+    es = x.element_size()
+    nbytes = _nbytes(x, mask, pack.weights, pack.vectors) + Q * D * es
+    nbytes += n_pairs * D * r.element_size()
+    macs = Q * 13 * D * D + n_pairs * (2 * D * D + 2 * D)
+    if src is not None and src.dim() == 3:
+        nbytes += n_pairs * D * es
+        macs += n_pairs * 2 * D * D
+    else:
+        key_rows = int(mask.any(0).sum())
+        nbytes += 0 if src is None else key_rows * D * es
+        macs += key_rows * 2 * D * D
+    return nbytes, macs
+
+
+def check_fused_block(cfg, attr, dev):
+    """fused_attention_block kernel vs fused_attention_block_reference at
+    the flagship shapes: every key mode (per query, shared, self), bipartite
+    and not, over the mask cases, in fp32 and with bf16-valued inputs (held
+    to the fp32 limits, see TOL; and as bf16 tensors, each output within
+    one bf16 step). Timed on the rollout's three calls with bf16 tensors
+    (the bf16 policy) or fp32 ones: ms, plain ms and bound are per call,
+    averaged over the three."""
+    from infgen_torch.ops import fused_block as FB
+
+    H, kernel_name = cfg.num_heads, "fused_attention_block"
+    dec = decoder_for(cfg, attr, F32, dev)
+    packs = {name: FB.pack_fused_block(getattr(dec, name))
+             for _, name, _ in FUSED_CASES}
+    results = {}
+    for dtype in (F32, BF16):
+        errs, means, steps = {}, {}, {}
+        cast = (lambda a: a) if dtype == F32 else \
+            (lambda a: None if a is None else a.to(BF16).float())
+        for kind, name, mode in FUSED_CASES:
+            for mc in MASK_CASES:
+                x, src, r, mask = fused_inputs(
+                    dec, cfg, kind, mode, mc, np.random.default_rng(41), dev)
+                x, src, r = cast(x), cast(src), cast(r)
+                what = f"fused_attention_block {dtype} {kind} {mc}"
+                args = (packs[name], x, src, r, mask, H)
+                with torch.no_grad():
+                    got = FB.fused_attention_block(*args)
+                    ref = FB.fused_attention_block_reference(*args)
+                    if dtype == BF16:   # the same values as bf16 tensors
+                        b = lambda a: None if a is None else a.to(BF16)
+                        bargs = (packs[name], b(x), b(src), b(r), mask, H)
+                        got_b = FB.fused_attention_block(*bargs)
+                        ref_b = FB.fused_attention_block_reference(*bargs)
+                torch.cuda.synchronize()
+                errs[f"{kind}/{mc}"], means[f"{kind}/{mc}"] = _err(
+                    got, ref, what)
+                if dtype == BF16:
+                    require(got_b.dtype == BF16, f"{what}: output dtype")
+                    gb, rb = got_b.float(), ref_b.float()
+                    _err(gb, rb, what)
+                    # steps beyond the fp32 limit, in bf16 steps of |ref|
+                    over = ((gb - rb).abs() - TOL[kernel_name][F32]) \
+                        / (BF16_STEP * rb.abs()).clamp(min=1e-30)
+                    steps[f"{kind}/{mc}"] = float(over.max())
+        extra = {}
+        if dtype == BF16:
+            extra = dict(bf16_tensor_steps=max(steps.values()),
+                         bf16_tensor_limit=1.0)
+            require(extra["bf16_tensor_steps"] <= 1.0,
+                    f"fused_attention_block with bf16 tensors is more than "
+                    f"one bf16 step from its plain version: {steps}")
+        ms, plain_ms, nbytes, macs = [], [], 0, 0
+        for kind, name, mode in FUSED_CASES[:3]:
+            x, src, r, mask = fused_inputs(
+                dec, cfg, kind, mode, "random", np.random.default_rng(43),
+                dev)
+            mask = torch.as_tensor(np.random.default_rng(47).uniform(
+                size=mask.shape) < (0.5 if kind == "agent" else 0.8),
+                device=dev)
+            if dtype == BF16:
+                x, src, r = (None if a is None else a.to(BF16)
+                             for a in (x, src, r))
+            args = (packs[name], x, src, r, mask, H)
+            with torch.no_grad():
+                ms.append(median_ms(lambda: FB.fused_attention_block(*args),
+                                    KERNEL_LAUNCHES))
+                plain_ms.append(median_ms(
+                    lambda: FB.fused_attention_block_reference(*args),
+                    PLAIN_CALLS))
+            b, m = fused_cost(packs[name], x, src, r, mask)
+            nbytes, macs = nbytes + b, macs + m
+        n = len(ms)
+        results[dtype] = finish(
+            "fused_attention_block", dtype, errs, means, sum(ms) / n,
+            sum(plain_ms) / n, nbytes / n, 0, macs_f32=macs / n,
+            ms_by_call=dict(zip(("temporal", "map", "agent"), ms)),
+            plain_ms_by_call=dict(zip(("temporal", "map", "agent"),
+                                      plain_ms)), **extra)
+    return results
+
+
+def rba_inputs(rng, B, Q, K, Dr, HD, H, drop, dev, w=None):
+    """q, k, v, r, w_kr, w_vr, mask, drop of one r_biased_attention call:
+    normal values (r as the LayerNorm'd relations it stands for), a random
+    mask (p 0.5) with a fully masked query row and an all-valid one, an
+    attention-dropout multiplier (p 0.1) or None."""
+    t = _tensor(dev)
+    f = lambda *s: t(rng.normal(size=s))
+    w_kr, w_vr = w if w is not None else (f(Dr, HD) * Dr ** -0.5,
+                                          f(Dr, HD) * Dr ** -0.5)
+    mask = torch.as_tensor(rng.uniform(size=(B, Q, K)) < 0.5, device=dev)
+    mask[0, 3] = False
+    mask[0, 5] = True
+    d = None
+    if drop:
+        d = t((rng.uniform(size=(B, Q, K, H)) < 0.9) / 0.9)
+    return (f(B, Q, HD), f(B, K, HD), f(B, K, HD), f(B, Q, K, Dr),
+            w_kr.contiguous(), w_vr.contiguous(), mask, d)
+
+
+def rba_cost(args):
+    """(bytes, fp32 multiply-adds) of one call as this run's mask needs it:
+    per valid pair the two relation projections (2 Dr HD), score and
+    aggregate (2 HD); its relation row and dropout row read once; the k / v
+    rows that some query reads, the queries, weights and mask once, the
+    output written once."""
+    q, k, v, r, w_kr, w_vr, mask, drop = args
+    B, Q, HD = q.shape
+    Dr = r.shape[-1]
+    n_pairs = int(mask.sum())
+    key_rows = int(mask.any(1).sum())
+    nbytes = _nbytes(q, w_kr, w_vr, mask) + q.numel() * 4       # + output
+    nbytes += key_rows * 2 * HD * 4 + n_pairs * Dr * 4
+    if drop is not None:
+        nbytes += n_pairs * drop.shape[-1] * 4
+    return nbytes, n_pairs * (2 * Dr * HD + 2 * HD)
+
+
+def check_r_biased_attention(cfg, attr, dev):
+    """r_biased_attention kernel vs r_biased_attention_reference in fp32
+    (its only type): the rollout's agent-agent call (B = 1, Q = K = A,
+    Dr = HD = D, the flagship's a2a_0 projections) and a bipartite call
+    (B = 2, Q = 40, K = 300: three key tiles of the TPU kernel), each
+    without and with an attention-dropout multiplier. Timed at the
+    rollout's shape without dropout."""
+    from infgen_torch.ops import pallas_attention as PA
+
+    A, D, H = cfg.max_agents, cfg.hidden_dim, cfg.num_heads
+    a2a = decoder_for(cfg, attr, F32, dev).a2a_attn_layers[0]
+    w = (a2a.w_kr.detach(), a2a.w_vr.detach())
+    shapes = {"rollout": (1, A, A, D, w), "bipartite": (2, 40, 300, D, None)}
+    errs, means = {}, {}
+    for name, (B, Q, K, Dr, ww) in shapes.items():
+        for drop in (False, True):
+            args = rba_inputs(np.random.default_rng(53), B, Q, K, Dr, D, H,
+                              drop, dev, ww)
+            with torch.no_grad():
+                got = PA.r_biased_attention(*args[:7], H, args[7])
+                ref = PA.r_biased_attention_reference(*args[:7], H, args[7])
+            torch.cuda.synchronize()
+            case = f"{name}{'/drop' if drop else ''}"
+            errs[case], means[case] = _err(got, ref,
+                                           f"r_biased_attention {case}")
+            require(float(got[0, 3].abs().max()) == 0.0,
+                    f"r_biased_attention {case}: a fully masked query is "
+                    "not 0")
+    args = rba_inputs(np.random.default_rng(59), 1, A, A, D, D, H, False,
+                      dev, w)
+    with torch.no_grad():
+        ms = median_ms(lambda: PA.r_biased_attention(*args[:7], H),
+                       KERNEL_LAUNCHES)
+        plain_ms = median_ms(
+            lambda: PA.r_biased_attention_reference(*args[:7], H),
+            PLAIN_CALLS)
+    nbytes, macs = rba_cost(args)
+    return {F32: finish("r_biased_attention", F32, errs, means, ms,
+                        plain_ms, nbytes, 0, macs_f32=macs)}
+
+
 # --------------------------------------------------------------------- #
 # rollouts
 # --------------------------------------------------------------------- #
@@ -665,21 +1009,29 @@ def check_rollout(out, cfg, n_steps):
     require(active.sum() <= A, "more active slots than slots")
 
 
-def check_parity(dev, latency=False):
+# the parity phases: name -> kernel flags on top of the flagship's
+PARITY_FLAGS = {
+    "parity": {},
+    "parity_latency": dict(use_seed_kernel_full=True, use_refine_kernel=True,
+                           use_column_kernel=True),
+    "parity_fused": dict(use_fused_block=True),
+    "parity_pallas": dict(use_pallas_attention=True)}
+
+
+def check_parity(dev, phase):
     """A small rollout on the card (kernels in fp32) against the same
     rollout on the CPU (plain versions): beam 1 makes both deterministic, so
     token, state and insertion decisions must be equal and poses agree
-    within POSE_TOL. `latency` turns on the latency preset's three kernel
-    flags."""
-    from infgen_torch.cli import build_model, build_tokenizers
+    within POSE_TOL. `phase` names the kernel flags (PARITY_FLAGS)."""
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches)
     from infgen_torch.config import Config
     from infgen_torch.data.features import build_model_inputs
     from infgen_torch.data.scenario import to_device
     from infgen_torch.data.synthetic import make_synthetic_scenario
     from infgen_torch.rollout.closed_loop import make_rollout_fn
 
-    flags = dict(use_seed_kernel_full=True, use_refine_kernel=True,
-                 use_column_kernel=True) if latency else {}
+    flags = PARITY_FLAGS[phase]
     cfg = Config(max_agents=16, max_map_tokens=128, num_agent_layers=3,
                  num_seed_layers=3, num_map_layers=1, hidden_dim=32,
                  num_heads=2, head_dim=16, num_freq_bands=8,
@@ -690,6 +1042,8 @@ def check_parity(dev, latency=False):
     scen = make_synthetic_scenario(cfg, seed=2, num_agents=10)
     uniform = np.random.default_rng(5).uniform(size=cfg.max_map_tokens)
     outs = {}
+    for fn in KERNELS.values():
+        fn.launches = 0
     for d in ("cpu", dev):
         model = build_model(cfg, attr, d)
         s = to_device(scen, d)
@@ -700,6 +1054,7 @@ def check_parity(dev, latency=False):
         fn = make_rollout_fn(model, cfg, attr, mt, mv, force_insert=True)
         out = fn(s, inputs, torch.Generator(device=d).manual_seed(0))
         outs[str(d)] = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    launches = kernel_launches()
     cpu, gpu = outs["cpu"], outs[str(dev)]
     exact = ("next_token_idx", "next_state_idx", "slot_active", "n_inserted",
              "per_step_inserted", "grid_index", "pred_type", "valid_mask")
@@ -707,21 +1062,25 @@ def check_parity(dev, latency=False):
              "pred_shape", "seed_probs")
     mismatched = [k for k in exact if not np.array_equal(cpu[k], gpu[k])]
     pose_err = max(float(np.abs(cpu[k] - gpu[k]).max()) for k in close)
-    emit("parity_latency" if latency else "parity",
-         config="A=16 P=128 D=32 L=3 fp32 beam 1 force_insert"
-         + (" latency kernels" if latency else ""),
+    emit(phase, config="A=16 P=128 D=32 L=3 fp32 beam 1 force_insert",
+         flags=flags, launches={k: n for k, n in launches.items() if n},
          inserted=int(gpu["n_inserted"]), mismatched=mismatched,
          max_pose_err=pose_err, tolerance=POSE_TOL)
     require(not mismatched, f"cuda and cpu rollouts differ in {mismatched}")
     require(pose_err <= POSE_TOL, f"pose error {pose_err} > {POSE_TOL}")
     require(int(gpu["n_inserted"]) > 0, "parity run inserted no agent")
+    for flag, kernel in (("use_fused_block", "fused_attention_block"),
+                         ("use_pallas_attention", "r_biased_attention")):
+        require(not flags.get(flag) or launches[kernel] > 0,
+                f"{phase}: {kernel} never launched")
 
 
-def run_preset(path, dev):
-    """The main path of one config: the command line's rollout function on
-    the card at full width, without and with forced insertion. Every kernel
-    count is set to 0 just before and read just after; each run's summary
-    carries its own counts.
+def run_preset(path, dev, **flags):
+    """The main path of one config (with `flags` replaced on it, as the
+    command line's --fused-block / --pallas-attention do): the command
+    line's rollout function on the card at full width, without and with
+    forced insertion. Every kernel count is set to 0 just before and read
+    just after; each run's summary carries its own counts.
 
     The random seed state head asks to enter on every evaluation, which
     would make the unforced run repeat the forced one. So its "enter" logit
@@ -732,7 +1091,7 @@ def run_preset(path, dev):
                                   kernel_launches, run_rollouts)
     from infgen_torch.config import SHIFT, load_config
 
-    cfg = load_config(path)
+    cfg = load_config(path).replace(**flags)
     n_steps = cfg.num_recurrent_steps_val // SHIFT
     tokenizers = build_tokenizers(cfg)
     model = build_model(cfg, tokenizers[0], dev)
@@ -750,7 +1109,7 @@ def run_preset(path, dev):
         check_rollout(outs[0], cfg, n_steps)
         runs.append(summary)
     launches = kernel_launches()
-    emit("rollout", config=os.path.relpath(path, ROOT),
+    emit("rollout", config=os.path.relpath(path, ROOT), flags=flags,
          width=dict(D=cfg.hidden_dim, agent_layers=cfg.num_agent_layers,
                     seed_layers=cfg.num_seed_layers, A=cfg.max_agents,
                     P=cfg.max_map_tokens, frames=cfg.num_recurrent_steps_val),
@@ -786,6 +1145,20 @@ def run_preset(path, dev):
             require(k["refine"] >= sum(s["agents_inserted"]),
                     f"refine launched {k['refine']} times for "
                     f"{sum(s['agents_inserted'])} inserts")
+    # each trunk sublayer is one fused call; the agent-agent sublayer of
+    # each layer is the only attention call that passes the eligibility
+    # rule (the temporal and map calls have one query, the seed path runs
+    # its kernel, the map encoder one query per token)
+    per_step = {"fused_attention_block": 3 * cfg.num_agent_layers
+                if cfg.use_fused_block and not cfg.use_column_kernel else 0,
+                "r_biased_attention": cfg.num_agent_layers
+                if cfg.use_pallas_attention and not (
+                    cfg.use_fused_block or cfg.use_column_kernel) else 0}
+    for s in runs:
+        for k, n in per_step.items():
+            require(s["kernel_launches"][k] == n * n_steps,
+                    f"{k} launched {s['kernel_launches'][k]} times, not "
+                    f"{n} x {n_steps}")
     used = [n for n, c in launches.items() if c > 0]
     require(used, f"no kernel of the path launched: {launches}")
     return launches
@@ -822,28 +1195,31 @@ def main():
     checks = {"seed_eval": check_seed_eval(cfg, attr, dev),
               "seed_eval_full": check_seed_eval_full(lat, attr, dev),
               "refine": check_refine(lat, attr, dev),
-              "motion_column": check_motion_column(lat, attr, dev)}
-    check_parity(dev)
-    check_parity(dev, latency=True)
+              "motion_column": check_motion_column(lat, attr, dev),
+              "fused_attention_block": check_fused_block(cfg, attr, dev),
+              "r_biased_attention": check_r_biased_attention(cfg, attr,
+                                                             dev)}
+    for phase in PARITY_FLAGS:
+        check_parity(dev, phase)
     # each kernel's launches on the main path that runs it
-    launches = run_preset(FLAGSHIP, dev)
-    launches.update({k: n for k, n in run_preset(LATENCY, dev).items()
-                     if k != "seed_eval"})
+    launches = {}
+    for path, flags, kernels in MAIN_PATHS:
+        run = run_preset(path, dev, **flags)
+        launches.update({k: run[k] for k in kernels})
     missing = [k for k in checks if launches[k] == 0]
     require(not missing, f"kernels never launched on a main path: {missing}")
 
     main_dt = BF16 if cfg.compute_dtype in ("bfloat16", "bf16") else F32
     line = []
     for name, res in checks.items():
-        r = res[main_dt]
+        r = res.get(main_dt, res[F32])
         source, replaces = SOURCES[name]
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
+            launches=launches[name],
+            max_abs_err=r.get("raw_max_abs_err", r["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"],
-            # no single PyTorch call computes any of these sublayer chains
-            library_ms=None))
+            bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,16 @@
 
   python -m infgen_torch.cli rollout --config configs/ours_long_term.yaml \
       --synthetic [--device cuda|cpu] [--force-insert] [--num-scenarios N] \
-      [--params converted.npz]
+      [--params converted.npz] [--fused-block] [--pallas-attention]
 
 Weights come from `cfg.seed` through a torch.Generator, or from a flax
 params tree converted with `convert.save_npz`. The command runs
 `--num-scenarios` closed-loop rollouts on synthetic scenarios and prints one
-JSON summary line. Training, WOSAC scoring and the Waymo loader belong to
-later slices of the port.
+JSON summary line. `--fused-block` and `--pallas-attention` turn on
+`use_fused_block` / `use_pallas_attention` on the loaded config (the JAX
+package's `scripts/profile_rollout.py --fused` and bench.py's
+INFGEN_BENCH_FUSED / INFGEN_BENCH_PALLAS). Training, WOSAC scoring and the
+Waymo loader belong to later slices of the port.
 """
 
 import argparse
@@ -26,6 +29,8 @@ from infgen_torch.data.synthetic import make_synthetic_scenario
 from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.model.layers import init_params
 from infgen_torch.ops import column_kernel as CK
+from infgen_torch.ops import fused_block as FB
+from infgen_torch.ops import pallas_attention as PA
 from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_kernel as SKN
 from infgen_torch.rollout.closed_loop import make_rollout_fn
@@ -41,12 +46,32 @@ from infgen_torch.utils.device import resolve_device
 KERNELS = {"seed_eval": SKN.seed_eval_kernel,
            "seed_eval_full": SKN.seed_eval_full_kernel,
            "refine": RFK.refine_kernel,
-           "motion_column": CK.motion_column_kernel}
+           "motion_column": CK.motion_column_kernel,
+           "fused_attention_block": FB.fused_attention_block,
+           "r_biased_attention": PA.r_biased_attention}
 
 
 def kernel_launches():
     """{kernel name: launches so far}."""
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_variant_flags(p: argparse.ArgumentParser):
+    """The rollout variants' flags, shared with trace_rollout."""
+    p.add_argument("--fused-block", action="store_true",
+                   help="use_fused_block=True: each trunk sublayer as one "
+                        "fused_attention_block kernel")
+    p.add_argument("--pallas-attention", action="store_true",
+                   help="use_pallas_attention=True: eligible attention "
+                        "through the r_biased_attention kernel")
+
+
+def apply_variant_flags(cfg: Config, args) -> Config:
+    if args.fused_block:
+        cfg = cfg.replace(use_fused_block=True)
+    if args.pallas_attention:
+        cfg = cfg.replace(use_pallas_attention=True)
+    return cfg
 
 
 def build_tokenizers(cfg: Config):
@@ -144,10 +169,11 @@ def main(argv=None):
                    help="10 Hz frames to roll out (default from the config)")
     p.add_argument("--params", default=None,
                    help="converted flax params (.npz from convert.save_npz)")
+    add_variant_flags(p)
     args = p.parse_args(argv)
     if not args.synthetic:
         p.error("only --synthetic scenarios are ported so far")
-    cfg = load_config(args.config)
+    cfg = apply_variant_flags(load_config(args.config), args)
     _, summary = run_rollouts(
         cfg, args.device, args.num_scenarios, args.force_insert, args.params,
         args.num_recurrent_steps)

@@ -16,6 +16,7 @@ from infgen_torch.model.layers import (DenseAttention, Embed,
                                        FourierEmbedding, MLPEmbedding,
                                        MLPLayer)
 from infgen_torch.ops import column_kernel as CK
+from infgen_torch.ops import fused_block as FB
 from infgen_torch.ops.precision import compute_dtype_of
 from infgen_torch.utils.geometry import angle_between_2d_vectors
 
@@ -68,9 +69,10 @@ class AgentDecoder(nn.Module):
         def mk(bip, pos, name, n):
             layers = []
             for i in range(n):
-                layer = DenseAttention(D, cfg.num_heads, cfg.head_dim,
-                                       bipartite=bip, has_pos_emb=pos,
-                                       dtype=dt)
+                layer = DenseAttention(
+                    D, cfg.num_heads, cfg.head_dim, bipartite=bip,
+                    has_pos_emb=pos, use_pallas=cfg.use_pallas_attention,
+                    dtype=dt)
                 setattr(self, f"{name}_{i}", layer)
                 layers.append(layer)
             return layers
@@ -170,7 +172,7 @@ class AgentDecoder(nn.Module):
 
     def motion_column(self, x_c, key_stack, t_r_raw, t_mask, a2a_r_raw,
                       a2a_mask, pl_keys, pl_r_raw, pl_mask, n_rows=None,
-                      column_pack=None):
+                      column_pack=None, fused_packs=None):
         """The trunk for ONE token column.
 
         x_c [A, D]; key_stack [L, A, W, D]; t_r_raw [A, W, 4]; t_mask [A, W];
@@ -184,6 +186,12 @@ class AgentDecoder(nn.Module):
         rollout; packed here when None). n_rows: optional int32 device
         scalar, the occupancy bound the kernel skips rows at; rows at or
         above it must have every key masked. The module path ignores it.
+
+        With `cfg.use_fused_block` (and not the column kernel, which takes
+        precedence) each of the 3L sublayers is one call of
+        ops/fused_block, its parameters from `fused_packs`
+        (pack_column_blocks, built once per rollout; packed here when
+        None).
         """
         r_t = self.r_t_emb(t_r_raw)
         r_aa = self.r_a2a_emb(a2a_r_raw)
@@ -205,7 +213,20 @@ class AgentDecoder(nn.Module):
             return cols, cols[-1]
         x = x_c
         new_cols = []
-        for i in range(self.cfg.num_agent_layers):
+        L, H = self.cfg.num_agent_layers, self.cfg.num_heads
+        if self.cfg.use_fused_block:
+            packs = fused_packs or FB.pack_column_blocks(self, L)
+            x = x_c.contiguous()
+            for i in range(L):
+                x = FB.fused_attention_block(packs[3 * i], x, key_stack[i],
+                                             r_t, t_mask, H)
+                x = FB.fused_attention_block(packs[3 * i + 1], x, pl_keys,
+                                             r_pl, pl_mask, H)
+                x = FB.fused_attention_block(packs[3 * i + 2], x, None, r_aa,
+                                             a2a_mask, H)
+                new_cols.append(x)
+            return torch.stack(new_cols), x
+        for i in range(L):
             x = self.t_attn_layers[i](
                 x[:, None, :], key_stack[i], r_t[:, None, :, :],
                 t_mask[:, None, :])[:, 0, :]

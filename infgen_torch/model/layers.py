@@ -9,10 +9,12 @@ converted flax tree fills these modules by name (convert.py):
     because they are used as `r_n @ w_kr`.
 
 Compute-dtype policy (ops/precision.py): with `dtype=bfloat16` a Dense casts
-its input, weight and bias to bf16 (fp32 accumulation inside the matmul);
+its input, weight and bias to bf16 (fp32 accumulation inside the matmul,
+the product rounded to bf16 before the bias is added, as flax does);
 with `dtype=None` it computes in the promotion of its input and float32.
 LayerNorm statistics are fp32 with eps 1e-6 (flax's default, not torch's
-1e-5), the output cast to the module dtype. Attention scores and softmax are
+1e-5), the output cast to the module dtype; a bf16 sigmoid rounds as XLA's
+does (`sigmoid`). Attention scores and softmax are
 fp32.
 """
 
@@ -29,6 +31,17 @@ LN_EPS = 1e-6
 def _out_dtype(x, dtype):
     return dtype if dtype is not None else torch.promote_types(x.dtype,
                                                                torch.float32)
+
+
+def sigmoid(x):
+    """jax.nn.sigmoid as XLA evaluates it: 1 / (1 + exp(-x)) with each step
+    rounded to x's dtype. Under bf16 that is three roundings, where
+    torch.sigmoid rounds once and differs in the last bit on about a third
+    of the values. fp32 keeps torch.sigmoid: one kernel instead of three,
+    equal within fp32 rounding."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def layer_norm_fp32(v, weight, bias, dtype=None):
@@ -53,8 +66,15 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = _out_dtype(x, self.dtype)
-        b = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        w = self.weight.to(dt)
+        if self.bias is None or dt == torch.float32:
+            # fp32: one kernel; the fused bias equals flax's separate add
+            # within fp32 rounding
+            b = self.bias.to(dt) if self.bias is not None else None
+            return F.linear(x.to(dt), w, b)
+        # flax rounds x @ W to the compute dtype, then adds the bias in it:
+        # two roundings, where a fused bias would round once
+        return F.linear(x.to(dt), w) + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -67,14 +87,16 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
+        """`dtype` overrides the module's output dtype (flax's LayerNorm
+        built without one)."""
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
         var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
                           min=0.0)
         mul = torch.rsqrt(var + LN_EPS) * self.weight.float()
         y = (x32 - mean) * mul + self.bias.float()
-        return y.to(_out_dtype(x, self.dtype))
+        return y.to(_out_dtype(x, dtype or self.dtype))
 
 
 class Embed(nn.Module):
@@ -170,16 +192,21 @@ class DenseAttention(nn.Module):
     aggregate to zero. Pre-LN on src/dst (shared unless bipartite), K and V
     biased by the relative-geometry embedding r, gated update, post-LN
     residual, then the pre-LN FFN.
+
+    use_pallas: eligible calls (`pallas_eligible`) take the attention core
+    from ops/pallas_attention.r_biased_attention (a CUDA kernel on the card)
+    with the JAX package's precision recipe for that branch.
     """
 
     def __init__(self, hidden_dim: int, num_heads: int, head_dim: int,
                  bipartite: bool = False, has_pos_emb: bool = True,
-                 dtype=None):
+                 use_pallas: bool = False, dtype=None):
         super().__init__()
         D, HD = hidden_dim, num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
         self.bipartite, self.has_pos_emb, self.dtype = (bipartite,
                                                         has_pos_emb, dtype)
+        self.use_pallas = use_pallas
         self.prenorm_src = LayerNorm(D, dtype)
         if bipartite:
             self.prenorm_dst = LayerNorm(D, dtype)
@@ -221,6 +248,9 @@ class DenseAttention(nn.Module):
         k = k.reshape(*k.shape[:-1], H, Hd)
         v = v.reshape(*v.shape[:-1], H, Hd)
         r_per_pair = r is not None and r.dim() == x_src.dim() + 1
+        if self.pallas_eligible(x_dst, x_src, r_per_pair, mask):
+            agg = self._kernel_agg(x_dst, q, k, v, r, mask)
+            return self._epilogue(x_dst, dst_n, agg)
 
         # scores accumulate in fp32 under any compute dtype
         f32 = torch.float32
@@ -252,8 +282,43 @@ class DenseAttention(nn.Module):
         agg = agg.reshape(*agg.shape[:-2], H * Hd)
         return self._epilogue(x_dst, dst_n, agg)
 
+    def pallas_eligible(self, x_dst, x_src, r_per_pair, mask) -> bool:
+        """The JAX package's rule for the fused attention kernel: per-pair
+        r, a mask, x_dst batched [B, Q, D] or an unbatched [Q, D] x [K, D]
+        call (riding as B = 1), and at least 8 queries."""
+        unbatched = x_dst.dim() == 2 and x_src.dim() == 2
+        return (self.use_pallas and self.has_pos_emb and r_per_pair
+                and mask is not None and (x_dst.dim() == 3 or unbatched)
+                and x_dst.shape[-2] >= 8)
+
+    def _kernel_agg(self, x_dst, q, k, v, r, mask):
+        """The attention aggregate through r_biased_attention, in fp32 with
+        the JAX branch's casts: prenorm_r without the compute dtype, q and
+        k the compute-dtype projections cast up, b_vr added to v in the
+        compute dtype, w_kr / w_vr rounded to it, and the aggregate cast
+        back to x_dst's dtype."""
+        from infgen_torch.ops.pallas_attention import r_biased_attention
+
+        H, Hd = self.num_heads, self.head_dim
+        f32 = torch.float32
+        r_n = self.prenorm_r(r, dtype=f32)
+        q2 = q.reshape(*q.shape[:-2], H * Hd).to(f32)
+        k2 = k.reshape(*k.shape[:-2], H * Hd).to(f32)
+        v2 = (v.reshape(*v.shape[:-2], H * Hd)
+              + self._cast(self.b_vr)).to(f32)
+        unbatched = x_dst.dim() == 2
+        if unbatched:
+            q2, k2, v2, r_n, mask = (t[None] for t in (q2, k2, v2, r_n,
+                                                       mask))
+        agg = r_biased_attention(
+            q2.contiguous(), k2.contiguous(), v2.contiguous(),
+            r_n.contiguous(), self._cast(self.w_kr).to(f32).contiguous(),
+            self._cast(self.w_vr).to(f32).contiguous(), mask.contiguous(),
+            H).to(x_dst.dtype)
+        return agg[0] if unbatched else agg
+
     def _epilogue(self, x_dst, dst_n, agg):
-        g = torch.sigmoid(self.to_g(torch.cat([agg, dst_n], -1)))
+        g = sigmoid(self.to_g(torch.cat([agg, dst_n], -1)))
         agg = agg + g * (self.to_s(dst_n) - agg)
         x = x_dst + self.postnorm(self.to_out(agg))
         h = F.relu(self.ff_0(self.ff_prenorm(x)))
@@ -269,7 +334,7 @@ class DenseAttention(nn.Module):
         dst_n = layer_norm_fp32(x, ln.weight, ln.bias, dt)
         HD = self.to_s.weight.shape[0]
         c = self._cast
-        g = torch.sigmoid(dst_n @ c(self.to_g.weight)[:, HD:].T
+        g = sigmoid(dst_n @ c(self.to_g.weight)[:, HD:].T
                           + c(self.to_g.bias))
         agg = g * (dst_n @ c(self.to_s.weight).T + c(self.to_s.bias))
         attn_out = agg @ c(self.to_out.weight).T + c(self.to_out.bias)

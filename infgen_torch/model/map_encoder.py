@@ -36,6 +36,7 @@ class MapEncoder(nn.Module):
             setattr(self, f"pt2pt_{i}",
                     DenseAttention(D, cfg.num_heads, cfg.head_dim,
                                    bipartite=False, has_pos_emb=True,
+                                   use_pallas=cfg.use_pallas_attention,
                                    dtype=dt))
         self.token_predict_head = MLPLayer(D, D, cfg.map_token_size)
 

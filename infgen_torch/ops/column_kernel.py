@@ -52,11 +52,11 @@ class ColumnPack:
         return self.weights.dtype
 
 
-def _layouts(L: int, D: int):
-    """(name, shape) of each packed array, in the order of the pointer
-    array that csrc/motion_column.cu reads (its `Arg` enum). to_g is split
-    at row HD: `wga` takes the aggregate, `wgd` the normalised query."""
-    J = 3 * L
+def _layouts(J: int, D: int):
+    """(name, shape) of each packed array of J stacked sublayers, in the
+    order of the pointer array that csrc/dense_row.cuh reads (its `Arg`
+    enum). to_g is split at row HD: `wga` takes the aggregate, `wgd` the
+    normalised query."""
     mats = [(n, (J, D, D)) for n in ("wq", "wk", "wv", "wkr", "wvr", "wga",
                                      "wgd", "ws", "wo")]
     mats += [("wf0", (J, D, 4 * D)), ("wf1", (J, 4 * D, D))]
@@ -70,16 +70,14 @@ def _layouts(L: int, D: int):
 
 
 @torch.no_grad()
-def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
-    """Stack an AgentDecoder's L trunk layers per sublayer. Matrices go to
-    the compute dtype (`dtype`, None = fp32) in [in, out] layout; LayerNorm
-    parameters and biases stay fp32. The query LayerNorm is prenorm_dst for
-    the bipartite map layers and prenorm_src for the others."""
+def pack_sublayers(subs, dtype=None):
+    """Stack DenseAttention sublayers `subs`, a list of (module, bipartite),
+    in the layout of `_layouts`. Matrices go to `dtype` (None = fp32) in
+    [in, out] layout; LayerNorm parameters and biases stay fp32. The query
+    LayerNorm is prenorm_dst for a bipartite sublayer, prenorm_src
+    otherwise. Returns (weights, vectors, w, v, ptrs, D): the two flat
+    buffers, their per-array views and the pointer array."""
     dtype = dtype or torch.float32
-    subs = []
-    for i in range(L):
-        subs += [(getattr(decoder, f"{name}_{i}"), bip)
-                 for name, bip in _KINDS]
     st = lambda get: torch.stack([get(p, bip) for p, bip in subs])
     HD = subs[0][0].to_s.weight.shape[0]
     lnd = lambda p, bip: p.prenorm_dst if bip else p.prenorm_src
@@ -111,12 +109,25 @@ def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
         ffq_b=st(lambda p, b: p.ff_postnorm.bias),
     )
     D = parts["wq"].shape[1]
-    mats, vecs = _layouts(L, D)
+    if HD != D:
+        raise ValueError(f"packed sublayers need num_heads * head_dim == "
+                         f"hidden_dim, got {HD} != {D}")
+    mats, vecs = _layouts(len(subs), D)
     device = parts["wq"].device
     weights, w = _flat(parts, mats, dtype, device)
     vectors, v = _flat(parts, vecs, torch.float32, device)
-    return ColumnPack(weights, vectors, w, v,
-                      _ptr_array({**w, **v}, mats + vecs), L, D)
+    return weights, vectors, w, v, _ptr_array({**w, **v}, mats + vecs), D
+
+
+def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
+    """Stack an AgentDecoder's L trunk layers per sublayer j = 3l + kind
+    (pack_sublayers); matrices in the compute dtype `dtype`."""
+    subs = []
+    for i in range(L):
+        subs += [(getattr(decoder, f"{name}_{i}"), bip)
+                 for name, bip in _KINDS]
+    weights, vectors, w, v, ptrs, D = pack_sublayers(subs, dtype)
+    return ColumnPack(weights, vectors, w, v, ptrs, L, D)
 
 
 def _sublayer(pack, j, x, keys, r, mask, H, Hd, live):

@@ -40,25 +40,16 @@
 // stay in shared memory for an exact two-pass softmax. Products run on the
 // CUDA cores in fp32, not the tensor cores, and each block re-reads the
 // layer's weights from L2: wgmma tiles over pairs and a persistent
-// cooperative grid are the work of a later change.
+// cooperative grid are the work of a later change. The per-row device code
+// (query, attention, epilogue) is dense_row.cuh's, shared with
+// fused_block.cu.
 
-#include "common.cuh"
+#include "dense_row.cuh"
 
 namespace {
 
-// The packed arrays, in the order of the pointer array that
-// column_kernel.py::_layouts lays out (sublayer j = 3l + kind).
-enum Arg {
-  WQ, WK, WV, WKR, WVR, WGA, WGD, WS, WO, WF0, WF1,
-  LND_S, LND_B, LNS_S, LNS_B, LNR_S, LNR_B, BQ, BV, BVR, BG, BS, BO, POST_S,
-  POST_B, FFP_S, FFP_B, BF0, BF1, FFQ_S, FFQ_B,
-  kNumArgs
-};
-
 // per-layer hand-over from the row kernel to the agent-agent kernel
 enum Scratch { XMID, DNAA, QAA, KSH, VSH };
-
-constexpr int kTile = 16;  // keys projected per pass
 
 struct Params {
   const float* x0;         // [A, D]
@@ -77,188 +68,12 @@ struct Params {
   int L, A, W, K, D, H, Hd, nmax;
 };
 
-struct Smem {
-  float *x, *dnr, *q, *agg, *t1, *t2, *t3, *h, *xr, *part, *red, *den, *sc,
-      *vall, *sn, *rn, *kt;
-  int *idx, *scan;
-};
-
-size_t smem_floats(int D, int H, int nmax) {
-  return (size_t)15 * D + kThreads + 32 + H + nmax + kThreads / 32 + 1 +
-         (size_t)nmax * H + (size_t)nmax * D + (size_t)3 * kTile * D;
-}
-
-__device__ Smem carve(float* base, int D, int H, int nmax) {
-  Smem s;
-  s.x = base;              // [D] running feature of this row
-  s.dnr = s.x + D;         // [D] LN(x) on the query side, rounded
-  s.q = s.dnr + D;         // [D]
-  s.agg = s.q + D;         // [D]
-  s.t1 = s.agg + D;        // [D]
-  s.t2 = s.t1 + D;         // [D]
-  s.t3 = s.t2 + D;         // [D]
-  s.h = s.t3 + D;          // [4D]
-  s.xr = s.h + 4 * D;      // [4D] rounded matmul input
-  s.part = s.xr + 4 * D;   // [blockDim]
-  s.red = s.part + kThreads;  // [32]
-  s.den = s.red + 32;      // [H]
-  s.idx = reinterpret_cast<int*>(s.den + H);  // [nmax]
-  s.scan = s.idx + nmax;   // [blockDim / 32 + 1]
-  s.sc = reinterpret_cast<float*>(s.scan + kThreads / 32 + 1);  // [nmax, H]
-  s.vall = s.sc + (size_t)nmax * H;   // [nmax, D] values of valid keys
-  s.sn = s.vall + (size_t)nmax * D;   // [kTile, D]
-  s.rn = s.sn + kTile * D;            // [kTile, D]
-  s.kt = s.rn + kTile * D;            // [kTile, D]
-  return s;
-}
-
-template <typename T>
-__device__ __forceinline__ const T* mat(const Params& p, Arg a, int j,
-                                        size_t per) {
-  return static_cast<const T*>(p.w[a]) + (size_t)j * per;
-}
-
-__device__ __forceinline__ const float* vec(const Params& p, Arg a, int j,
-                                            int per) {
-  return static_cast<const float*>(p.w[a]) + (size_t)j * per;
+__device__ __forceinline__ Sub sub(const Params& p, int j) {
+  return Sub{p.w, j, p.D, p.H, p.Hd};
 }
 
 __device__ __forceinline__ bool live_row(const Params& p, int a) {
   return a < (p.n_rows ? *p.n_rows : p.A);
-}
-
-// agg = masked-softmax attention of q over the N keys of sublayer j: key
-// row k is LN(keys[k]) projected by to_k / to_v (or, with keys null, the
-// shared ksh[k] / vsh[k] of the agent-agent sublayer), plus the relation
-// terms LN(rel[k]) w_kr and LN(rel[k]) w_vr + b_vr. Only keys with
-// mask[k] are read; no valid key gives agg = 0.
-template <typename T>
-__device__ void attend_row(const Params& p, int j, const T* keys,
-                           const T* rel, const uint8_t* mask, int N,
-                           const float* ksh, const float* vsh, const Smem& s) {
-  const int D = p.D, H = p.H, Hd = p.Hd, tid = threadIdx.x, bd = blockDim.x;
-  const size_t DD = (size_t)D * D;
-  const float scale = 1.f / sqrtf((float)Hd);
-  const int n = compact(mask, N, s.idx, s.scan);
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int m = min(kTile, n - t0);
-    float* vt = s.vall + (size_t)t0 * D;
-    for (int i = tid; i < m * D; i += bd) {
-      const size_t o = (size_t)s.idx[t0 + i / D] * D + i % D;
-      s.rn[i] = to_f(rel[o]);
-      if (keys) s.sn[i] = to_f(keys[o]);
-    }
-    __syncthreads();
-    rows_ln<T, true>(s.rn, D, s.rn, D, m, D, vec(p, LNR_S, j, D),
-                     vec(p, LNR_B, j, D));
-    rows_mm<T>(s.rn, D, m, D, mat<T>(p, WKR, j, DD), D, nullptr, s.kt, D,
-               false);
-    rows_mm<T>(s.rn, D, m, D, mat<T>(p, WVR, j, DD), D, vec(p, BVR, j, D), vt,
-               D, false);
-    if (keys) {
-      // k = LN(key) wk + kr; v = (LN(key) wv + bv) + vr
-      rows_ln<T, true>(s.sn, D, s.sn, D, m, D, vec(p, LNS_S, j, D),
-                       vec(p, LNS_B, j, D));
-      rows_mm<T>(s.sn, D, m, D, mat<T>(p, WK, j, DD), D, nullptr, s.kt, D,
-                 true);
-      rows_mm<T>(s.sn, D, m, D, mat<T>(p, WV, j, DD), D, vec(p, BV, j, D),
-                 vt, D, true);
-    } else {
-      for (int i = tid; i < m * D; i += bd) {
-        const size_t o = (size_t)s.idx[t0 + i / D] * D + i % D;
-        s.kt[i] += ksh[o];
-        vt[i] += vsh[o];
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < m * H; i += bd) {
-      const int r = i / H, h = i % H;
-      float acc = 0.f;
-      for (int d = 0; d < Hd; ++d)
-        acc = fmaf(s.kt[r * D + h * Hd + d], s.q[h * Hd + d], acc);
-      s.sc[(t0 + r) * H + h] = acc * scale;
-    }
-    __syncthreads();
-  }
-  // two-pass softmax per head; agg = sum_k p_k v_k / max(sum_k p_k, 1e-30)
-  const int warp = tid >> 5, lane = tid & 31, nw = bd >> 5;
-  for (int h = warp; h < H; h += nw) {
-    float mx = -INFINITY;
-    for (int k = lane; k < n; k += 32) mx = fmaxf(mx, s.sc[k * H + h]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int k = lane; k < n; k += 32) {
-      const float e = expf(s.sc[k * H + h] - mx);
-      s.sc[k * H + h] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) s.den[h] = sum;
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += bd) {
-    const int h = d / Hd;
-    float acc = 0.f;
-    for (int k = 0; k < n; ++k)
-      acc = fmaf(s.sc[k * H + h], s.vall[(size_t)k * D + d], acc);
-    s.agg[d] = acc / fmaxf(s.den[h], 1e-30f);
-  }
-  __syncthreads();
-}
-
-// The query side of sublayer j for this block's row: dnr = LN(x) rounded,
-// q = dnr wq + bq.
-template <typename T>
-__device__ void query(const Params& p, int j, const Smem& s) {
-  const int D = p.D;
-  layer_norm(s.x, s.t1, vec(p, LND_S, j, D), vec(p, LND_B, j, D), D, s.red);
-  round_vec<T>(s.t1, s.dnr, D);
-  matvec<T>(s.dnr, D, mat<T>(p, WQ, j, (size_t)D * D), D, vec(p, BQ, j, D),
-            s.q, s.part);
-}
-
-// The gated update and FFN of sublayer j for this block's row:
-// g = sigmoid((agg wga + dnr wgd) + bg); agg += g (dnr ws + bs - agg);
-// x += postnorm(agg wo + bo);
-// x += ff_postnorm(ff_1(relu(ff_0(ff_prenorm(x))))).
-template <typename T>
-__device__ void epilogue(const Params& p, int j, const Smem& s) {
-  const int D = p.D, tid = threadIdx.x, bd = blockDim.x;
-  const size_t DD = (size_t)D * D;
-  round_vec<T>(s.agg, s.xr, D);
-  matvec<T>(s.xr, D, mat<T>(p, WGA, j, DD), D, nullptr, s.t1, s.part);
-  matvec<T>(s.dnr, D, mat<T>(p, WGD, j, DD), D, nullptr, s.t2, s.part);
-  matvec<T>(s.dnr, D, mat<T>(p, WS, j, DD), D, vec(p, BS, j, D), s.t3,
-            s.part);
-  const float* bg = vec(p, BG, j, D);
-  for (int i = tid; i < D; i += bd) {
-    const float g = sigmoid((s.t1[i] + s.t2[i]) + bg[i]);
-    s.agg[i] = s.agg[i] + g * (s.t3[i] - s.agg[i]);
-  }
-  __syncthreads();
-  round_vec<T>(s.agg, s.xr, D);
-  matvec<T>(s.xr, D, mat<T>(p, WO, j, DD), D, vec(p, BO, j, D), s.t1, s.part);
-  layer_norm(s.t1, s.t2, vec(p, POST_S, j, D), vec(p, POST_B, j, D), D,
-             s.red);
-  for (int i = tid; i < D; i += bd) s.x[i] += s.t2[i];
-  __syncthreads();
-  layer_norm(s.x, s.t1, vec(p, FFP_S, j, D), vec(p, FFP_B, j, D), D, s.red);
-  round_vec<T>(s.t1, s.xr, D);
-  matvec<T>(s.xr, D, mat<T>(p, WF0, j, 4 * DD), 4 * D,
-            vec(p, BF0, j, 4 * D), s.h, s.part);
-  for (int i = tid; i < 4 * D; i += bd)
-    s.xr[i] = round_to<T>(fmaxf(s.h[i], 0.f));
-  __syncthreads();
-  matvec<T>(s.xr, 4 * D, mat<T>(p, WF1, j, 4 * DD), D, vec(p, BF1, j, D),
-            s.t1, s.part);
-  layer_norm(s.t1, s.t2, vec(p, FFQ_S, j, D), vec(p, FFQ_B, j, D), D, s.red);
-  for (int i = tid; i < D; i += bd) s.x[i] += s.t2[i];
-  __syncthreads();
-}
-
-__device__ void zero(float* v, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = 0.f;
-  __syncthreads();
 }
 
 // Layer l, row blockIdx.x: the temporal and map sublayers, then the
@@ -269,7 +84,6 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(Params p, int l) {
   const Smem s = carve(smem, p.D, p.H, p.nmax);
   const int a = blockIdx.x, A = p.A, D = p.D, tid = threadIdx.x;
   const int bd = blockDim.x;
-  const size_t DD = (size_t)D * D;
   const bool live = live_row(p, a);
   const float* x_in = l == 0 ? p.x0 + (size_t)a * D
                              : p.out + ((size_t)(l - 1) * A + a) * D;
@@ -277,37 +91,34 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(Params p, int l) {
   __syncthreads();
 
   // temporal: the row's own W-column key window
-  int j = 3 * l;
-  query<T>(p, j, s);
+  Sub u = sub(p, 3 * l);
+  row_query<T>(u, s);
   if (live)
-    attend_row<T>(p, j,
-                  static_cast<const T*>(p.key_stack) +
-                      ((size_t)l * A + a) * p.W * D,
-                  static_cast<const T*>(p.r_t) + (size_t)a * p.W * D,
-                  p.t_mask + (size_t)a * p.W, p.W, nullptr, nullptr, s);
+    row_attend<T, T>(u,
+                     static_cast<const T*>(p.key_stack) +
+                         ((size_t)l * A + a) * p.W * D,
+                     static_cast<const T*>(p.r_t) + (size_t)a * p.W * D,
+                     p.t_mask + (size_t)a * p.W, p.W, nullptr, nullptr, s);
   else
     zero(s.agg, D);
-  epilogue<T>(p, j, s);
+  row_epilogue<T>(u, s);
 
   // map: the row's K nearest map tokens
-  j = 3 * l + 1;
-  query<T>(p, j, s);
+  u = sub(p, 3 * l + 1);
+  row_query<T>(u, s);
   if (live)
-    attend_row<T>(p, j, static_cast<const T*>(p.pl_keys) + (size_t)a * p.K * D,
-                  static_cast<const T*>(p.r_pl) + (size_t)a * p.K * D,
-                  p.pl_mask + (size_t)a * p.K, p.K, nullptr, nullptr, s);
+    row_attend<T, T>(u,
+                     static_cast<const T*>(p.pl_keys) + (size_t)a * p.K * D,
+                     static_cast<const T*>(p.r_pl) + (size_t)a * p.K * D,
+                     p.pl_mask + (size_t)a * p.K, p.K, nullptr, nullptr, s);
   else
     zero(s.agg, D);
-  epilogue<T>(p, j, s);
+  row_epilogue<T>(u, s);
 
-  // agent-agent prologue: query, and this row as a key: k = LN(x) wk,
-  // v = LN(x) wv + bv
-  j = 3 * l + 2;
-  query<T>(p, j, s);
-  layer_norm(s.x, s.t1, vec(p, LNS_S, j, D), vec(p, LNS_B, j, D), D, s.red);
-  round_vec<T>(s.t1, s.xr, D);
-  matvec<T>(s.xr, D, mat<T>(p, WK, j, DD), D, nullptr, s.t2, s.part);
-  matvec<T>(s.xr, D, mat<T>(p, WV, j, DD), D, vec(p, BV, j, D), s.t3, s.part);
+  // agent-agent prologue: the query, and this row as a key
+  u = sub(p, 3 * l + 2);
+  row_query<T>(u, s);
+  row_kv<T>(u, s);
   float* sc = p.scratch + (size_t)a * D;
   const size_t AD = (size_t)A * D;
   for (int i = tid; i < D; i += bd) {
@@ -326,7 +137,8 @@ __global__ void __launch_bounds__(kThreads, 1) aa_kernel(Params p, int l) {
   extern __shared__ float smem[];
   const Smem s = carve(smem, p.D, p.H, p.nmax);
   const int a = blockIdx.x, A = p.A, D = p.D, tid = threadIdx.x;
-  const int bd = blockDim.x, j = 3 * l + 2;
+  const int bd = blockDim.x;
+  const Sub u = sub(p, 3 * l + 2);
   const size_t AD = (size_t)A * D;
   const float* sc = p.scratch + (size_t)a * D;
   for (int i = tid; i < D; i += bd) {
@@ -336,13 +148,13 @@ __global__ void __launch_bounds__(kThreads, 1) aa_kernel(Params p, int l) {
   }
   __syncthreads();
   if (live_row(p, a))
-    attend_row<T>(p, j, nullptr,
-                  static_cast<const T*>(p.r_aa) + (size_t)a * A * D,
-                  p.aa_mask + (size_t)a * A, A, p.scratch + KSH * AD,
-                  p.scratch + VSH * AD, s);
+    row_attend<T, T>(u, nullptr,
+                     static_cast<const T*>(p.r_aa) + (size_t)a * A * D,
+                     p.aa_mask + (size_t)a * A, A, p.scratch + KSH * AD,
+                     p.scratch + VSH * AD, s);
   else
     zero(s.agg, D);
-  epilogue<T>(p, j, s);
+  row_epilogue<T>(u, s);
   float* out = p.out + ((size_t)l * A + a) * D;
   for (int i = tid; i < D; i += bd) out[i] = s.x[i];
 }

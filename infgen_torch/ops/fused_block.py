@@ -1,0 +1,152 @@
+"""One whole DenseAttention layer as one CUDA call (port of
+infgen_tpu/ops/fused_block.py::fused_attention_block; the CUDA source is
+csrc/fused_block.cu, whose header states its bound and design).
+
+  pack_fused_block                 one DenseAttention module's parameters,
+                                   fp32, in the layout of the trunk column's
+                                   pack (column_kernel.pack_sublayers)
+  pack_column_blocks               the 3L packs of an AgentDecoder's trunk
+                                   (t_attn, pt2a, a2a per layer), built once
+                                   per rollout
+  fused_attention_block_reference  the same math in plain PyTorch (the CPU
+                                   path, and what the kernel is held against
+                                   on the card)
+  fused_attention_block            the wrapper: launches the kernel on CUDA
+                                   tensors, takes the plain version for CPU
+                                   tensors, raises otherwise
+
+Precision follows the TPU kernel: the weights are the fp32 masters, every
+input is cast up to fp32 and the whole layer runs in fp32, with no
+compute-dtype rounding of matmul operands (unlike the other kernels of the
+port); only the output is cast back to x_dst's dtype. LayerNorm eps 1e-6,
+two-pass statistics. A masked key contributes exactly 0; a query with no
+valid key aggregates to 0. At most MAX_KEYS keys per query.
+"""
+
+from dataclasses import dataclass
+from typing import Dict
+
+import ctypes
+import torch
+
+from infgen_torch.ops.column_kernel import _KINDS, _sublayer, pack_sublayers
+from infgen_torch.ops.seed_kernel import _DTYPE_CODE, _check
+
+MAX_KEYS = 128   # the TPU kernel's single key tile
+
+
+@dataclass
+class FusedPack:
+    weights: torch.Tensor          # flat fp32 matrices
+    vectors: torch.Tensor          # flat fp32 vectors
+    w: Dict[str, torch.Tensor]     # views into `weights`, [1, ...]
+    v: Dict[str, torch.Tensor]     # views into `vectors`, [1, ...]
+    ptrs: ctypes.Array             # data_ptr of each view, layout order
+    D: int
+
+    @property
+    def dtype(self):
+        return self.weights.dtype
+
+
+def pack_fused_block(module) -> FusedPack:
+    """The fp32 pack of one DenseAttention module (its query LayerNorm is
+    prenorm_dst when the module is bipartite, prenorm_src otherwise)."""
+    weights, vectors, w, v, ptrs, D = pack_sublayers(
+        [(module, module.bipartite)], torch.float32)
+    return FusedPack(weights, vectors, w, v, ptrs, D)
+
+
+def pack_column_blocks(decoder, L: int):
+    """[3L] packs of the trunk's sublayers, j = 3l + kind (kind 0 t_attn,
+    1 pt2a, 2 a2a)."""
+    return [pack_fused_block(getattr(decoder, f"{name}_{i}"))
+            for i in range(L) for name, _ in _KINDS]
+
+
+def _mode(x_dst, x_src):
+    """Key mode of a call: 'self' (x_src None), 'shared' ([K, D]) or
+    'per_query' ([Q, K, D])."""
+    if x_src is None:
+        return "self"
+    return "per_query" if x_src.dim() == 3 else "shared"
+
+
+def fused_attention_block_reference(pack: FusedPack, x_dst, x_src, r, mask,
+                                    num_heads: int) -> torch.Tensor:
+    """Plain-PyTorch DenseAttention layer, the kernel's math (the TPU
+    kernel's `_kernel`): fp32 throughout. x_dst [Q, D]; x_src [Q, K, D]
+    (keys gathered per query), [K, D] (shared keys) or None (self-attention
+    over x_dst); r [Q, K, D]; mask [Q, K] bool. Returns [Q, D] in x_dst's
+    dtype."""
+    f32 = torch.float32
+    Q, D = x_dst.shape
+    keys = x_src
+    if _mode(x_dst, x_src) == "shared":
+        keys = x_src[None].expand(Q, *x_src.shape)
+    out = _sublayer(pack, 0, x_dst.to(f32),
+                    None if keys is None else keys.to(f32), r.to(f32),
+                    mask, num_heads, D // num_heads, None)
+    return out.to(x_dst.dtype)
+
+
+def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
+                          num_heads: int) -> torch.Tensor:
+    """One DenseAttention layer (shapes and math of
+    fused_attention_block_reference). x_dst, x_src and r share one dtype,
+    float32 or bfloat16, and are contiguous; the output takes the dtype.
+    CUDA tensors launch csrc/fused_block.cu on the current stream (with
+    shared or self keys a key-projection kernel runs first; one call counts
+    once in `fused_attention_block.launches`); CPU tensors take the plain
+    version."""
+    dev = x_dst.device
+    mode = _mode(x_dst, x_src)
+    Q, D = x_dst.shape
+    K = r.shape[1]
+    dt = x_dst.dtype
+    if K > MAX_KEYS:
+        raise ValueError(f"fused_attention_block takes at most {MAX_KEYS} "
+                         f"keys per query, got {K}")
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"fused_attention_block: dtype {dt} unsupported")
+    if D != pack.D or D > 512 or D % num_heads:
+        raise ValueError("fused_attention_block needs x_dst [Q, D] with the "
+                         "pack's D <= 512, a multiple of num_heads")
+    _check("x_dst", x_dst, dt, (Q, D), dev)
+    if mode == "per_query":
+        _check("x_src", x_src, dt, (Q, K, D), dev)
+    elif mode == "shared":
+        _check("x_src", x_src, dt, (K, D), dev)
+    elif K != Q:
+        raise ValueError("self-attention needs r [Q, Q, D]")
+    _check("r", r, dt, (Q, K, D), dev)
+    _check("mask", mask, torch.bool, (Q, K), dev)
+    if dev.type == "cpu":
+        return fused_attention_block_reference(pack, x_dst, x_src, r, mask,
+                                               num_heads)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_attention_block: unsupported device {dev}")
+    _check("weights", pack.weights, torch.float32, pack.weights.shape, dev)
+    _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
+
+    from infgen_torch.ops.build import library
+    lib = library()
+    out = torch.empty((Q, D), dtype=dt, device=dev)
+    # the shared keys' projections (k, v), written by the key kernel
+    scratch = torch.empty((2, K, D) if mode != "per_query" else (1,),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.infgen_fused_block(
+        _DTYPE_CODE[dt], x_dst.data_ptr(),
+        0 if x_src is None else x_src.data_ptr(), r.data_ptr(),
+        mask.data_ptr(), ctypes.addressof(pack.ptrs), out.data_ptr(),
+        scratch.data_ptr(), Q, K, D, num_heads, D // num_heads,
+        int(mode == "per_query"), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block kernel launch failed: cudaError "
+                           f"{err}")
+    fused_attention_block.launches += 1
+    return out
+
+
+fused_attention_block.launches = 0

@@ -14,7 +14,7 @@ the compute dtype, fp32 scores and softmax, gated update, FFN.
 import torch
 import torch.nn.functional as F
 
-from infgen_torch.model.layers import layer_norm_fp32
+from infgen_torch.model.layers import layer_norm_fp32, sigmoid
 
 
 def _ln(v, ln, dtype):
@@ -49,7 +49,7 @@ def r_contrib(layer, r_emb, dtype=None):
 def gate_ffn(layer, x_dst, dst_n, agg, dtype=None):
     """Gated update + FFN epilogue; the residual carrier keeps the input
     dtype."""
-    g = torch.sigmoid(_mm(torch.cat([agg, dst_n], -1), layer.to_g, dtype))
+    g = sigmoid(_mm(torch.cat([agg, dst_n], -1), layer.to_g, dtype))
     agg = agg + g * (_mm(dst_n, layer.to_s, dtype) - agg)
     x = x_dst + _ln(_mm(agg, layer.to_out, dtype), layer.postnorm, dtype)
     h = F.relu(_mm(_ln(x, layer.ff_prenorm, dtype), layer.ff_0, dtype))

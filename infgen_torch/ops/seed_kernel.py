@@ -142,18 +142,23 @@ def _ln(x, s, b):
 
 
 def seed_eval_reference(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
-                        K_a, V_a, mask_a, num_heads: int, head_dim: int
+                        K_a, V_a, mask_a, num_heads: int, head_dim: int,
+                        round_operand=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch seed stack + heads, the kernel's math: matmul inputs
     rounded to the compute dtype, products and sums in fp32; fp32 LayerNorm
-    (eps 1e-6) and softmax; all-masked key sets aggregate to zero."""
+    (eps 1e-6) and softmax; all-masked key sets aggregate to zero.
+    `round_operand(x)` replaces the rounding of each matmul input x (fp32 to
+    fp32 values of the compute dtype), in call order: a study of rounding
+    near-ties hooks in there."""
     f32, cdt = torch.float32, pack.dtype
     w, v = pack.w, pack.v
     H, Hd = num_heads, head_dim
     scale = Hd ** -0.5
+    rnd = round_operand or (lambda x: x.to(cdt).to(f32))
 
     def mm(x, wt):
-        return x.to(cdt).to(f32) @ wt.to(f32)
+        return rnd(x) @ wt.to(f32)
 
     sd = sd0.to(f32)
     for j in range(3 * pack.L):

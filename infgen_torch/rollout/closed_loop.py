@@ -39,6 +39,12 @@ takes its plain twin for CPU tensors):
   use_refine_kernel     the per-insert refine pass (ops/refine_kernel)
   use_column_kernel     the whole trunk column (ops/column_kernel), with the
                         occupancy bound n_rows computed on the device
+  use_fused_block       each of the trunk's 3L sublayers as one call
+                        (ops/fused_block); the column kernel takes
+                        precedence
+  use_pallas_attention  the attention core of every eligible DenseAttention
+                        call (ops/pallas_attention.r_biased_attention): in
+                        a rollout, the agent-agent sublayers of the trunk
 All packs are built once per rollout.
 
 Column convention (num_historical_steps=11, SHIFT=5): token columns 0..1
@@ -59,6 +65,7 @@ from infgen_torch.model import edges as E
 from infgen_torch.model.agent_decoder import (INVALID_SHAPE_VALUE, SEED_TYPE,
                                               map_token_index)
 from infgen_torch.ops import column_kernel as CK
+from infgen_torch.ops import fused_block as FB
 from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_fast as SF
 from infgen_torch.ops import seed_kernel as SKN
@@ -71,9 +78,6 @@ from infgen_torch.utils.geometry import (angle_between_2d_vectors,
 
 REFINE_A2SA_K = 24   # reference max_num_neighbors=24
 REFINE_PL2SA_K = 32  # 10 m radius holds far fewer map tokens
-
-# flags whose kernels are later slices of the port
-_NOT_PORTED = ("use_fused_block", "use_pallas_attention")
 
 
 class RolloutCarry(NamedTuple):
@@ -144,10 +148,6 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     cost for benchmarking). The returned function counts its host reads in
     `rollout.host_reads` (reset at each call).
     """
-    for flag in _NOT_PORTED:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag} selects a kernel that is not ported yet")
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     if R < SHIFT or R % SHIFT:
         raise ValueError(f"num_recurrent_steps is in 10 Hz frames and must be"
@@ -170,6 +170,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                and cfg.use_grid_token and not use_sknf)
     use_refk = (cfg.use_refine_kernel and cfg.use_head_token
                 and cfg.use_grid_token)
+    use_fused = cfg.use_fused_block and not cfg.use_column_kernel
 
     f32, i32 = torch.float32, torch.int32
     token_traj_all = torch.as_tensor(np.stack(
@@ -218,8 +219,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             if use_refk:
                 seed["refine_pack"] = RFK.pack_refine_params(
                     dec, L_s, attr.angle_size, sf_dt)
-        column_pack = (CK.pack_column_params(dec, L, sf_dt)
-                       if cfg.use_column_kernel else None)
+        # the trunk's kernel parameters: the column kernel's pack, or the
+        # fused blocks' 3L packs
+        trunk_pack = None
+        if cfg.use_column_kernel:
+            trunk_pack = CK.pack_column_params(dec, L, sf_dt)
+        elif use_fused:
+            trunk_pack = FB.pack_column_blocks(dec, L)
 
         tok = inputs.tokens
         T0 = tok.token_idx.shape[1]
@@ -308,7 +314,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         outs = []
         for t in range(n_steps):
             carry, out = _step(carry, t, pt, tables, av, slot_active, seed,
-                               column_pack)
+                               trunk_pack)
             outs.append(out)
         outs = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
@@ -327,7 +333,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     # motion pass for one column
     # ---------------------------------------------------------------- #
 
-    def _motion_pass(carry, c, pt, column_pack):
+    def _motion_pass(carry, c, pt, trunk_pack):
         pos_c, head_c = carry.pos[:, c], carry.head[:, c]
         state_c, inter_c = carry.state[:, c], carry.interact[:, c]
         hv_c = hv_of(head_c)
@@ -409,7 +415,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         new_cols, out = dec.motion_column(
             carry.raw_feat[:, c], key_stack, t_r_raw, k_valid, a2a_r_raw,
             a2a_mask, pl_keys, pl_r_raw, val5, n_rows=n_rows,
-            column_pack=column_pack)
+            column_pack=None if use_fused else trunk_pack,
+            fused_packs=trunk_pack if use_fused else None)
         carry.cache[:, :, c] = new_cols
         return carry, out
 
@@ -868,7 +875,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     # one token step
     # ---------------------------------------------------------------- #
 
-    def _step(carry, t, pt, tables, av, init_active, seed, column_pack):
+    def _step(carry, t, pt, tables, av, init_active, seed, trunk_pack):
         c = t + 1  # current column
 
         # 1. insertion (skipped at t=0)
@@ -882,7 +889,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
         # 2. motion for all agents
         with record_function("rollout.motion"):
-            carry, feat_c = _motion_pass(carry, c, pt, column_pack)
+            carry, feat_c = _motion_pass(carry, c, pt, trunk_pack)
         token_logits, state_logits = dec.motion_heads(feat_c)
         token_logits, state_logits = token_logits.to(f32), state_logits.to(f32)
         probs = torch.softmax(token_logits, -1)

@@ -1,9 +1,11 @@
 """Where a rollout's time goes on the card: one profiled flagship rollout.
 
     python -m infgen_torch.trace_rollout [--config configs/ours_long_term.yaml]
+        [--fused-block] [--pallas-attention]
 
 (`--config configs/ours_long_term_latency.yaml` traces the latency preset,
-with its three kernels.)
+with its three kernels; `--fused-block` and `--pallas-attention` the
+flagship's two variants, as the command line's rollout takes them.)
 
 Builds the model from the config's seed, runs one short warm-up rollout,
 times one full rollout without the profiler (host clock around work that
@@ -31,7 +33,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from infgen_torch.cli import build_model, build_tokenizers, run_rollouts
+from infgen_torch.cli import (add_variant_flags, apply_variant_flags,
+                              build_model, build_tokenizers, run_rollouts)
 from infgen_torch.config import SHIFT, load_config
 from infgen_torch.utils.device import resolve_device
 
@@ -100,9 +103,10 @@ def summarize(prof, n_steps, wall_ms):
 def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch.trace_rollout")
     p.add_argument("--config", default="configs/ours_long_term.yaml")
+    add_variant_flags(p)
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
-    cfg = load_config(args.config)
+    cfg = apply_variant_flags(load_config(args.config), args)
     tokenizers = build_tokenizers(cfg)
     model = build_model(cfg, tokenizers[0], dev)
     n_steps = cfg.num_recurrent_steps_val // SHIFT
@@ -122,6 +126,8 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(dev), config=args.config,
+        fused_block=cfg.use_fused_block,
+        pallas_attention=cfg.use_pallas_attention,
         token_steps=n_steps,
         wall_ms_per_step=plain["ms_per_token_step"][0],
         agents_inserted=plain["agents_inserted"][0],

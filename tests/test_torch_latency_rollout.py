@@ -4,8 +4,9 @@ the JAX package's rollout with the same flags on the CPU, where both sides
 run the kernels' plain versions: the JAX Pallas kernels in interpret mode,
 the port's wrappers their plain twins.
 
-Config of tests/test_torch_rollout.py (A=16, P=128, D=32, 3 agent and 3 seed
-layers, 30 frames, fp32, beam 1, forced insertion). Token ids, state ids,
+Config of tests/test_torch_rollout.py (A=16, P=128, D=32, 30 frames, fp32,
+beam 1, forced insertion) with 2 agent and 2 seed layers instead of 3, to
+keep the jitted JAX rollout's compile short. Token ids, state ids,
 slot activity and insertion counts must be bitwise equal; poses agree
 within 1e-3 (fp32 reduction order only). The port's rollout with the flags
 on must also equal its rollout with them off on the same inputs, as the
@@ -35,7 +36,7 @@ from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.ops import column_kernel as CK
 from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_kernel as SKN
-from infgen_torch.rollout.closed_loop import _NOT_PORTED, make_rollout_fn
+from infgen_torch.rollout.closed_loop import make_rollout_fn
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
@@ -45,11 +46,15 @@ from test_torch_rollout import CFG, CLOSE, EXACT, POSE_TOL, _np
 
 LATENCY = dict(use_seed_kernel_full=True, use_refine_kernel=True,
                use_column_kernel=True)
+BASE = {**CFG, "num_agent_layers": 2, "num_seed_layers": 2}
+KERNEL_FLAGS = ("use_seed_kernel", "use_seed_kernel_full",
+                "use_refine_kernel", "use_column_kernel", "use_fused_block",
+                "use_pallas_attention")
 
 
 @pytest.fixture(scope="module")
 def runs():
-    jcfg = JConfig(**CFG, **LATENCY)
+    jcfg = JConfig(**BASE, **LATENCY)
     jattr = JAttr(jcfg.grid_range, jcfg.grid_interval, jcfg.pl2seed_radius,
                   jcfg.angle_interval)
     jmt, jmv = JMotion(), j_map_vocab()
@@ -65,7 +70,7 @@ def runs():
                        jit=True, force_insert=True)
     jout = jax.device_get(jfn(params, jscen, jinputs, jax.random.PRNGKey(7)))
 
-    cfg = Config(**CFG, **LATENCY)
+    cfg = Config(**BASE, **LATENCY)
     attr = AttrTokenizer(cfg.grid_range, cfg.grid_interval,
                          cfg.pl2seed_radius, cfg.angle_interval)
     mt, mv = MotionTokenizer(), load_map_vocab()
@@ -89,11 +94,11 @@ def runs():
         outs[name] = {k: _np(v) for k, v in out.items()}
         # CPU tensors take the plain twins: no kernel launches
         assert all(f.launches == n for f, n in before.items())
-    return jout, outs
+    return jout, outs, (model, cfg, attr, mt, mv)
 
 
 def test_latency_rollout_matches_jax(runs):
-    jout, outs = runs
+    jout, outs, _ = runs
     out = outs["on"]
     assert set(out) == set(jout)
     for k in EXACT:
@@ -108,7 +113,7 @@ def test_latency_kernels_match_plain_path(runs):
     """Flags on against flags off, on the same inputs (the port's analogue
     of tests/test_rollout.py's kernel A/B tests): the kernels change only
     the reduction order of fp32 sums."""
-    _, outs = runs
+    _, outs, _ = runs
     on, off = outs["on"], outs["off"]
     for k in EXACT:
         np.testing.assert_array_equal(on[k], off[k], err_msg=k)
@@ -118,5 +123,12 @@ def test_latency_kernels_match_plain_path(runs):
     assert int(on["n_inserted"]) > 0
 
 
-def test_only_training_kernels_refused():
-    assert set(_NOT_PORTED) == {"use_fused_block", "use_pallas_attention"}
+def test_every_kernel_flag_accepted(runs):
+    """make_rollout_fn takes each kernel flag, and all of them together:
+    every TPU kernel's forward has its port."""
+    model, cfg, attr, mt, mv = runs[2]
+    off = cfg.replace(**{f: False for f in KERNEL_FLAGS})
+    for flags in [{f: True} for f in KERNEL_FLAGS] + [
+            {f: True for f in KERNEL_FLAGS}]:
+        assert callable(make_rollout_fn(model, off.replace(**flags), attr,
+                                        mt, mv))

@@ -32,6 +32,7 @@ from infgen_torch.convert import (flatten_tree, load_flax_params, load_npz,
                                   save_npz, torch_name)
 from infgen_torch.data.scenario import to_device
 from infgen_torch.model.infgen import InfGenModel
+from infgen_torch.model.layers import Dense, sigmoid
 from infgen_torch.ops import neighbors as N
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 
@@ -205,6 +206,34 @@ def test_mlp_embedding(small):
         out = model.agent_decoder.shape_emb(_t(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("op", ["dense", "sigmoid"])
+def test_bf16_rounding_matches_flax(op):
+    """Under the bf16 compute policy a Dense rounds x @ W to bf16 before it
+    adds the bias, and a sigmoid rounds each of exp, 1 + e and 1 / (.), as
+    flax and XLA do op by op: bitwise equal (a fused bias or torch.sigmoid
+    rounds once, and about a quarter of the values then differ in the last
+    bit)."""
+    import flax.linen as nn
+
+    rng = np.random.default_rng(12)
+    x = (rng.normal(size=(64, 32)) * 3).astype(np.float32)
+    if op == "dense":
+        kernel = rng.normal(0, 32 ** -0.5, (32, 48)).astype(np.float32)
+        bias = rng.normal(0, 0.1, 48).astype(np.float32)
+        ref = nn.Dense(48, dtype=jnp.bfloat16).apply(
+            {"params": {"kernel": kernel, "bias": bias}}, x)
+        mod = Dense(32, 48, dtype=torch.bfloat16)
+        load_flax_params(mod, {"kernel": kernel, "bias": bias})
+        with torch.no_grad():
+            got = mod(_t(x))
+    else:
+        ref = jax.nn.sigmoid(jnp.asarray(x, jnp.bfloat16))
+        got = sigmoid(_t(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
 
 
 def test_map_encoder(small):

@@ -6,11 +6,13 @@ interpret mode, on the CPU; and its full variant (`pack_seed_params_full` +
 Pallas `seed_eval_full_kernel`, from the same raw inputs.
 
 Shapes as tests/test_model.py's seed-kernel test (A=12, P=32, D=32, two
-heads of 16, three seed layers). fp32: atol 1e-5 (summation order only).
+heads of 16), with two seed layers instead of three: each interpret-mode
+compile of the JAX kernels shrinks with the stack. fp32: atol 1e-5
+(summation order only).
 bf16: both sides round the same matmul operands to bf16 and accumulate in
 fp32, but a last-bit difference in an fp32 sum can round an operand to the
 neighbouring bf16 value (a relative step of 2^-8) and that propagates
-through the nine sublayers: atol 3e-2 on outputs of order 1-10.
+through the six sublayers: atol 3e-2 on outputs of order 1-10.
 """
 
 import jax
@@ -32,10 +34,10 @@ from infgen_torch.ops import seed_kernel as SK
 from test_torch_layers import random_flax_params, torch_model
 
 CFG = dict(max_agents=12, max_map_tokens=32, hidden_dim=32, num_heads=2,
-           head_dim=16, num_freq_bands=8, num_agent_layers=3,
-           num_seed_layers=3, num_map_layers=1, dropout=0.0, grid_range=60.0,
+           head_dim=16, num_freq_bands=8, num_agent_layers=2,
+           num_seed_layers=2, num_map_layers=1, dropout=0.0, grid_range=60.0,
            grid_interval=3.0, pl2seed_radius=30.0, remat_attention=False)
-A, P, D, H, Hd, L = 12, 32, 32, 2, 16, 3
+A, P, D, H, Hd, L = 12, 32, 32, 2, 16, 2
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 _JAX_EVALS = {}          # compute dtype -> jitted JAX evaluation
