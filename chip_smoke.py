@@ -12,8 +12,8 @@ before the last line):
            motion_column, fused_attention_block, r_biased_attention)
            against its plain PyTorch version on the card at the flagship
            shapes, fp32 and bf16 (r_biased_attention: fp32, its only type),
-           over its mask cases, with its time, the plain version's time and
-           its bound
+           over its mask cases, with its time (seed_eval_full: its two
+           stages' too), the plain version's time and its bound
   parity   a small closed-loop rollout on the card (through the kernels)
            equal to the same rollout on the CPU (through the plain
            versions), with the flagship's flags and, as `parity_latency`,
@@ -614,10 +614,23 @@ def seed_full_stage_errors(pack, args, got, pre, H, Hd, what):
     return max(pre_err[0], stack_err[0]), max(pre_err[1], stack_err[1])
 
 
+def seed_full_stage_ms(pack, args, H, Hd):
+    """The full evaluation's two kernels timed apart (median ms): the
+    precompute alone, then the stack alone on the precompute's results."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    launch = lambda **kw: SK.seed_eval_full_launch(pack, *args, H, Hd, **kw)
+    pre = launch()[2]
+    return dict(precompute_ms=median_ms(lambda: launch(stages=1, pre=pre),
+                                        KERNEL_LAUNCHES),
+                stack_ms=median_ms(lambda: launch(stages=2, pre=pre),
+                                   KERNEL_LAUNCHES))
+
+
 def check_seed_eval_full(cfg, attr, dev):
     """seed_eval_full kernel vs its plain version at the flagship shapes, in
     fp32 and bf16, over three mask cases, stage by stage (see TOL) and as a
-    whole; times at each dtype."""
+    whole; times at each dtype, the whole call's and each stage's."""
     from infgen_torch.ops import seed_kernel as SK
 
     G = attr.grid_size
@@ -649,9 +662,11 @@ def check_seed_eval_full(cfg, attr, dev):
             plain_ms = median_ms(
                 lambda: run(SK.seed_eval_full_reference, args), PLAIN_CALLS)
             outs = run(SK.seed_eval_full_kernel, args)
+            stages = seed_full_stage_ms(pack, args, H, Hd)
         results[dtype] = finish("seed_eval_full", dtype, errs, means, ms,
                                 plain_ms,
-                                *seed_full_cost(pack, args, outs), e2e=e2e)
+                                *seed_full_cost(pack, args, outs), e2e=e2e,
+                                **stages)
     return results
 
 

@@ -5,7 +5,8 @@ with a plain C interface, `build/libinfgen_kernels.so` at the repository
 root, at first use; it is loaded with ctypes. One `nvcc -c` runs per source,
 all started together, then one link; `csrc/common.cuh` holds the device
 code the sources share, `csrc/dense_row.cuh` the per-row DenseAttention
-code of the trunk column and the fused block. Nothing here runs at import
+code of the trunk column, `csrc/cluster_stack.cuh` the seed stack over a
+thread-block cluster. Nothing here runs at import
 time.
 """
 
@@ -38,21 +39,25 @@ def nvcc_path() -> str:
     return found
 
 
-def build(force: bool = False, verbose: bool = False) -> float:
-    """Compile the kernels if the library is missing or older than a
-    source (always with `force`). Returns the seconds spent."""
-    sources = sorted(CSRC.glob("*.cu"))
-    inputs = sources + sorted(CSRC.glob("*.cuh"))
-    if not force and LIB_PATH.exists() and all(
-            LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in inputs):
+def build(force: bool = False, verbose: bool = False, csrc: Path = CSRC,
+          lib_path: Path = LIB_PATH) -> float:
+    """Compile the kernels of `csrc` into `lib_path` if the library is
+    missing or older than a source (always with `force`). Returns the
+    seconds spent."""
+    sources = sorted(Path(csrc).glob("*.cu"))
+    inputs = sources + sorted(Path(csrc).glob("*.cuh"))
+    lib_path = Path(lib_path)
+    if not force and lib_path.exists() and all(
+            lib_path.stat().st_mtime >= s.stat().st_mtime for s in inputs):
         return 0.0
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir = lib_path.parent
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
     for src in sources:
-        obj = BUILD_DIR / (src.stem + ".o")
+        obj = build_dir / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -63,28 +68,32 @@ def build(force: bool = False, verbose: bool = False) -> float:
             print(out, flush=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
-    tmp = LIB_PATH.with_suffix(".so.tmp")
+    tmp = lib_path.with_suffix(".so.tmp")
     link = subprocess.run(
         [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
          *(str(o) for _, o, _ in procs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, LIB_PATH)
+    os.replace(tmp, lib_path)
     return time.perf_counter() - t0
 
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, n_ptrs, n_ints in (("infgen_seed_eval", 12, 7),
-                                 ("infgen_seed_eval_full", 19, 7),
+                                 ("infgen_seed_eval_full", 19, 8),
                                  ("infgen_refine", 9, 6),
                                  ("infgen_motion_column", 13, 7),
-                                 ("infgen_fused_block", 7, 6),
+                                 ("infgen_fused_block", 6, 6),
                                  ("infgen_r_biased_attention", 9, 6)):
         fn = getattr(lib, name)
         fn.argtypes = [ci] + [vp] * n_ptrs + [ci] * n_ints + [vp]
         fn.restype = ci
+    for name, n_ints in (("infgen_fused_block_smem", 5),
+                         ("infgen_seed_eval_full_smem", 7)):
+        getattr(lib, name).argtypes = [ci] * n_ints
+        getattr(lib, name).restype = ci
 
 
 def library():

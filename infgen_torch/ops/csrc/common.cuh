@@ -1,8 +1,9 @@
 // Device code shared by the port's kernels (seed_eval.cu, seed_eval_full.cu,
-// refine.cu, motion_column.cu): compute-dtype conversion, block and warp
-// reductions, LayerNorm and matrix products over vectors and row tiles in
-// shared memory, order-keeping compaction of masks, one-query masked
-// attention, and the seed stack + heads.
+// refine.cu, motion_column.cu, fused_block.cu): compute-dtype conversion,
+// block and warp reductions, LayerNorm and matrix products over vectors and
+// row tiles in shared memory, order-keeping compaction of masks, one-query
+// masked attention, the seed stack + heads, cp.async copies and bulk
+// (TMA) copies with their mbarriers.
 //
 // The arithmetic contract of every kernel, which is the TPU kernels' own:
 // matmul operands are rounded to the compute dtype T (float or bf16) and
@@ -46,6 +47,82 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async, L2 only), and the
+// group commit / wait that order such copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Bulk asynchronous copies (the TMA unit, no tensor map): one thread moves
+// a contiguous run of bytes global -> shared and reports it to an mbarrier
+// in shared memory; the threads that read it wait on the barrier's phase.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+// After initialising barriers, before any thread or copy uses them.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Orders this thread's earlier shared-memory accesses before later bulk
+// copies into the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// bytes: a multiple of 16; both addresses 16-byte aligned.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, calling the runtime
+// only when `done` (the largest size set so far for it) is smaller.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& done) {
+  if (bytes <= done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done = bytes;
+  return e;
 }
 
 __device__ __forceinline__ float sigmoid(float x) {

@@ -4,7 +4,9 @@ csrc/fused_block.cu, whose header states its bound and design).
 
   pack_fused_block                 one DenseAttention module's parameters,
                                    fp32, in the layout of the trunk column's
-                                   pack (column_kernel.pack_sublayers)
+                                   pack (column_kernel.pack_sublayers), plus
+                                   head-blocked key projections
+                                   (head_blocked)
   pack_column_blocks               the 3L packs of an AgentDecoder's trunk
                                    (t_attn, pt2a, a2a per layer), built once
                                    per rollout
@@ -33,6 +35,7 @@ from infgen_torch.ops.column_kernel import _KINDS, _sublayer, pack_sublayers
 from infgen_torch.ops.seed_kernel import _DTYPE_CODE, _check
 
 MAX_KEYS = 128   # the TPU kernel's single key tile
+_SMEM_OK = set()   # (dtype, D, heads, K, per_query) whose shared memory fits
 
 
 @dataclass
@@ -41,20 +44,39 @@ class FusedPack:
     vectors: torch.Tensor          # flat fp32 vectors
     w: Dict[str, torch.Tensor]     # views into `weights`, [1, ...]
     v: Dict[str, torch.Tensor]     # views into `vectors`, [1, ...]
-    ptrs: ctypes.Array             # data_ptr of each view, layout order
+    heads: Dict[str, torch.Tensor]  # head-blocked wk / wkr (head_blocked)
+    ptrs: ctypes.Array             # data_ptr of each view, layout order,
+                                   # then of the two `heads`
     D: int
+    H: int
 
     @property
     def dtype(self):
         return self.weights.dtype
 
 
+def head_blocked(w, num_heads: int) -> torch.Tensor:
+    """A key projection [D, H Hd] ([in, out]) as the kernel's head-blocked
+    [Hd, H D]: out[j, h D + d] = w[d, h Hd + j], so that u_h = w[:, h] q_h
+    of every head is one row-tile product (csrc/fused_block.cu)."""
+    D, HD = w.shape
+    Hd = HD // num_heads
+    return w.reshape(D, num_heads, Hd).permute(2, 1, 0).reshape(
+        Hd, num_heads * D).contiguous()
+
+
 def pack_fused_block(module) -> FusedPack:
     """The fp32 pack of one DenseAttention module (its query LayerNorm is
-    prenorm_dst when the module is bipartite, prenorm_src otherwise)."""
+    prenorm_dst when the module is bipartite, prenorm_src otherwise), with
+    head-blocked copies of to_k and w_kr appended to the pointer array."""
     weights, vectors, w, v, ptrs, D = pack_sublayers(
         [(module, module.bipartite)], torch.float32)
-    return FusedPack(weights, vectors, w, v, ptrs, D)
+    H = module.num_heads
+    heads = {"wkh": head_blocked(w["wk"][0], H),
+             "wkrh": head_blocked(w["wkr"][0], H)}
+    ptrs = (ctypes.c_uint64 * (len(ptrs) + 2))(
+        *ptrs, heads["wkh"].data_ptr(), heads["wkrh"].data_ptr())
+    return FusedPack(weights, vectors, w, v, heads, ptrs, D, H)
 
 
 def pack_column_blocks(decoder, L: int):
@@ -95,10 +117,9 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
     """One DenseAttention layer (shapes and math of
     fused_attention_block_reference). x_dst, x_src and r share one dtype,
     float32 or bfloat16, and are contiguous; the output takes the dtype.
-    CUDA tensors launch csrc/fused_block.cu on the current stream (with
-    shared or self keys a key-projection kernel runs first; one call counts
-    once in `fused_attention_block.launches`); CPU tensors take the plain
-    version."""
+    CUDA tensors launch csrc/fused_block.cu on the current stream (one
+    launch, counted in `fused_attention_block.launches`); CPU tensors take
+    the plain version."""
     dev = x_dst.device
     mode = _mode(x_dst, x_src)
     Q, D = x_dst.shape
@@ -126,22 +147,34 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
                                                num_heads)
     if dev.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {dev}")
+    Hd = D // num_heads
+    if (num_heads != pack.H or D not in (32, 64, 128) or num_heads > 16
+            or num_heads & (num_heads - 1) or Hd % 4):
+        raise ValueError("the fused_attention_block kernel takes D in "
+                         "(32, 64, 128), the pack's num_heads, a power of "
+                         "two up to 16, and a head_dim divisible by 4")
     _check("weights", pack.weights, torch.float32, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
+    for name, t in pack.heads.items():
+        _check(name, t, torch.float32, (Hd, D * num_heads), dev)
 
     from infgen_torch.ops.build import library
     lib = library()
+    per_query = int(mode == "per_query")
+    shape = (_DTYPE_CODE[dt], D, num_heads, K, per_query)
+    if shape not in _SMEM_OK:
+        smem = lib.infgen_fused_block_smem(*shape)
+        if smem > 232448:
+            raise ValueError(f"fused_attention_block: {smem} B of shared "
+                             "memory exceed the 227 KB a block can use")
+        _SMEM_OK.add(shape)
     out = torch.empty((Q, D), dtype=dt, device=dev)
-    # the shared keys' projections (k, v), written by the key kernel
-    scratch = torch.empty((2, K, D) if mode != "per_query" else (1,),
-                          dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_fused_block(
         _DTYPE_CODE[dt], x_dst.data_ptr(),
         0 if x_src is None else x_src.data_ptr(), r.data_ptr(),
-        mask.data_ptr(), ctypes.addressof(pack.ptrs), out.data_ptr(),
-        scratch.data_ptr(), Q, K, D, num_heads, D // num_heads,
-        int(mode == "per_query"), stream)
+        mask.data_ptr(), ctypes.addressof(pack.ptrs), out.data_ptr(), Q, K,
+        D, num_heads, Hd, per_query, stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError "
                            f"{err}")

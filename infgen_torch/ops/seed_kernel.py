@@ -25,7 +25,7 @@ head-selector matrix are gone.
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,7 @@ SMALL_COLS = 4
 _HEADS = ("seed_state_predict_head", "seed_type_predict_head",
           "seed_shape_predict_head", "seed_pos_rel_token_predict_head")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FULL_SMEM_OK = set()   # seed_eval_full shapes whose shared memory fits
 
 
 @dataclass
@@ -275,7 +276,9 @@ class SeedFullPack:
     vectors: torch.Tensor          # flat precompute vectors + occupancy MLP
     w: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
-    ptrs: ctypes.Array             # data_ptr of each view, layout order
+    tiles: Optional[torch.Tensor]  # bf16 packs: chain_tiles, else None
+    ptrs: ctypes.Array             # data_ptr of each view, layout order,
+                                   # then of `tiles` (0 when None)
 
     @property
     def dtype(self):
@@ -297,9 +300,42 @@ def _full_layouts(L: int, D: int, G: int):
     return mats, vecs
 
 
-def _ptr_array(views, layout):
-    return (ctypes.c_uint64 * len(layout))(
-        *(views[name].data_ptr() for name, _ in layout))
+def _ptr_array(views, layout, extra=()):
+    return (ctypes.c_uint64 * (len(layout) + len(extra)))(
+        *(views[name].data_ptr() for name, _ in layout), *extra)
+
+
+def n_chain_tiles(L: int) -> int:
+    """Tiles of chain_tiles: 11 per zero-aggregate step (3L - 1 steps), 4
+    per layer's agent K/V, 2 per layer's map K/V."""
+    return 11 * (3 * L - 1) + 6 * L
+
+
+def chain_tiles(base: SeedPack, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The bf16 precompute's weights as [n, D, D] tiles of W^T (tile[c, k]
+    = W[k0 + k, c0 + c]), in the order csrc/seed_eval_full.cu streams them:
+    per layer l the zero-aggregate steps 3l (occ2sa) and 3l + 1 (pt2sa),
+    the a2sa keys' to_k, w_kr, to_v, w_vr, and (except the last layer) step
+    3l + 2; then every layer's map w_kr, w_vr. A step is to_g's dst_n half,
+    to_s, to_out, ff_0 in four column blocks and ff_1 in four row blocks.
+    `w` holds the full pack's matrices (pack_seed_params_full)."""
+    D, L, bw = base.D, base.L, base.w
+
+    def step(j):
+        out = [bw["wg"][j][D:].T, bw["ws"][j].T, bw["wo"][j].T]
+        out += [bw["wf0"][j][:, c * D:(c + 1) * D].T for c in range(4)]
+        return out + [bw["wf1"][j][c * D:(c + 1) * D].T for c in range(4)]
+
+    tiles = []
+    for i in range(L):
+        tiles += step(3 * i) + step(3 * i + 1)
+        tiles += [w["ka_wk"][i].T, w["sar_wkr"][i].T, w["ka_wv"][i].T,
+                  w["sar_wvr"][i].T]
+        if i + 1 < L:
+            tiles += step(3 * i + 2)
+    for i in range(L):
+        tiles += [w["ptr_wkr"][i].T, w["ptr_wvr"][i].T]
+    return torch.stack(tiles).contiguous()
 
 
 @torch.no_grad()
@@ -308,7 +344,8 @@ def pack_seed_params_full(decoder, L: int, grid_size: int,
     """pack_seed_params plus what the precompute reads: the pt2sa and a2sa
     geometry projections, the a2sa source K/V projections, the occ2sa value
     projections (matrices in the compute dtype) and the occupancy MLP
-    `seed_agent_occ_embed` (fp32)."""
+    `seed_agent_occ_embed` (fp32); for bf16 also the tensor-core path's
+    weight tiles (chain_tiles)."""
     base = pack_seed_params(decoder, L, grid_size, dtype)
     dtype = base.dtype
     pt = [getattr(decoder, f"pt2sa_{i}") for i in range(L)]
@@ -339,8 +376,9 @@ def pack_seed_params_full(decoder, L: int, grid_size: int,
     device = base.weights.device
     weights, w = _flat(parts, mats, dtype, device)
     vectors, v = _flat(parts, vecs, torch.float32, device)
-    return SeedFullPack(base, weights, vectors, w, v,
-                        _ptr_array({**w, **v}, mats + vecs))
+    tiles = chain_tiles(base, w) if dtype == torch.bfloat16 else None
+    return SeedFullPack(base, weights, vectors, w, v, tiles, _ptr_array(
+        {**w, **v}, mats + vecs, (0 if tiles is None else tiles.data_ptr(),)))
 
 
 def _zero_agg(pack: SeedPack, x, j):
@@ -423,7 +461,8 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     [A, D] (agent geometry embedding) in the pack's compute dtype; mask_pl
     [P], mask_a [A] and occ [G] bool. CUDA tensors launch
     csrc/seed_eval_full.cu (two kernels in order on the current stream,
-    counted once in `seed_eval_full_kernel.launches`); CPU tensors take
+    through seed_eval_full_launch, counted once in
+    `seed_eval_full_kernel.launches`); CPU tensors take
     seed_eval_full_reference. With return_precompute, the precompute's fp32
     results (v_occ, K_pt, V_pt, K_a, V_a; the rows of masked keys are not
     computed by the kernel) come back as a third output, so that the two
@@ -462,37 +501,67 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
                         ("full weights", pack.weights, cdt),
                         ("full vectors", pack.vectors, torch.float32)):
         _check(name, t, dt, t.shape, dev)
-    smem = 4 * (16 * D + 512 + 32 + num_heads + max(P, A) * num_heads)
-    if smem > 232448:
-        raise ValueError(f"seed_eval_full_kernel: {smem} B of shared memory "
-                         "exceeds the 227 KB a block can use")
+    if cdt == torch.bfloat16:
+        if D not in (64, 128):
+            raise ValueError("seed_eval_full_kernel in bf16 takes D = 64 or "
+                             "128 (its tensor-core tiles)")
+        _check("tiles", pack.tiles, cdt, (n_chain_tiles(L), D, D), dev)
+    if D % 32:
+        raise ValueError("seed_eval_full_kernel needs D divisible by 32 "
+                         "(the stack's column slices)")
 
     from infgen_torch.ops.build import library
+    shape = (_DTYPE_CODE[cdt], L, P, A, D, num_heads, G)
+    if shape not in _FULL_SMEM_OK:
+        smem = library().infgen_seed_eval_full_smem(*shape)
+        if smem > 232448:
+            raise ValueError(f"seed_eval_full_kernel: {smem} B of shared "
+                             "memory exceed the 227 KB a block can use")
+        _FULL_SMEM_OK.add(shape)
+    small, pos, pre = seed_eval_full_launch(
+        pack, sd0, k0, v0, r_pl, mask_pl, agent_col, r_sa, mask_a, occ,
+        num_heads, head_dim)
+    seed_eval_full_kernel.launches += 1
+    if return_precompute:
+        return small, pos, pre
+    return small, pos
+
+
+def seed_eval_full_launch(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
+                          agent_col, r_sa, mask_a, occ, num_heads: int,
+                          head_dim: int, stages: int = 3, pre=None):
+    """Launch csrc/seed_eval_full.cu on CUDA tensors that
+    seed_eval_full_kernel has checked, without counting: stages 1 runs the
+    precompute, 2 the stack on `pre` (a previous call's precompute), 3 both.
+    Returns (small, pos, pre); a stage-wise timing uses it directly."""
+    from infgen_torch.ops.build import library
     lib = library()
+    base = pack.base
+    L, D, G = base.L, base.D, base.G
+    P, A = k0.shape[1], agent_col.shape[0]
+    dev = sd0.device
     f32 = dict(dtype=torch.float32, device=dev)
-    # fp32 precompute results, written by the first kernel, read by the
-    # second; rows of masked keys are left unwritten and never read
-    v_occ = torch.empty((L, D), **f32)
-    K_pt, V_pt = torch.empty((L, P, D), **f32), torch.empty((L, P, D), **f32)
-    K_a, V_a = torch.empty((L, A, D), **f32), torch.empty((L, A, D), **f32)
+    if pre is None:
+        # fp32 precompute results, written by the first kernel, read by the
+        # second; rows of masked keys are left unwritten and never read
+        pre = (torch.empty((L, D), **f32), torch.empty((L, P, D), **f32),
+               torch.empty((L, P, D), **f32), torch.empty((L, A, D), **f32),
+               torch.empty((L, A, D), **f32))
     small = torch.empty((3, SMALL_COLS), **f32)
     pos = torch.empty((G,), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_seed_eval_full(
-        _DTYPE_CODE[cdt], sd0.data_ptr(), k0.data_ptr(), v0.data_ptr(),
-        r_pl.data_ptr(), mask_pl.data_ptr(), agent_col.data_ptr(),
-        r_sa.data_ptr(), mask_a.data_ptr(), occ.data_ptr(),
-        base.weights.data_ptr(), base.vectors.data_ptr(),
-        ctypes.addressof(pack.ptrs), v_occ.data_ptr(), K_pt.data_ptr(),
-        V_pt.data_ptr(), K_a.data_ptr(), V_a.data_ptr(), small.data_ptr(),
-        pos.data_ptr(), L, P, A, D, num_heads, head_dim, G, stream)
+        _DTYPE_CODE[pack.dtype], sd0.data_ptr(), k0.data_ptr(),
+        v0.data_ptr(), r_pl.data_ptr(), mask_pl.data_ptr(),
+        agent_col.data_ptr(), r_sa.data_ptr(), mask_a.data_ptr(),
+        occ.data_ptr(), base.weights.data_ptr(), base.vectors.data_ptr(),
+        ctypes.addressof(pack.ptrs), *(t.data_ptr() for t in pre),
+        small.data_ptr(), pos.data_ptr(), L, P, A, D, num_heads, head_dim, G,
+        stages, stream)
     if err != 0:
         raise RuntimeError(f"seed_eval_full kernel launch failed: cudaError "
                            f"{err}")
-    seed_eval_full_kernel.launches += 1
-    if return_precompute:
-        return small, pos, (v_occ, K_pt, V_pt, K_a, V_a)
-    return small, pos
+    return small, pos, pre
 
 
 seed_eval_full_kernel.launches = 0
