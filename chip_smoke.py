@@ -13,7 +13,9 @@ before the last line):
            against its plain PyTorch version on the card at the flagship
            shapes, fp32 and bf16 (r_biased_attention: fp32, its only type),
            over its mask cases, with its time (seed_eval_full: its two
-           stages' too), the plain version's time and its bound
+           stages' too), the plain version's time and its bound; before
+           the fused block's, `fused_block_widths` holds that kernel at
+           its narrowest heads and checks a width it refuses
   parity   a small closed-loop rollout on the card (through the kernels)
            equal to the same rollout on the CPU (through the plain
            versions), with the flagship's flags and, as `parity_latency`,
@@ -439,14 +441,22 @@ def column_cost(pack, args, n_rows):
     return nbytes, L * per_layer
 
 
+def bound_of(nbytes, macs, macs_f32, dtype):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the multiply-adds (`macs` of `dtype`, `macs_f32` of
+    fp32) over their peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * macs / PEAK_OPS[dtype] + 2 * macs_f32 / PEAK_OPS[F32]) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def finish(kernel, dtype, errs, means, ms, plain_ms, nbytes, macs,
            macs_f32=0, e2e=None, **extra):
     """Emit one `kernels` line (with the bound computed from this run's
     inputs) and hold the errors to the kernel's tolerances: the stage-wise
     max and mean abs errors `errs` and `means` (per case), and the whole
     call's max abs error `e2e` where the kernel has stages."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (2 * macs / PEAK_OPS[dtype] + 2 * macs_f32 / PEAK_OPS[F32]) * 1e3
+    bound_ms, bound_by = bound_of(nbytes, macs, macs_f32, dtype)
     tol = TOL[kernel][dtype]
     if e2e is not None:
         extra.update(end_to_end_err=max(e2e.values()), end_to_end_errors=e2e,
@@ -456,8 +466,7 @@ def finish(kernel, dtype, errs, means, ms, plain_ms, nbytes, macs,
                max_abs_err=max(errs.values()), errors=errs, tolerance=tol,
                mean_abs_err=max(means.values()), mean_errors=means,
                mean_tolerance=mean_tol, ms=ms, plain_ms=plain_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, operations=2 * (macs + macs_f32),
                library_ms=None, library_none=NO_LIBRARY[kernel], **extra)
     emit("kernels", kernel=kernel, **res)
@@ -825,6 +834,87 @@ def fused_cost(pack, x, src, r, mask):
     return nbytes, macs
 
 
+def fused_cost_least(pack, x, src, r, mask):
+    """(bytes, fp32 multiply-adds) of one fused-block call in the least work
+    known for it: fused_cost's bytes; the row products of every query
+    (13 D^2, as fused_cost); and the key and the relation terms each in the
+    cheaper of two forms. Direct (fused_cost): a relation costs its two
+    projections per valid pair (2 D^2); keys cost their projections (2 D^2
+    per pair with per-query keys, per key row some query reads otherwise)
+    and the score and value sums (2 D per pair). Reassociated
+    (csrc/fused_block.cu): per valid pair two dot products with per-head
+    query vectors and two per-head weighted sums (2 H D each term), and per
+    query row with a valid key the two products that make those vectors
+    and project the sums (2 D^2 each term)."""
+    Q, D = x.shape
+    H = pack.H
+    n_pairs = int(mask.sum())
+    live = int(mask.any(1).sum())
+    nbytes, _ = fused_cost(pack, x, src, r, mask)
+    reassociated = n_pairs * 2 * H * D + live * 2 * D * D
+    if src is not None and src.dim() == 3:
+        keys = n_pairs * (2 * D * D + 2 * D)
+    else:
+        keys = int(mask.any(0).sum()) * 2 * D * D + n_pairs * 2 * D
+    macs = (Q * 13 * D * D + min(n_pairs * 2 * D * D, reassociated)
+            + min(keys, reassociated))
+    return nbytes, macs
+
+
+def check_fused_widths(dev):
+    """The fused kernel at the narrowest heads it takes (head_dim 4: D = 32
+    with 8 heads, where its head products leave half the block's threads
+    idle, and D = 64 with 16 heads, num_heads * D at its limit of 1024) in
+    the three key modes, fp32, against its plain version at the fp32 limits;
+    and D = 128 with 16 heads refused (fused_block.kernel_accepts)."""
+    from infgen_torch.model.layers import DenseAttention
+    from infgen_torch.ops import fused_block as FB
+
+    name = "fused_attention_block"
+    t = _tensor(dev)
+    errs, means = {}, {}
+    for D, H in ((32, 8), (64, 16)):
+        for i, mode in enumerate(("per_query", "shared", "self")):
+            rng = np.random.default_rng(59 + i)
+            mod = DenseAttention(D, H, D // H, bipartite=mode == "per_query")
+            randomize(torch.nn.ModuleList([mod]), seed=19)
+            pack = FB.pack_fused_block(mod.to(dev))
+            Q = 37
+            K = {"per_query": 12, "shared": 53, "self": Q}[mode]
+            x, r = t(rng.normal(size=(Q, D))), t(rng.normal(size=(Q, K, D)))
+            src = {"per_query": (Q, K, D), "shared": (K, D)}.get(mode)
+            src = None if src is None else t(rng.normal(size=src))
+            mask = torch.as_tensor(rng.uniform(size=(Q, K)) < 0.5,
+                                   device=dev)
+            mask[3] = False
+            mask[7] = True
+            args = (pack, x, src, r, mask, H)
+            with torch.no_grad():
+                got = FB.fused_attention_block(*args)
+                ref = FB.fused_attention_block_reference(*args)
+            errs[f"D{D}H{H}/{mode}"], means[f"D{D}H{H}/{mode}"] = _err(
+                got, ref, f"{name} D={D} H={H} {mode}")
+    wide = FB.pack_fused_block(DenseAttention(128, 16, 8).to(dev))
+    x = t(np.zeros((4, 128)))
+    try:
+        FB.fused_attention_block(wide, x, None, t(np.zeros((4, 4, 128))),
+                                 torch.ones((4, 4), dtype=torch.bool,
+                                            device=dev), 16)
+        refused = False
+    except ValueError:
+        refused = True
+    emit("fused_block_widths", errors=errs, mean_errors=means,
+         tolerance=TOL[name][F32], mean_tolerance=MEAN_TOL[name][F32],
+         refused_D128_H16=refused)
+    require(max(errs.values()) <= TOL[name][F32]
+            and max(means.values()) <= MEAN_TOL[name][F32],
+            f"{name} at narrow heads disagrees with its plain version: "
+            f"max {errs}, mean {means}")
+    require(refused or dev.type != "cuda",
+            f"{name} launched at D = 128 with 16 heads, a width its kernel "
+            "does not take")
+
+
 def check_fused_block(cfg, attr, dev):
     """fused_attention_block kernel vs fused_attention_block_reference at
     the flagship shapes: every key mode (per query, shared, self), bipartite
@@ -832,9 +922,12 @@ def check_fused_block(cfg, attr, dev):
     to the fp32 limits, see TOL; and as bf16 tensors, each output within
     one bf16 step). Timed on the rollout's three calls with bf16 tensors
     (the bf16 policy) or fp32 ones: ms, plain ms and bound are per call,
-    averaged over the three."""
+    averaged over the three. The bound counts the least work known for the
+    layer (fused_cost_least); `bound_ms_direct` counts the direct form
+    (fused_cost). Narrow heads: check_fused_widths."""
     from infgen_torch.ops import fused_block as FB
 
+    check_fused_widths(dev)
     H, kernel_name = cfg.num_heads, "fused_attention_block"
     dec = decoder_for(cfg, attr, F32, dev)
     packs = {name: FB.pack_fused_block(getattr(dec, name))
@@ -877,7 +970,7 @@ def check_fused_block(cfg, attr, dev):
             require(extra["bf16_tensor_steps"] <= 1.0,
                     f"fused_attention_block with bf16 tensors is more than "
                     f"one bf16 step from its plain version: {steps}")
-        ms, plain_ms, nbytes, macs = [], [], 0, 0
+        ms, plain_ms, nbytes, macs, least = [], [], 0, 0, 0
         for kind, name, mode in FUSED_CASES[:3]:
             x, src, r, mask = fused_inputs(
                 dec, cfg, kind, mode, "random", np.random.default_rng(43),
@@ -897,10 +990,13 @@ def check_fused_block(cfg, attr, dev):
                     PLAIN_CALLS))
             b, m = fused_cost(packs[name], x, src, r, mask)
             nbytes, macs = nbytes + b, macs + m
+            least += fused_cost_least(packs[name], x, src, r, mask)[1]
         n = len(ms)
         results[dtype] = finish(
             "fused_attention_block", dtype, errs, means, sum(ms) / n,
-            sum(plain_ms) / n, nbytes / n, 0, macs_f32=macs / n,
+            sum(plain_ms) / n, nbytes / n, 0, macs_f32=least / n,
+            bound_ms_direct=bound_of(nbytes / n, 0, macs / n, dtype)[0],
+            operations_direct=2 * macs / n,
             ms_by_call=dict(zip(("temporal", "map", "agent"), ms)),
             plain_ms_by_call=dict(zip(("temporal", "map", "agent"),
                                       plain_ms)), **extra)

@@ -39,25 +39,21 @@ def nvcc_path() -> str:
     return found
 
 
-def build(force: bool = False, verbose: bool = False, csrc: Path = CSRC,
-          lib_path: Path = LIB_PATH) -> float:
-    """Compile the kernels of `csrc` into `lib_path` if the library is
-    missing or older than a source (always with `force`). Returns the
-    seconds spent."""
-    sources = sorted(Path(csrc).glob("*.cu"))
-    inputs = sources + sorted(Path(csrc).glob("*.cuh"))
-    lib_path = Path(lib_path)
-    if not force and lib_path.exists() and all(
-            lib_path.stat().st_mtime >= s.stat().st_mtime for s in inputs):
+def build(force: bool = False, verbose: bool = False) -> float:
+    """Compile the kernels if the library is missing or older than a
+    source (always with `force`). Returns the seconds spent."""
+    sources = sorted(CSRC.glob("*.cu"))
+    inputs = sources + sorted(CSRC.glob("*.cuh"))
+    if not force and LIB_PATH.exists() and all(
+            LIB_PATH.stat().st_mtime >= s.stat().st_mtime for s in inputs):
         return 0.0
     t0 = time.perf_counter()
-    build_dir = lib_path.parent
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
     for src in sources:
-        obj = build_dir / (src.stem + ".o")
+        obj = BUILD_DIR / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -68,14 +64,14 @@ def build(force: bool = False, verbose: bool = False, csrc: Path = CSRC,
             print(out, flush=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
-    tmp = lib_path.with_suffix(".so.tmp")
+    tmp = LIB_PATH.with_suffix(".so.tmp")
     link = subprocess.run(
         [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
          *(str(o) for _, o, _ in procs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, lib_path)
+    os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 
 

@@ -14,13 +14,15 @@
 // Bound. The agent-agent call of the flagship rollout (Q = K = 128, D = 128,
 // 8x16 heads) in the direct form is about 0.57 G multiply-adds when every
 // pair is valid, almost all of it the relation projections (each pair's r
-// row through w_kr and w_vr, 2 D^2), against 4.2 MB of bf16 relations to
-// read: operations bound it (17 us at the 67 TFLOP/s fp32 peak; the
-// temporal and map calls are a tenth and a twentieth of that). The
-// reassociated form below needs 2 H D multiply-adds per valid pair for the
-// two relation terms instead of 2 D^2 (16x fewer at D = 128, H = 8), plus
-// 4 D^2 per query row: about 0.08 G for the agent call, so its bound falls
-// towards the bytes of the relations it must read (1.3 us).
+// row through w_kr and w_vr, 2 D^2). The reassociated form below needs
+// 2 H D multiply-adds per valid pair for each of the key and relation
+// terms instead (16x fewer than 2 D^2 at D = 128, H = 8), plus 2 D^2 per
+// query row for each. chip_smoke.py's bound (fused_cost_least) takes each
+// term in the cheaper form (self keys: projected once, direct): 0.073 G
+// for the all-valid agent call, 2.2 us at the 67 TFLOP/s fp32 peak, and
+// 0.054 G (1.6 us) at the rollout's half-valid mask, above the 1.0 us
+// its 3.3 MB of bf16 inputs and fp32 weights take to read; the temporal
+// and map calls' bounds are 1.2 and 1.1 us.
 //
 // Design.
 //   - Reassociation. With u_h = W_k[:, h] q_h and ur_h = W_kr[:, h] q_h
@@ -212,8 +214,11 @@ __device__ MatSpec mat_spec(const float* w, int n_in, int n_out) {
 // W [n_in, n_out] is the stream's next matrix; a thread holds a column
 // pair x kRows sums (two pairs when n_out > 2 blockDim) over its k group's
 // rows of each chunk; the groups' sums are added in `part` in a fixed
-// order. Needs n_out a power of two, n_in a multiple of the chunk,
-// 4 | ldx, hs, and X 16-byte aligned.
+// order. Needs n_out a power of two of at most 2 kMaxIt blockDim (a
+// thread's column pairs fit in acc), chunks of at least 4 rows
+// (kStage / n_out >= 4, n_in >= 4), n_in a multiple of the chunk,
+// 4 | ldx, hs, and X 16-byte aligned; fused_block.py::kernel_accepts
+// refuses the widths that break these.
 __device__ void tile_mm(const float* X, int ldx, int hs, int hd, WStream& st,
                         int n_in, int n_out, const float* bias, float* Y,
                         int ldy, bool accumulate, float* part) {
@@ -280,7 +285,7 @@ __device__ void tile_mm(const float* X, int ldx, int hs, int hd, WStream& st,
   if (G == 1) {
 #pragma unroll
     for (int u = 0; u < kMaxIt; ++u) {
-      if (u >= nit) continue;
+      if (u >= nit || !active) continue;  // idle threads when pairs < bd
       const int c = 2 * cp[u];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)

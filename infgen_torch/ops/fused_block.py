@@ -86,6 +86,20 @@ def pack_column_blocks(decoder, L: int):
             for i in range(L) for name, _ in _KINDS]
 
 
+def kernel_accepts(D: int, num_heads: int) -> bool:
+    """Whether csrc/fused_block.cu takes a layer of width D with num_heads
+    heads: D in (32, 64, 128); num_heads a power of two up to 16 with a
+    head_dim (D / num_heads) divisible by 4; and num_heads * D <= 1024, as
+    the per-head query products (u, ur: [head_dim, num_heads * D]) give
+    each of the block's 256 threads at most two column pairs and need
+    weight chunks of at least 4 rows."""
+    if D not in (32, 64, 128) or num_heads < 1 or num_heads > 16:
+        return False
+    Hd = D // num_heads
+    return (num_heads & (num_heads - 1) == 0 and Hd % 4 == 0
+            and num_heads * D <= 1024)
+
+
 def _mode(x_dst, x_src):
     """Key mode of a call: 'self' (x_src None), 'shared' ([K, D]) or
     'per_query' ([Q, K, D])."""
@@ -119,7 +133,7 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
     float32 or bfloat16, and are contiguous; the output takes the dtype.
     CUDA tensors launch csrc/fused_block.cu on the current stream (one
     launch, counted in `fused_attention_block.launches`); CPU tensors take
-    the plain version."""
+    the plain version. The kernel's widths: kernel_accepts."""
     dev = x_dst.device
     mode = _mode(x_dst, x_src)
     Q, D = x_dst.shape
@@ -148,11 +162,11 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
     if dev.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {dev}")
     Hd = D // num_heads
-    if (num_heads != pack.H or D not in (32, 64, 128) or num_heads > 16
-            or num_heads & (num_heads - 1) or Hd % 4):
+    if num_heads != pack.H or not kernel_accepts(D, num_heads):
         raise ValueError("the fused_attention_block kernel takes D in "
                          "(32, 64, 128), the pack's num_heads, a power of "
-                         "two up to 16, and a head_dim divisible by 4")
+                         "two up to 16 with num_heads * D <= 1024, and a "
+                         "head_dim divisible by 4 (kernel_accepts)")
     _check("weights", pack.weights, torch.float32, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
     for name, t in pack.heads.items():

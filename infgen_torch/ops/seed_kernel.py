@@ -466,7 +466,9 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     seed_eval_full_reference. With return_precompute, the precompute's fp32
     results (v_occ, K_pt, V_pt, K_a, V_a; the rows of masked keys are not
     computed by the kernel) come back as a third output, so that the two
-    stages can be checked one at a time."""
+    stages can be checked one at a time. The kernel takes D <= 512
+    divisible by 32 in fp32, and only D = 64 or 128 in bf16 (its
+    tensor-core tiles)."""
     dev = sd0.device
     if dev.type == "cpu":
         pre = seed_eval_full_precompute(pack, k0, v0, r_pl, agent_col, r_sa,

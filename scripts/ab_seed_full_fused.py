@@ -1,31 +1,35 @@
-"""A/B of the port's CUDA kernels between this checkout's sources and another
-tree of `infgen_torch/ops/csrc` (such as the parent commit's, written out
-with `git show <rev>:infgen_torch/ops/csrc/<file>` for each file), on one
-card, in one process.
+"""A/B of seed_eval_full and fused_attention_block between their sources at
+commit 3bd251f (the last before their Hopper redesign) and this checkout's,
+on one card, in one process. The numbers of that redesign's A/B in PERF.md
+come from this script.
 
-    python -m infgen_torch.ab_kernels --parent-csrc DIR [--out FILE]
+    mkdir -p snapshot/parent_csrc
+    for f in $(git ls-tree --name-only 3bd251f infgen_torch/ops/csrc/); do
+        git show 3bd251f:$f > snapshot/parent_csrc/$(basename $f); done
+    python scripts/ab_seed_full_fused.py --parent-csrc snapshot/parent_csrc
 
-The other tree is built into build/parent/. Then, on chip_smoke.py's inputs
-at the flagship shapes:
+It is pinned to that commit: the other tree must have its C interface
+(_declare_parent: seed_eval_full with 19 pointers and 7 ints, fused_block
+with a key-projection scratch pointer); another tree is refused by the
+loader or misread. The other tree is built into build/parent/. Then, on
+chip_smoke.py's inputs at the flagship shapes:
   - seed_eval_full (the latency preset; bf16, the main path's type, and
     fp32): median ms per call of each build (CUDA events around each call,
     as chip_smoke.py times, but both builds called through equally lean
     host code: parent_*, change_fused, seed_eval_full_launch), in turns
-    parent, change, change, parent; the
-    device ms per call of each build's kernels under torch.profiler (the
-    change's stack kernel starts early and waits for the precompute, so its
-    span includes that wait); the host microseconds to enqueue one call;
-    the largest difference between the two builds' outputs;
+    parent, change, change, parent; the device ms per call of each build's
+    kernels under torch.profiler (the change's stack kernel starts early
+    and waits for the precompute, so its span includes that wait); the
+    host microseconds to enqueue one call; the largest difference between
+    the two builds' outputs;
   - fused_attention_block (the rollout's three calls, bf16 tensors as the
     rollout passes them, and fp32): the same, per call. A call whose host
     time exceeds its device time reads its host time in the event timing;
     the profiler's device ms does not;
   - seed_eval, refine, motion_column, r_biased_attention: whether the two
-    builds' outputs are equal bit for bit on the smoke's cases.
+    builds' outputs are equal bit for bit on the smoke's cases (their
+    wrappers called once with each build's library).
 One JSON line per item, the card's name and power limit first. Needs a GPU.
-The other tree keeps this checkout's C interface for the four unchanged
-kernels; its seed_eval_full and fused_block take the interface of the
-commit before their redesign (_declare_parent).
 """
 
 import argparse
@@ -33,7 +37,9 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -41,6 +47,34 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def build_tree(csrc: Path, lib_path: Path) -> float:
+    """Compile every .cu of `csrc` into `lib_path` with the port's nvcc
+    flags, one nvcc per source, all started together. Returns seconds."""
+    from infgen_torch.ops import build as B
+
+    t0 = time.perf_counter()
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = B.nvcc_path()
+    procs = []
+    for src in sorted(csrc.glob("*.cu")):
+        obj = lib_path.parent / (src.stem + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *B.NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+    link = subprocess.run(
+        [nvcc, "-shared", *B.NVCC_FLAGS[:2], "-o", str(lib_path),
+         *(str(o) for _, o, _ in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    return time.perf_counter() - t0
 
 
 def _declare_parent(lib):
@@ -143,8 +177,6 @@ def stage_ms(fn, n=50):
 
 def host_us(fn, n=200):
     """Host microseconds per call of fn (enqueue only, no synchronise)."""
-    import time
-
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -232,17 +264,16 @@ def ab_fused(lib, lib_c, cfg, attr, dev, emit):
 
 
 def _both(lib_change, lib_parent, fn):
-    """fn() through each build (the wrappers read build._lib)."""
+    """fn() through each build: the wrappers load the library through
+    build.library(), which returns build._lib once it is set."""
     from infgen_torch.ops import build as B
 
     outs = []
     for lib in (lib_change, lib_parent):
-        B._lib = lib
-        with torch.no_grad():
+        with mock.patch.object(B, "_lib", lib), torch.no_grad():
             out = fn()
-        outs.append(tuple(o.clone() for o in out)
-                    if isinstance(out, tuple) else out.clone())
-    B._lib = lib_change
+            outs.append(tuple(o.clone() for o in out)
+                        if isinstance(out, tuple) else out.clone())
     torch.cuda.synchronize()
     return outs
 
@@ -309,14 +340,13 @@ def ab_unchanged(lib_c, lib_p, cfg, lat, attr, dev, emit):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser("infgen_torch.ab_kernels")
+    p = argparse.ArgumentParser("ab_seed_full_fused")
     p.add_argument("--parent-csrc", required=True)
     p.add_argument("--out", default=None, help="also append the lines here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        print("ab_kernels needs a GPU", file=sys.stderr)
+        print("ab_seed_full_fused needs a GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     import chip_smoke as S
     from infgen_torch.cli import build_tokenizers
     from infgen_torch.config import load_config
@@ -340,8 +370,7 @@ def main(argv=None):
     emit("device", nvidia_smi=smi, torch=torch.__version__)
     parent_lib = B.BUILD_DIR / "parent" / "libinfgen_kernels.so"
     emit("build", change_s=B.build(force=True),
-         parent_s=B.build(force=True, csrc=Path(args.parent_csrc),
-                          lib_path=parent_lib))
+         parent_s=build_tree(Path(args.parent_csrc), parent_lib))
     lib_c = B.library()
     lib_p = ctypes.CDLL(str(parent_lib))
     _declare_parent(lib_p)

@@ -26,7 +26,8 @@ from infgen_torch.ops import seed_kernel as SK
 
 ATOL = 1e-5
 KEY_TILE = 32                 # the kernel's keys per pass
-WIDTHS = {"flagship": (128, 8), "narrow": (32, 2)}   # (D, heads)
+WIDTHS = {"flagship": (128, 8), "narrow": (32, 2),
+          "narrow_heads": (32, 8)}   # (D, heads); head_dim 4 at the last
 MODES = ("per_query", "shared", "self")
 MASKS = ("random", "masked_row", "all_valid")
 
@@ -129,6 +130,20 @@ def test_reassociated_block_matches_reference(width, mode, mask_case):
     assert torch.isfinite(got).all()
     if mask_case == "masked_row":
         assert torch.equal(agg[3], torch.zeros_like(agg[3]))
+
+
+@pytest.mark.parametrize("D,H,ok", (
+    (128, 8, True), (32, 2, True), (32, 8, True), (64, 16, True),
+    (128, 16, False),   # u / ur need 4 column pairs per thread
+    (32, 16, False),    # head_dim 2
+    (96, 8, False), (128, 3, False), (128, 32, False)))
+def test_kernel_accepts_widths(D, H, ok):
+    """The fused kernel's width rule: every case the reassociated math is
+    held at above is taken, and the widths whose weight tiles would
+    overflow a thread's column pairs or a 4-row chunk are refused."""
+    assert FB.kernel_accepts(D, H) is ok
+    for width, (d, h) in WIDTHS.items():
+        assert FB.kernel_accepts(d, h), width
 
 
 @pytest.mark.parametrize("width", sorted(WIDTHS))
