@@ -4,8 +4,9 @@ Every `csrc/*.cu` compiles with `nvcc` for sm_90a into one shared library
 with a plain C interface, `build/libinfgen_kernels.so` at the repository
 root, at first use; it is loaded with ctypes. One `nvcc -c` runs per source,
 all started together, then one link; `csrc/common.cuh` holds the device
-code the sources share, `csrc/dense_row.cuh` the per-row DenseAttention
-code of the trunk column, `csrc/cluster_stack.cuh` the seed stack over a
+code the sources share, `csrc/mma_tiles.cuh` the tensor-core fragments of
+the bf16 paths, `csrc/dense_row.cuh` the per-row DenseAttention code of the
+trunk column's fp32 path, `csrc/cluster_stack.cuh` the seed stack over a
 thread-block cluster. Nothing here runs at import
 time.
 """
@@ -80,7 +81,7 @@ def _declare(lib):
     for name, n_ptrs, n_ints in (("infgen_seed_eval", 12, 7),
                                  ("infgen_seed_eval_full", 19, 8),
                                  ("infgen_refine", 9, 6),
-                                 ("infgen_motion_column", 13, 7),
+                                 ("infgen_motion_column", 14, 7),
                                  ("infgen_fused_block", 6, 6),
                                  ("infgen_r_biased_attention", 9, 6)):
         fn = getattr(lib, name)

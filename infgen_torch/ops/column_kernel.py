@@ -5,7 +5,10 @@ csrc/motion_column.cu, whose header states its bound and design).
   pack_column_params       the L trunk layers' temporal, map and agent-agent
                            DenseAttention parameters, stacked per sublayer
                            j = 3l + kind (kind 0 t_attn, 1 pt2a, 2 a2a):
-                           matrices in the compute dtype, vectors fp32
+                           matrices in the compute dtype, vectors fp32;
+                           bf16 packs also hold column_tiles, the layout
+                           the kernel's tensor-core path reads
+  kernel_accepts           the widths the kernel takes
   motion_column_reference  the same math in plain PyTorch (the CPU path,
                            and what the kernel is held against on the card)
   motion_column_kernel     the wrapper: launches the kernels on CUDA
@@ -24,7 +27,7 @@ epilogue, which is what the full computation gives them, bit for bit.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import ctypes
 import torch
@@ -46,6 +49,7 @@ class ColumnPack:
     ptrs: ctypes.Array             # data_ptr of each view, layout order
     L: int
     D: int
+    tiles: Optional[torch.Tensor] = None   # bf16 packs: column_tiles
 
     @property
     def dtype(self):
@@ -121,13 +125,87 @@ def pack_sublayers(subs, dtype=None):
 
 def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
     """Stack an AgentDecoder's L trunk layers per sublayer j = 3l + kind
-    (pack_sublayers); matrices in the compute dtype `dtype`."""
+    (pack_sublayers); matrices in the compute dtype `dtype`. A bf16 pack
+    at D = 128 also holds `tiles` (column_tiles)."""
     subs = []
     for i in range(L):
         subs += [(getattr(decoder, f"{name}_{i}"), bip)
                  for name, bip in _KINDS]
     weights, vectors, w, v, ptrs, D = pack_sublayers(subs, dtype)
-    return ColumnPack(weights, vectors, w, v, ptrs, L, D)
+    tiles = column_tiles(w) if dtype == torch.bfloat16 and D == TILE_D \
+        else None
+    return ColumnPack(weights, vectors, w, v, ptrs, L, D, tiles)
+
+
+# the bf16 path's widths (csrc/motion_column.cu: kCD, kCHd) and its [D, D]
+# tiles of one sublayer, in the order of its Tile enum
+TILE_D, TILE_HEAD_DIM = 128, 16
+TILE_ORDER = ("wq", "wk", "wkr", "wv", "wvr", "wga", "wgd", "ws", "wo",
+              *(f"wf0/{c}" for c in range(4)), *(f"wf1/{c}" for c in range(4)))
+
+
+def swizzle(t: torch.Tensor) -> torch.Tensor:
+    """[..., n, D] -> the same rows with 8-element chunk c of row n stored
+    at chunk c ^ (n % 8) (csrc/motion_column.cu::swz). Its own inverse."""
+    n, D = t.shape[-2:]
+    rows = torch.arange(n, device=t.device)[:, None]
+    perm = torch.arange(D // 8, device=t.device)[None] ^ (rows % 8)
+    c = t.reshape(*t.shape[:-1], D // 8, 8)
+    idx = perm[..., None].expand(n, D // 8, 8).expand(c.shape)
+    return torch.gather(c, -2, idx).reshape(t.shape)
+
+
+def tile_matrix(w: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
+    """Matrix `name` of TILE_ORDER for every sublayer as [J, in, out] =
+    [J, D, D]: wf0/c is ff_0's output columns [cD, cD + D), wf1/c ff_1's
+    input rows [cD, cD + D)."""
+    base, _, c = name.partition("/")
+    m = w[base]
+    if not c:
+        return m
+    D, c = m.shape[-1] if base == "wf1" else m.shape[1], int(c)
+    return m[..., c * D:(c + 1) * D] if base == "wf0" \
+        else m[:, c * D:(c + 1) * D]
+
+
+@torch.no_grad()
+def column_tiles(w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The bf16 path's weights: per sublayer j the 17 matrices of
+    TILE_ORDER as [D, D] tiles of W^T (tile[n, k] = W[k, n]), swizzled;
+    [3L, 17, D, D] in the pack's dtype. csrc/motion_column.cu streams them
+    by bulk copies, one tile each."""
+    return torch.stack([swizzle(tile_matrix(w, name).transpose(-1, -2))
+                        for name in TILE_ORDER], 1).contiguous()
+
+
+def scratch_floats(dtype, L: int, A: int, W: int, K: int, D: int) -> int:
+    """fp32 scratch of one call (csrc/motion_column.cu's Scratch rows):
+    five [A, D] hand-over rows; bf16 also the agent-agent aggregate and the
+    pair projections, per layer and query row k and v rows for up to W
+    temporal, K map and A agent keys (its pair_layer)."""
+    if dtype != torch.bfloat16:
+        return 5 * A * D
+    return 6 * A * D + L * A * (W + K + A) * 2 * D
+
+
+def launches_per_call(dtype, L: int) -> int:
+    """Kernel launches of one call: per layer a row and an agent-agent
+    kernel; bf16: the pair-projection kernel before them and per layer the
+    agent-agent attention kernel between them."""
+    return 3 * L + 1 if dtype == torch.bfloat16 else 2 * L
+
+
+def kernel_accepts(dtype, D: int, num_heads: int, head_dim: int,
+                   max_keys: int) -> bool:
+    """Whether csrc/motion_column.cu takes these widths (max_keys: the
+    largest of A, W and K): the fp32 path any num_heads x head_dim == D <=
+    512; the bf16 path (its tensor-core tiles) D = 128 with 8 heads of 16;
+    both at most 256 keys per query."""
+    if num_heads * head_dim != D or max_keys > 256:
+        return False
+    if dtype == torch.bfloat16:
+        return D == TILE_D and head_dim == TILE_HEAD_DIM
+    return dtype == torch.float32 and D <= 512
 
 
 def _sublayer(pack, j, x, keys, r, mask, H, Hd, live):
@@ -215,8 +293,8 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
     pack's compute dtype; t_mask [A, W], pl_mask [A, K], aa_mask [A, A]
     bool; n_rows an int32 scalar tensor on the same device, or None (all
     rows). Returns [L, A, D] fp32. CUDA tensors launch
-    csrc/motion_column.cu on the current stream (2L kernels, counted once
-    in `motion_column_kernel.launches`); CPU tensors take
+    csrc/motion_column.cu on the current stream (launches_per_call kernels,
+    counted once in `motion_column_kernel.launches`); CPU tensors take
     motion_column_reference."""
     dev = x0.device
     if dev.type == "cpu":
@@ -230,9 +308,12 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"motion_column_kernel: compute dtype {cdt} "
                          "unsupported")
-    if num_heads * head_dim != D or D > 512 or max(A, W, K) > 256:
-        raise ValueError("motion_column_kernel needs num_heads * head_dim "
-                         "== D <= 512 and at most 256 keys per query")
+    if not kernel_accepts(cdt, D, num_heads, head_dim, max(A, W, K)):
+        raise ValueError(
+            "motion_column_kernel takes num_heads * head_dim == D <= 512 "
+            "(bf16: D = 128, head_dim 16) and at most 256 keys per query, "
+            f"got D={D}, {num_heads} heads of {head_dim}, "
+            f"{max(A, W, K)} keys")
     _check("x0", x0, torch.float32, (A, D), dev)
     _check("key_stack", key_stack, cdt, (L, A, W, D), dev)
     _check("r_t", r_t, cdt, (A, W, D), dev)
@@ -248,21 +329,27 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
             raise ValueError("n_rows must hold one value")
     _check("weights", pack.weights, cdt, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
+    if cdt == torch.bfloat16:
+        _check("tiles", pack.tiles, cdt, (3 * L, len(TILE_ORDER), D, D), dev)
 
     from infgen_torch.ops.build import library
     lib = library()
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((L, A, D), **f32)
     # per-layer hand-over from the row kernel to the agent-agent kernel:
-    # x after the map sublayer, its normalised query / key rows, q, k, v
-    scratch = torch.empty((5, A, D), **f32)
+    # x after the map sublayer, its normalised query / key rows, q, k, v;
+    # bf16: also the agent-agent aggregate and every layer's pair
+    # projections (scratch_floats)
+    scratch = torch.empty((scratch_floats(cdt, L, A, W, K, D),), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_motion_column(
         _DTYPE_CODE[cdt], x0.data_ptr(), key_stack.data_ptr(),
         r_t.data_ptr(), t_mask.data_ptr(), pl_keys.data_ptr(),
         r_pl.data_ptr(), pl_mask.data_ptr(), r_aa.data_ptr(),
         aa_mask.data_ptr(), 0 if n_rows is None else n_rows.data_ptr(),
-        ctypes.addressof(pack.ptrs), out.data_ptr(), scratch.data_ptr(),
+        ctypes.addressof(pack.ptrs),
+        0 if cdt != torch.bfloat16 else pack.tiles.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(),
         L, A, W, K, D, num_heads, head_dim, stream)
     if err != 0:
         raise RuntimeError(f"motion_column kernel launch failed: cudaError "

@@ -56,6 +56,7 @@
 // shorten the chain.
 
 #include "cluster_stack.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -323,8 +324,6 @@ __global__ void __launch_bounds__(kThreads, 1) precompute_fp32_kernel(
 // ---------------------------------------------------------------------------
 // The bf16 precompute: tensor-core tile products.
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kPreThreads = 256;  // 8 warps: the mma tiles assume it
 constexpr int kChainRows = 32;    // agent rows per chain block
 constexpr int kMapRows = 64;      // map rows per block
@@ -333,20 +332,6 @@ constexpr int kChainMT = kChainRows / 16;  // m16 tiles of a chain block
 // Tiles of chain_tiles before the map's: 11 per zero-aggregate step (3L - 1
 // steps) and 4 per layer's agent K/V.
 __host__ __device__ inline int n_chain_tiles(int L) { return 37 * L - 11; }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a b for one m16n8k16 bf16 tile, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // A block's run through consecutive tiles [begin, end) of `tiles` ([n, D, D]
 // bf16), staged in `ring` (kTileStages [D, D + 8] buffers, rows padded so

@@ -10,6 +10,7 @@ csrc/r_biased_attention.cu, whose header states its bound and design).
   r_biased_attention            the wrapper: launches the kernel on CUDA
                                 tensors, takes the plain version for CPU
                                 tensors, raises otherwise
+  kernel_accepts                the widths the kernel takes
 
 out = softmax(q (k + r W_kr)^T / sqrt(d)) (v + r W_vr) per head, over the
 keys the mask allows; a query with no valid key gives 0. `drop` is an
@@ -50,13 +51,44 @@ def r_biased_attention_reference(q, k, v, r, w_kr, w_vr, mask,
     return out.reshape(B, N, HD)
 
 
+# csrc/r_biased_attention.cu's block: query rows, threads, keys per tile,
+# and its registers' limits on the widths
+_ROWS, _THREADS, _KEY_TILE, _MAX_H = 1, 256, 32, 16
+_SMEM_LIMIT = 232448   # bytes of shared memory a block may take (H100)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(K: int, HD: int, Dr: int, H: int) -> int:
+    """Shared memory of one block of the kernel (its rba_floats)."""
+    Hp, G = _round4(H), (_THREADS // HD if _THREADS >= HD else 1)
+    floats = (2 * _ROWS * HD + _ROWS * Dr * Hp + _ROWS * H * Dr
+              + _round4(_ROWS * H) + 2 * _KEY_TILE * (Dr + 2 * HD)
+              + _KEY_TILE * Hp
+              + 2 * _MAX_H + G * _ROWS * HD + _ROWS * _round4(K)
+              + _THREADS // 32 + 1)
+    return 4 * floats
+
+
+def kernel_accepts(K: int, HD: int, Dr: int, H: int) -> bool:
+    """Whether the kernel takes these widths: H | HD, at most 16 heads, the
+    per-head relation sums H x Dr within 2,048 and the value sums HD within
+    512 (eight and two per thread), Dr and HD multiples of 4 (16-byte
+    copies of relation, key and value rows), and its shared memory within a
+    block's."""
+    return (H > 0 and HD % H == 0 and H <= _MAX_H and H * Dr <= 8 * _THREADS
+            and HD <= 2 * _THREADS and Dr % 4 == 0 and HD % 4 == 0
+            and smem_bytes(K, HD, Dr, H) <= _SMEM_LIMIT)
+
+
 def r_biased_attention(q, k, v, r, w_kr, w_vr, mask, num_heads: int,
                        drop=None) -> torch.Tensor:
     """The attention of r_biased_attention_reference, every tensor fp32 and
     contiguous. CUDA tensors launch csrc/r_biased_attention.cu on the
-    current stream (counted in `r_biased_attention.launches`; W_kr and W_vr
-    must fit in a block's shared memory with the key tiles, or the launch
-    is refused and this raises); CPU tensors take the plain version."""
+    current stream (counted in `r_biased_attention.launches`; widths that
+    kernel_accepts refuses raise); CPU tensors take the plain version."""
     dev = q.device
     B, Q, HD = q.shape
     K, Dr, H = k.shape[1], r.shape[-1], num_heads
@@ -77,6 +109,9 @@ def r_biased_attention(q, k, v, r, w_kr, w_vr, mask, num_heads: int,
                                             num_heads, drop)
     if dev.type != "cuda":
         raise ValueError(f"r_biased_attention: unsupported device {dev}")
+    if not kernel_accepts(K, HD, Dr, H):
+        raise ValueError(f"r_biased_attention: the kernel does not take K={K}"
+                         f", HD={HD}, Dr={Dr}, {H} heads")
 
     from infgen_torch.ops.build import library
     lib = library()

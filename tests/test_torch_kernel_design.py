@@ -1,9 +1,11 @@
 """The designs of the port's redesigned CUDA kernels, held on the CPU in
 plain torch (no JAX): the reassociated attention of the fused DenseAttention
 block (csrc/fused_block.cu) against the plain `fused_attention_block_reference`,
-and the host-side weight layouts the kernels read (the fused block's
-head-blocked key projections, the seed_eval_full
-bf16 path's weight tiles) against the module parameters they come from.
+the reassociated relation-biased attention (csrc/r_biased_attention.cu)
+against `r_biased_attention_reference`, the host-side weight layouts the
+kernels read (the fused block's head-blocked key projections, the
+seed_eval_full bf16 path's weight tiles, the trunk column's swizzled tiles)
+against the module parameters they come from, and the kernels' width rules.
 
 Reassociation: with u_h = W_k[:, h] q_h and ur_h = W_kr[:, h] q_h, a pair's
 score is LN(key) . u_h + LN(r) . ur_h, and its values enter only through the
@@ -21,7 +23,9 @@ import torch
 
 from infgen_torch.config import Config
 from infgen_torch.model.layers import DenseAttention, LayerNorm
+from infgen_torch.ops import column_kernel as CK
 from infgen_torch.ops import fused_block as FB
+from infgen_torch.ops import pallas_attention as PA
 from infgen_torch.ops import seed_kernel as SK
 
 ATOL = 1e-5
@@ -215,3 +219,173 @@ def test_chain_tiles_round_trip(L):
     assert next(it, None) is None
     assert pack.ptrs[-1] == tiles.data_ptr()
     assert SK.pack_seed_params_full(dec, L, G).tiles is None
+
+
+# --------------------------------------------------------------------- #
+# r_biased_attention, reassociated (csrc/r_biased_attention.cu)
+# --------------------------------------------------------------------- #
+
+RBA_WIDTHS = {"rollout": (128, 128, 8), "narrow": (32, 32, 2)}  # HD, Dr, H
+
+
+def _rba_case(width, mask_case, drop):
+    HD, Dr, H = RBA_WIDTHS[width]
+    rng = np.random.default_rng(11 + MASKS.index(mask_case) + 3 * drop + HD)
+    B, Q, K = 2, 9, 70          # three key tiles of the kernel per row
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+    q, k, v, r = f(B, Q, HD), f(B, K, HD), f(B, K, HD), f(B, Q, K, Dr)
+    w_kr, w_vr = f(Dr, HD) * Dr ** -0.5, f(Dr, HD) * Dr ** -0.5
+    if mask_case == "all_valid":
+        mask = torch.ones((B, Q, K), dtype=torch.bool)
+    else:
+        mask = torch.as_tensor(rng.uniform(size=(B, Q, K)) < 0.5)
+        mask[1, 4] = True
+    if mask_case == "masked_row":
+        mask[0, 3] = False
+    d = None
+    if drop:
+        d = torch.as_tensor((rng.uniform(size=(B, Q, K, H)) < 0.9) / 0.9,
+                            dtype=torch.float32)
+    return q, k, v, r, w_kr, w_vr, mask, H, d
+
+
+def reassociated_rba(q, k, v, r, w_kr, w_vr, mask, H, drop):
+    """r_biased_attention as csrc/r_biased_attention.cu computes it: per
+    query row ur_h = W_kr[:, h] q_h; the valid keys in tiles of 32 with an
+    online softmax (running max, undropped denominator); per tile the
+    scores q_h . k_h + r . ur_h, the dropped weights w and the sums
+    sum w v and, per head, sum w r; at the end the relation sums projected
+    through W_vr once per row. fp32."""
+    B, Q, HD = q.shape
+    Dr = r.shape[-1]
+    Hd = HD // H
+    out = torch.zeros(B, Q, HD)
+    for b in range(B):
+        for a in range(Q):
+            qh = q[b, a].view(H, Hd)
+            ur = torch.einsum("jhd,hd->hj", w_kr.view(Dr, H, Hd), qh)
+            valid = torch.nonzero(mask[b, a]).flatten()
+            m = torch.full((H,), -torch.inf)
+            den, accv, accr = torch.zeros(H), torch.zeros(H, Hd), \
+                torch.zeros(H, Dr)
+            for t0 in range(0, len(valid), KEY_TILE):
+                ks = valid[t0:t0 + KEY_TILE]
+                sc = (r[b, a, ks] @ ur.T
+                      + torch.einsum("khd,hd->kh", k[b, ks].view(-1, H, Hd),
+                                     qh)) * Hd ** -0.5            # [k, H]
+                mn = torch.maximum(m, sc.max(0).values)
+                al, e = torch.exp(m - mn), torch.exp(sc - mn)
+                den = den * al + e.sum(0)
+                w = e if drop is None else e * drop[b, a, ks]
+                accv = accv * al[:, None] + torch.einsum(
+                    "kh,khd->hd", w, v[b, ks].view(-1, H, Hd))
+                accr = accr * al[:, None] + w.T @ r[b, a, ks]
+                m = mn
+            proj = torch.einsum("hj,jhd->hd", accr, w_vr.view(Dr, H, Hd))
+            out[b, a] = ((accv + proj)
+                         / torch.clamp(den, min=1e-30)[:, None]).reshape(HD)
+    return out
+
+
+@pytest.mark.parametrize("drop", (False, True))
+@pytest.mark.parametrize("mask_case", MASKS)
+@pytest.mark.parametrize("width", sorted(RBA_WIDTHS))
+def test_reassociated_rba_matches_reference(width, mask_case, drop):
+    q, k, v, r, w_kr, w_vr, mask, H, d = _rba_case(width, mask_case, drop)
+    got = reassociated_rba(q, k, v, r, w_kr, w_vr, mask, H, d)
+    ref = PA.r_biased_attention_reference(q, k, v, r, w_kr, w_vr, mask, H,
+                                          d)
+    err = float((got - ref).abs().max())
+    assert err <= ATOL, f"max abs error {err} > {ATOL}"
+    if mask_case == "masked_row":
+        assert torch.equal(got[0, 3], torch.zeros_like(got[0, 3]))
+
+
+@pytest.mark.parametrize("K,HD,Dr,H,ok", (
+    (128, 128, 128, 8, True),     # the rollout's call
+    (300, 128, 128, 8, True),     # the smoke's bipartite call
+    (16, 32, 32, 2, True),        # the parity rollout's
+    (53, 64, 64, 16, True),       # head_dim 4
+    (70, 48, 48, 6, True),        # heads not a multiple of four
+    (40, 128, 256, 8, True),      # H Dr = 2048, the limit
+    (40, 256, 64, 4, True),       # HD = 256
+    (40, 512, 512, 4, False),     # the key tiles overflow shared memory
+    (8, 128, 128, 32, False),     # more heads than 16
+    (8, 512, 516, 4, False),      # H Dr > 2048
+    (8, 1024, 256, 4, False),     # HD > 512
+    (70, 48, 46, 6, False),       # Dr not a multiple of 4
+    (16, 6, 8, 2, False),         # HD not a multiple of 4
+    (8, 128, 128, 3, False),      # heads do not divide HD
+    (60000, 128, 128, 8, False)))  # the key indices overflow shared memory
+def test_rba_kernel_accepts(K, HD, Dr, H, ok):
+    assert PA.kernel_accepts(K, HD, Dr, H) is ok
+
+
+# --------------------------------------------------------------------- #
+# motion_column's bf16 tiles (csrc/motion_column.cu)
+# --------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def column_pack():
+    """Two trunk layers' worth of sublayers at the bf16 path's width."""
+    rng = np.random.default_rng(13)
+    subs = []
+    for _ in range(2):
+        for bip in (False, True, False):
+            mod = DenseAttention(128, 8, 16, bipartite=bip)
+            _fill(mod, rng)
+            subs.append((mod, bip))
+    weights, vectors, w, v, ptrs, D = CK.pack_sublayers(subs, torch.bfloat16)
+    return w, CK.column_tiles(w), subs
+
+
+def test_swizzle_is_an_involution():
+    t = torch.arange(16 * 128).reshape(16, 128)
+    s = CK.swizzle(t)
+    assert torch.equal(CK.swizzle(s), t)
+    flat = s.reshape(-1)
+    for n in range(16):          # the kernel's swz(row, k)
+        for k in range(128):
+            assert flat[n * 128 + (((k >> 3) ^ (n & 7)) << 3) + (k & 7)] \
+                == t[n, k]
+
+
+@pytest.mark.parametrize("name", CK.TILE_ORDER)
+def test_column_tiles_round_trip(column_pack, name):
+    """Tile `name` of each sublayer, unswizzled and transposed back, is the
+    pack's matrix (its bf16 view of the module parameter)."""
+    w, tiles, subs = column_pack
+    t = CK.TILE_ORDER.index(name)
+    assert tiles.shape == (len(subs), len(CK.TILE_ORDER), 128, 128)
+    assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
+    for j, (mod, _) in enumerate(subs):
+        back = CK.swizzle(tiles[j, t]).T
+        assert torch.equal(back, CK.tile_matrix(w, name)[j])
+    # and the pack's views are the module's parameters
+    base, _, c = name.partition("/")
+    full = {"wf0": lambda m: m.ff_0.weight.T, "wf1": lambda m: m.ff_1.weight.T,
+            "wq": lambda m: m.to_q.weight.T, "wk": lambda m: m.to_k.weight.T,
+            "wv": lambda m: m.to_v.weight.T, "wkr": lambda m: m.w_kr,
+            "wvr": lambda m: m.w_vr, "ws": lambda m: m.to_s.weight.T,
+            "wo": lambda m: m.to_out.weight.T,
+            "wga": lambda m: m.to_g.weight.T[:128],
+            "wgd": lambda m: m.to_g.weight.T[128:]}[base]
+    block = slice(int(c) * 128, (int(c) + 1) * 128) if c else slice(None)
+    for j, (mod, _) in enumerate(subs):
+        m = full(mod).detach().to(torch.bfloat16)
+        m = m[:, block] if base == "wf0" else m[block]
+        assert torch.equal(CK.swizzle(tiles[j, t]).T, m)
+
+
+@pytest.mark.parametrize("dtype,D,H,Hd,keys,ok", (
+    (torch.bfloat16, 128, 8, 16, 128, True),    # the latency preset
+    (torch.bfloat16, 128, 8, 16, 256, True),
+    (torch.bfloat16, 128, 8, 16, 257, False),   # uint8 key indices
+    (torch.bfloat16, 64, 4, 16, 128, False),    # tiles are D = 128
+    (torch.bfloat16, 128, 16, 8, 128, False),   # heads of 16 columns
+    (torch.float32, 32, 2, 16, 16, True),       # the parity rollout's
+    (torch.float32, 512, 8, 64, 128, True),
+    (torch.float32, 1024, 8, 128, 128, False),
+    (torch.float32, 128, 8, 8, 128, False)))    # heads x head_dim != D
+def test_column_kernel_accepts(dtype, D, H, Hd, keys, ok):
+    assert CK.kernel_accepts(dtype, D, H, Hd, keys) is ok
