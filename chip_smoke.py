@@ -15,10 +15,11 @@ before the last line):
            over its mask cases, with its time (seed_eval_full: its two
            stages' too), the plain version's time and its bound (the
            column, the fused block and the attention kernel: their least
-           time, with the direct form's as `bound_ms_direct`); before the
-           fused block's, `fused_block_widths` holds that kernel at its
-           narrowest heads and checks a width it refuses, and before the
-           attention kernel's, `rba_widths` does the same for it
+           time, with the direct form's as `bound_ms_direct`); refine and
+           the column are held stage by stage too; `seed_eval_widths`,
+           `refine_widths`, `fused_block_widths` and `rba_widths` hold those
+           kernels at their narrowest widths and check a width each
+           refuses
   parity   a small closed-loop rollout on the card (through the kernels)
            equal to the same rollout on the CPU (through the plain
            versions), with the flagship's flags and, as `parity_latency`,
@@ -64,11 +65,12 @@ F32, BF16 = torch.float32, torch.bfloat16
 # operands to bf16 and sum in fp32, so again only summation order differs,
 # until a last-bit difference in an fp32 sum rounds an operand to the
 # neighbouring bf16 value (a relative 2^-8) in one of them. Over many rows
-# and sublayers such flips cascade, so the two kernels with stages are held
+# and sublayers such flips cascade, so the kernels with stages are held
 # stage by stage, each stage on the same inputs as the kernel's: the column
 # one layer at a time (the plain layer l starts from the kernel's layer
 # l - 1), the full seed evaluation's precompute and its stack (the plain
-# stack reads the kernel's precompute). Flips are sparse: they set the max
+# stack reads the kernel's precompute), refine one sublayer at a time and
+# its heads (refine_errors). Flips are sparse: they set the max
 # abs error (TOL) but hardly the mean abs error (MEAN_TOL), while a kernel
 # that skipped the operand rounding would be off by up to 2^-9 on every
 # operand, so every output moves. Each bf16 limit sits above the error read
@@ -76,23 +78,29 @@ F32, BF16 = torch.float32, torch.bfloat16
 # (PERF.md, the mutant). E2E_TOL holds the whole call, whose bf16 error is
 # the whole cascade's.
 # Readings on an H100 (bf16 max / mean; the mutant's in brackets):
-# seed_eval 3.6e-5 / 4.3e-8 (1.1e-2 / 2.4e-3), refine 2.4e-7 / 2.4e-8
-# (7.3e-3 / 2.2e-3), seed_eval_full 9.7e-3 / 8.0e-4 (2.3e-2 / 3.3e-3),
-# motion_column 2.0e-2 / 1.1e-3 since its tensor-core redesign (2.3e-2 /
-# 8.1e-4 before); fp32 all below 2e-5. The column's bf16 path feeds
-# tensor cores, which take bf16 operands only, so its mutant rounds every
-# operand toward zero instead of to nearest: 6.7e-2 / 8.6e-3, refused by
-# the mean limit (the earlier design's copy without rounding: 3.5e-2 /
-# 5.2e-3).
+# seed_eval 3.6e-5 / 4.3e-8 (1.1e-2 / 2.4e-3) on the one-block kernel;
+# on the cluster stack 2.4e-7 / 1.5e-8, one case explained by one flip
+# (raw 8.1e-3) (1.9e-2 / 4.4e-3), seed_eval_full 9.7e-3 / 8.0e-4
+# (2.3e-2 / 3.3e-3), motion_column 2.0e-2 / 1.1e-3 since its tensor-core
+# redesign (2.3e-2 / 8.1e-4 before); fp32 all below 2e-5. refine since its
+# cluster redesign: stage-wise 2.9e-3 / 2.2e-5, whole call 7.0e-3 (2.8e-2
+# / 4.8e-3, whole call 1.9e-2); the one-block kernel's whole call read
+# 2.4e-7 / 2.4e-8 against limits of 1e-3 / 1e-4. The tensor-core paths
+# (column, refine) take bf16 operands only, so their mutant rounds every
+# operand toward zero instead of to nearest (scripts/rounding_mutant.py,
+# which does the same to the seed stack): the column's 6.7e-2 / 8.6e-3,
+# refused by the mean limit (the earlier design's copy without rounding:
+# 3.5e-2 / 5.2e-3).
 TOL = {"seed_eval": {F32: 1e-4, BF16: 1e-3},
        "seed_eval_full": {F32: 1e-4, BF16: 3e-2},
-       "refine": {F32: 1e-4, BF16: 1e-3},
+       "refine": {F32: 1e-4, BF16: 1e-2},
        "motion_column": {F32: 1e-4, BF16: 0.1}}
 MEAN_TOL = {"seed_eval": {F32: 1e-5, BF16: 1e-4},
             "seed_eval_full": {F32: 1e-5, BF16: 1.6e-3},
             "refine": {F32: 1e-5, BF16: 1e-4},
             "motion_column": {F32: 1e-5, BF16: 2e-3}}
 E2E_TOL = {"seed_eval_full": {F32: 1e-4, BF16: 5e-2},
+           "refine": {F32: 1e-4, BF16: 2e-2},
            "motion_column": {F32: 1e-4, BF16: 0.5}}
 # fused_attention_block and r_biased_attention compute in fp32 whatever
 # their inputs' type (the TPU kernels' recipe: no operand rounding), so both
@@ -593,11 +601,102 @@ def explain_by_one_flip(plain, got, limit):
     return None if best is None else (*best, len(finder.sites))
 
 
-def check_seed_eval(cfg, attr, dev):
-    """seed_eval kernel vs seed_eval_reference on the card at the flagship
-    shapes, in fp32 and bf16, over three mask cases; times at each dtype."""
+def seed_eval_errors(pack, args, H, Hd, dtype, what):
+    """(max, mean, raw max, one-flip explanation or None) of seed_eval on
+    the card against seed_eval_reference on the same inputs. A bf16 case
+    over the limits is held instead by its one-flip explanation: a one-row
+    chain carries one rounding near-tie, resolved the other way by the
+    kernel's summation order, into every later value; then the plain
+    version with that one operand flipped must give the kernel's output
+    within the fp32 limit."""
     from infgen_torch.ops import seed_kernel as SK
 
+    with torch.no_grad():
+        got = SK.seed_eval_kernel(pack, *args, H, Hd)
+        ref = SK.seed_eval_reference(pack, *args, H, Hd)
+    torch.cuda.synchronize()
+    err, mean = _err(got, ref, what)
+    flip = None
+    if dtype == BF16 and (err > TOL["seed_eval"][dtype]
+                          or mean > MEAN_TOL["seed_eval"][dtype]):
+        with torch.no_grad():
+            found = explain_by_one_flip(
+                lambda rnd: SK.seed_eval_reference(pack, *args, H, Hd,
+                                                   round_operand=rnd),
+                got, TOL["seed_eval"][F32])
+        if found is not None and found[0] <= TOL["seed_eval"][F32]:
+            flip = dict(after_flip_max_abs_err=found[0],
+                        operand_call=found[1][0], operand_index=found[1][1],
+                        bf16_steps_from_midpoint=found[1][2],
+                        near_ties=found[2])
+            return found[0], found[0], err, flip
+    return err, mean, err, flip
+
+
+def small_config(cfg, D, H):
+    """cfg at width D with H heads of D / H, at the parity phases' sizes
+    (16 agent slots, 128 map tokens, 3 agent and seed layers)."""
+    return cfg.replace(max_agents=16, max_map_tokens=128, num_agent_layers=3,
+                       num_seed_layers=3, num_map_layers=1, hidden_dim=D,
+                       num_heads=H, head_dim=D // H)
+
+
+def check_seed_eval_widths(cfg, dev):
+    """seed_eval at its narrowest widths (fp32: D = 32 with 2 heads, the
+    parity rollout's; bf16: D = 64 with 4 heads) against its plain version
+    at its limits; and bf16 at D = 32 refused (seed_kernel.
+    seed_eval_accepts: the stack's bf16 column slices are 8 columns)."""
+    from infgen_torch.cli import build_tokenizers
+    from infgen_torch.ops import seed_kernel as SK
+
+    name = "seed_eval"
+    errs, means, raw, flips = {}, {}, {}, {}
+    for dtype, D, H in ((F32, 32, 2), (BF16, 64, 4)):
+        small = small_config(cfg, D, H)
+        attr = build_tokenizers(small)[0]
+        G, L = attr.grid_size, small.num_seed_layers
+        dec = decoder_for(small, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = SK.pack_seed_params(dec, L, G, pdt)
+        for case in ("masked", "agents_all_masked"):
+            args = seed_eval_inputs(dec, small, G, pdt,
+                                    np.random.default_rng(71), case, dev)
+            key = f"{str(dtype)[6:]}/D{D}H{H}/{case}"
+            errs[key], means[key], raw[key], flip = seed_eval_errors(
+                pack, args, H, D // H, dtype, f"{name} {key}")
+            if flip:
+                flips[key] = flip
+    small = small_config(cfg, 32, 2)
+    attr = build_tokenizers(small)[0]
+    dec = decoder_for(small, attr, BF16, dev)
+    pack = SK.pack_seed_params(dec, 3, attr.grid_size, BF16)
+    args = seed_eval_inputs(dec, small, attr.grid_size, BF16,
+                            np.random.default_rng(71), "masked", dev)
+    try:
+        SK.seed_eval_kernel(pack, *args, 2, 16)
+        refused = False
+    except ValueError:
+        refused = True
+    emit("seed_eval_widths", errors=errs, mean_errors=means, raw_errors=raw,
+         explained_by_one_flip=flips, refused_bf16_D32=refused)
+    for key in errs:
+        dt = F32 if key.startswith("float32") else BF16
+        require(errs[key] <= TOL[name][dt]
+                and means[key] <= MEAN_TOL[name][dt],
+                f"{name} {key} disagrees with its plain version: max "
+                f"{errs[key]}, mean {means[key]}")
+    require(refused or dev.type != "cuda",
+            f"{name} launched in bf16 at D = 32, a width its kernel does "
+            "not take")
+
+
+def check_seed_eval(cfg, attr, dev):
+    """seed_eval kernel vs seed_eval_reference on the card at the flagship
+    shapes, in fp32 and bf16, over three mask cases; times at each dtype.
+    Narrow widths first: check_seed_eval_widths."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    check_seed_eval_widths(cfg, dev)
     G = attr.grid_size
     H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
     results = {}
@@ -610,33 +709,10 @@ def check_seed_eval(cfg, attr, dev):
         for case in ("masked", "map_all_masked", "agents_all_masked"):
             args = seed_eval_inputs(dec, cfg, G, pdt,
                                     np.random.default_rng(23), case, dev)
-            with torch.no_grad():
-                got = SK.seed_eval_kernel(pack, *args, H, Hd)
-                ref = SK.seed_eval_reference(pack, *args, H, Hd)
-            torch.cuda.synchronize()
-            errs[case], means[case] = _err(got, ref,
-                                           f"seed_eval {dtype} {case}")
-            raw[case] = errs[case]
-            if dtype == BF16 and (errs[case] > TOL["seed_eval"][dtype]
-                                  or means[case] > MEAN_TOL["seed_eval"][
-                                      dtype]):
-                # a one-row chain carries one rounding near-tie, resolved
-                # the other way by the kernel's summation order, into every
-                # later value; held instead: the plain version with that
-                # one operand flipped must give the kernel's output within
-                # the fp32 limit
-                with torch.no_grad():
-                    found = explain_by_one_flip(
-                        lambda rnd: SK.seed_eval_reference(
-                            pack, *args, H, Hd, round_operand=rnd),
-                        got, TOL["seed_eval"][F32])
-                if found is not None and found[0] <= TOL["seed_eval"][F32]:
-                    flips[case] = dict(after_flip_max_abs_err=found[0],
-                                       operand_call=found[1][0],
-                                       operand_index=found[1][1],
-                                       bf16_steps_from_midpoint=found[1][2],
-                                       near_ties=found[2])
-                    errs[case] = means[case] = found[0]
+            errs[case], means[case], raw[case], flip = seed_eval_errors(
+                pack, args, H, Hd, dtype, f"seed_eval {dtype} {case}")
+            if flip:
+                flips[case] = flip
         args = seed_eval_inputs(dec, cfg, G, pdt, np.random.default_rng(23),
                                 "masked", dev)
         with torch.no_grad():
@@ -732,8 +808,80 @@ def check_seed_eval_full(cfg, attr, dev):
     return results
 
 
+def refine_errors(pack, args, H, Hd, what):
+    """(max, mean, whole-call max) abs error of one refine pass on the card:
+    sublayer by sublayer, each against the plain sublayer run on the
+    kernel's own input (its trace of x after the previous sublayer; after
+    the last one, row 0, the only row the heads read), the heads on the
+    kernel's last row 0 (see TOL); max and mean are the largest over the
+    stages. The whole call against refine_reference."""
+    from infgen_torch.ops import refine_kernel as RK
+
+    x, plk, rpl, mpl, raa, ma = args
+    with torch.no_grad():
+        head, off, tr = RK.refine_launch(pack, *args, H, Hd, trace=True)
+        ref = RK.refine_reference(pack, *args, H, Hd)
+        stages = []
+        for j in range(2 * pack.L):
+            want = RK.refine_sublayer(pack, j, x if j == 0 else tr[j - 1],
+                                      plk, rpl, mpl, raa, ma, H, Hd)
+            rows = slice(0, 1) if j == 2 * pack.L - 1 else slice(None)
+            stages.append(_err(tr[j][rows], want[rows], f"{what} sublayer "
+                               f"{j}"))
+        stages.append(_err((head, off), RK.refine_heads(pack, tr[-1][0]),
+                           f"{what} heads"))
+    torch.cuda.synchronize()
+    return (max(e for e, _ in stages), max(m for _, m in stages),
+            _err((head, off), ref, what)[0])
+
+
+def check_refine_widths(cfg, dev, wide):
+    """refine at its narrowest clusters (D = 32 with 2 heads, the parity
+    rollout's width, and D = 48 with 3), fp32 and bf16, against its plain
+    version at its limits (refine_errors); and `wide` = (pack, args) of the
+    flagship width called with 16 heads of 8, refused (refine_kernel.
+    kernel_accepts: one CTA per head of 16)."""
+    from infgen_torch.cli import build_tokenizers
+    from infgen_torch.ops import refine_kernel as RK
+
+    name = "refine"
+    errs, means, e2e = {}, {}, {}
+    for D, H in ((32, 2), (48, 3)):
+        small = small_config(cfg, D, H)
+        attr = build_tokenizers(small)[0]
+        for dtype in (F32, BF16):
+            dec = decoder_for(small, attr, dtype, dev)
+            pdt = None if dtype == F32 else dtype
+            pack = RK.pack_refine_params(dec, small.num_seed_layers,
+                                         attr.angle_size, pdt)
+            args = refine_inputs(dec, small, pdt, np.random.default_rng(73),
+                                 "masked", dev)
+            key = f"{str(dtype)[6:]}/D{D}H{H}"
+            errs[key], means[key], e2e[key] = refine_errors(
+                pack, args, H, D // H, f"{name} {key}")
+    try:
+        RK.refine_kernel(wide[0], *wide[1], 16, 8)
+        refused = False
+    except ValueError:
+        refused = True
+    emit("refine_widths", errors=errs, mean_errors=means,
+         end_to_end_errors=e2e, refused_H16=refused)
+    for key in errs:
+        dt = F32 if key.startswith("float32") else BF16
+        require(errs[key] <= TOL[name][dt] and means[key] <= MEAN_TOL[name][dt]
+                and e2e[key] <= E2E_TOL[name][dt],
+                f"{name} {key} disagrees with its plain version: max "
+                f"{errs[key]}, mean {means[key]}, whole call {e2e[key]}")
+    require(refused or dev.type != "cuda",
+            f"{name} launched with 16 heads of 8, a width its kernel does "
+            "not take")
+
+
 def check_refine(cfg, attr, dev):
-    """refine kernel vs refine_reference, as check_seed_eval."""
+    """refine kernel vs its plain version at the flagship shapes, in fp32
+    and bf16, over three mask cases, sublayer by sublayer and as a whole
+    (refine_errors); times at each dtype. Narrow widths after the fp32
+    pass: check_refine_widths."""
     from infgen_torch.ops import refine_kernel as RK
 
     H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
@@ -743,18 +891,16 @@ def check_refine(cfg, attr, dev):
         pdt = None if dtype == F32 else dtype
         pack = RK.pack_refine_params(dec, L, attr.angle_size, pdt)
         run = lambda fn, args: fn(pack, *args, H, Hd)
-        errs, means = {}, {}
+        errs, means, e2e = {}, {}, {}
         for case in ("masked", "map_all_masked", "agents_all_masked"):
             args = refine_inputs(dec, cfg, pdt, np.random.default_rng(31),
                                  case, dev)
-            with torch.no_grad():
-                got = run(RK.refine_kernel, args)
-                ref = run(RK.refine_reference, args)
-            torch.cuda.synchronize()
-            errs[case], means[case] = _err(got, ref,
-                                           f"refine {dtype} {case}")
+            errs[case], means[case], e2e[case] = refine_errors(
+                pack, args, H, Hd, f"refine {dtype} {case}")
         args = refine_inputs(dec, cfg, pdt, np.random.default_rng(31),
                              "masked", dev)
+        if dtype == F32:
+            check_refine_widths(cfg, dev, (pack, args))
         with torch.no_grad():
             ms = median_ms(lambda: run(RK.refine_kernel, args),
                            KERNEL_LAUNCHES)
@@ -763,7 +909,7 @@ def check_refine(cfg, attr, dev):
             outs = run(RK.refine_kernel, args)
         results[dtype] = finish("refine", dtype, errs, means, ms,
                                 plain_ms,
-                                *refine_cost(pack, args, outs))
+                                *refine_cost(pack, args, outs), e2e=e2e)
     return results
 
 

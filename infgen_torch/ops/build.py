@@ -7,7 +7,7 @@ all started together, then one link; `csrc/common.cuh` holds the device
 code the sources share, `csrc/mma_tiles.cuh` the tensor-core fragments of
 the bf16 paths, `csrc/dense_row.cuh` the per-row DenseAttention code of the
 trunk column's fp32 path, `csrc/cluster_stack.cuh` the seed stack over a
-thread-block cluster. Nothing here runs at import
+thread-block cluster (seed_eval and seed_eval_full). Nothing here runs at import
 time.
 """
 
@@ -80,7 +80,7 @@ def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, n_ptrs, n_ints in (("infgen_seed_eval", 12, 7),
                                  ("infgen_seed_eval_full", 19, 8),
-                                 ("infgen_refine", 9, 6),
+                                 ("infgen_refine", 11, 6),
                                  ("infgen_motion_column", 14, 7),
                                  ("infgen_fused_block", 6, 6),
                                  ("infgen_r_biased_attention", 9, 6)):
@@ -88,7 +88,9 @@ def _declare(lib):
         fn.argtypes = [ci] + [vp] * n_ptrs + [ci] * n_ints + [vp]
         fn.restype = ci
     for name, n_ints in (("infgen_fused_block_smem", 5),
-                         ("infgen_seed_eval_full_smem", 7)):
+                         ("infgen_seed_eval_smem", 7),
+                         ("infgen_seed_eval_full_smem", 7),
+                         ("infgen_refine_smem", 4)):
         getattr(lib, name).argtypes = [ci] * n_ints
         getattr(lib, name).restype = ci
 

@@ -1,9 +1,9 @@
 // Device code shared by the port's kernels (seed_eval.cu, seed_eval_full.cu,
-// refine.cu, motion_column.cu, fused_block.cu): compute-dtype conversion,
-// block and warp reductions, LayerNorm and matrix products over vectors and
-// row tiles in shared memory, order-keeping compaction of masks, one-query
-// masked attention, the seed stack + heads, cp.async copies and bulk
-// (TMA) copies with their mbarriers.
+// refine.cu, motion_column.cu, fused_block.cu, r_biased_attention.cu):
+// compute-dtype conversion, block and warp reductions, LayerNorm and matrix
+// products over vectors and row tiles in shared memory, order-keeping
+// compaction of masks, the seed stack's packed weights, cp.async copies and
+// bulk (TMA) copies with their mbarriers.
 //
 // The arithmetic contract of every kernel, which is the TPU kernels' own:
 // matmul operands are rounded to the compute dtype T (float or bf16) and
@@ -125,6 +125,29 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& done) {
   return e;
 }
 
+// Phase stamps (scripts/kernel_stamps.py builds the sources with
+// -DINFGEN_STAMPS): thread 0 of CTA b < kStampBlocks records %globaltimer
+// as point i < kStampPoints of that CTA; a source's reader entry copies
+// them out. Otherwise stamp() is empty and the reader absent.
+#ifdef INFGEN_STAMPS
+constexpr int kStampBlocks = 8, kStampPoints = 128;
+__device__ unsigned long long g_stamps[kStampBlocks][kStampPoints];
+__device__ __forceinline__ void stamp(int i) {
+  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks && i < kStampPoints) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_stamps[blockIdx.x][i] = t;
+  }
+}
+#define INFGEN_STAMP_READER(name)                                  \
+  extern "C" int name(void* host) {                                \
+    return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps)); \
+  }
+#else
+__device__ __forceinline__ void stamp(int) {}
+#define INFGEN_STAMP_READER(name)
+#endif
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -239,8 +262,7 @@ __device__ void rows_ln(const float* in, int ldi, float* out, int ldo, int R,
 // consecutive weights of a row; each thread sums its rows' dot products in
 // a fixed k order, eight rows per pass over W. The k loop is unrolled so
 // that several weight loads are in flight: the products wait on L2, not on
-// arithmetic. (Unrolling matvec's k loops the same way made the one-row
-// seed stack slower on an H100, 0.40 -> 0.59 ms: PERF.md.)
+// arithmetic.
 template <typename T>
 __device__ void rows_mm(const float* x, int ldx, int R, int n_in, const T* W,
                         int n_out, const float* bias, float* y, int ldy,
@@ -307,71 +329,10 @@ __device__ int compact(const uint8_t* flags, int n, int* idx, int* scan) {
   return base;
 }
 
-// agg = masked-softmax attention of query q over N keys (K, V [N, D] KV).
-// A masked key's K and V rows are never read: its weight is exactly 0 in
-// the plain version too (exp(...) * 0), and the max over a head with any
-// valid key is a valid key's score (a masked score sits 1e9 below), so the
-// result is the same as scoring every key.
-template <typename KV>
-__device__ void attend(const float* q, const KV* K, const KV* V,
-                       const uint8_t* mask, int N, int D, int H, int Hd,
-                       float* sc, float* ssum, float* agg, float* part) {
-  const int bd = blockDim.x, tid = threadIdx.x;
-  const float scale = rsqrtf((float)Hd);
-  for (int i = tid; i < N * H; i += bd) {
-    const int n = i / H, h = i % H;
-    if (!mask[n]) {
-      sc[i] = -INFINITY;
-      continue;
-    }
-    const KV* kr = K + (size_t)n * D + h * Hd;
-    const float* qh = q + h * Hd;
-    float acc = 0.f;
-    for (int d = 0; d < Hd; ++d) acc = fmaf(to_f(kr[d]), qh[d], acc);
-    sc[i] = acc * scale;
-  }
-  __syncthreads();
-  const int warp = tid >> 5, lane = tid & 31, nwarps = bd >> 5;
-  for (int h = warp; h < H; h += nwarps) {
-    float mx = -INFINITY;
-    for (int n = lane; n < N; n += 32) mx = fmaxf(mx, sc[n * H + h]);
-    mx = warp_max(mx);
-    float s = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float e = mask[n] ? expf(sc[n * H + h] - mx) : 0.f;
-      sc[n * H + h] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    if (lane == 0) ssum[h] = fmaxf(s, 1e-30f);
-  }
-  __syncthreads();
-  for (int i = tid; i < N * H; i += bd) sc[i] = sc[i] / ssum[i % H];
-  __syncthreads();
-  // agg[d] = sum_n attn[n, d / Hd] * V[n, d], keys split over thread groups
-  const int groups = max(bd / D, 1);
-  const int chunk = (N + groups - 1) / groups;
-  for (int i = tid; i < groups * D; i += bd) {
-    const int d = i % D, g = i / D;
-    const int n0 = g * chunk, n1 = min(N, n0 + chunk);
-    const int h = d / Hd;
-    float acc = 0.f;
-    for (int n = n0; n < n1; ++n)
-      if (mask[n]) acc = fmaf(sc[n * H + h], to_f(V[(size_t)n * D + d]), acc);
-    part[g * D + d] = acc;
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += bd) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += part[g * D + d];
-    agg[d] = acc;
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// The seed stack + heads (infgen_torch/ops/seed_kernel.py::pack_seed_params
-// packs its parameters; seed_eval.cu and seed_eval_full.cu run it).
+// The seed stack's packed weights (infgen_torch/ops/seed_kernel.py::
+// pack_seed_params packs them; cluster_stack.cuh runs the stack for
+// seed_eval.cu and seed_eval_full.cu).
 
 template <typename T>
 struct SeedWeights {
@@ -420,107 +381,6 @@ __device__ SeedWeights<T> seed_weights(const void* weights,
   w.bsm = w.lnh_b + 4 * D;
   w.bpos = w.bsm + 3 * kSmallCols;
   return w;
-}
-
-// Floats of shared memory the stack needs.
-inline size_t seed_stack_floats(int D, int H, int P, int A) {
-  const int nkeys = P > A ? P : A;
-  return (size_t)16 * D + kThreads + 32 + H + (size_t)nkeys * H;
-}
-
-// One evaluation of the seed stack (L layers x {occ2sa, pt2sa, a2sa}: pre-
-// LN, masked softmax with a zero-aggregate fallback, gated update, post-LN,
-// a 4D FFN) and the four heads, in one block. occ2sa takes v_occ[i] as its
-// aggregate; to_g is applied to [agg, dst_n]; the query LayerNorm is
-// prenorm_dst for occ2sa and pt2sa, prenorm_src for a2sa (packed per
-// sublayer). K/V and v_occ are of type KV: the compute dtype when they were
-// precomputed outside, fp32 when the full kernel computed them.
-template <typename T, typename KV>
-__device__ void seed_stack_and_heads(
-    const SeedWeights<T>& w, const float* sd0, const KV* v_occ,
-    const KV* k_pt, const KV* v_pt, const uint8_t* mask_pl, const KV* k_a,
-    const KV* v_a, const uint8_t* mask_a, float* out_small, float* out_pos,
-    int L, int P, int A, int D, int H, int Hd, int G, float* smem) {
-  const int J = 3 * L, tid = threadIdx.x, bd = blockDim.x;
-  float* sd = smem;            // [D] running seed feature
-  float* dst_n = sd + D;       // [D]
-  float* q = dst_n + D;        // [D]
-  float* agg = q + D;          // [D]
-  float* x = agg + D;          // [D]
-  float* t1 = x + D;           // [D]
-  float* t2 = t1 + D;          // [D]
-  float* h = t2 + D;           // [4D]
-  float* xr = h + 4 * D;       // [4D] rounded matmul input
-  float* part = xr + 4 * D;    // [blockDim] partial sums
-  float* red = part + bd;      // [32]
-  float* ssum = red + 32;      // [H]
-  float* sc = ssum + H;        // [max(P, A) * H] scores / weights
-
-  for (int i = tid; i < D; i += bd) sd[i] = sd0[i];
-  __syncthreads();
-
-  for (int j = 0; j < J; ++j) {
-    const int li = j / 3, s = j % 3;
-    layer_norm(sd, dst_n, w.lnq_s + j * D, w.lnq_b + j * D, D, red);
-    if (s == 0) {  // occ2sa: one always-valid key, agg = its value
-      const KV* vo = v_occ + (size_t)li * D;
-      for (int i = tid; i < D; i += bd) agg[i] = to_f(vo[i]);
-      __syncthreads();
-    } else {
-      const int N = s == 1 ? P : A;
-      const KV* K = (s == 1 ? k_pt : k_a) + (size_t)li * N * D;
-      const KV* V = (s == 1 ? v_pt : v_a) + (size_t)li * N * D;
-      const uint8_t* mask = s == 1 ? mask_pl : mask_a;
-      const int k = 2 * li + s - 1;
-      round_vec<T>(dst_n, xr, D);
-      matvec<T>(xr, D, w.wq + (size_t)k * D * D, D, w.bq + k * D, q, part);
-      attend<KV>(q, K, V, mask, N, D, H, Hd, sc, ssum, agg, part);
-    }
-    // gate: sigmoid(to_g([agg, dst_n])); update toward to_s(dst_n)
-    round_vec<T>(agg, xr, D);
-    round_vec<T>(dst_n, xr + D, D);
-    matvec<T>(xr, 2 * D, w.wg + (size_t)j * 2 * D * D, D, w.bg + j * D, t1,
-              part);
-    round_vec<T>(dst_n, xr, D);
-    matvec<T>(xr, D, w.ws + (size_t)j * D * D, D, w.bs + j * D, t2, part);
-    for (int i = tid; i < D; i += bd)
-      agg[i] = agg[i] + sigmoid(t1[i]) * (t2[i] - agg[i]);
-    __syncthreads();
-    // x = sd + postnorm(to_out(agg))
-    round_vec<T>(agg, xr, D);
-    matvec<T>(xr, D, w.wo + (size_t)j * D * D, D, w.bo + j * D, t1, part);
-    layer_norm(t1, t2, w.post_s + j * D, w.post_b + j * D, D, red);
-    for (int i = tid; i < D; i += bd) x[i] = sd[i] + t2[i];
-    __syncthreads();
-    // sd = x + ff_postnorm(ff_1(relu(ff_0(ff_prenorm(x)))))
-    layer_norm(x, t1, w.ffp_s + j * D, w.ffp_b + j * D, D, red);
-    round_vec<T>(t1, xr, D);
-    matvec<T>(xr, D, w.wf0 + (size_t)j * D * 4 * D, 4 * D,
-              w.bf0 + j * 4 * D, h, part);
-    for (int i = tid; i < 4 * D; i += bd) h[i] = fmaxf(h[i], 0.f);
-    __syncthreads();
-    round_vec<T>(h, xr, 4 * D);
-    matvec<T>(xr, 4 * D, w.wf1 + (size_t)j * 4 * D * D, D, w.bf1 + j * D, t1,
-              part);
-    layer_norm(t1, t2, w.ffq_s + j * D, w.ffq_b + j * D, D, red);
-    for (int i = tid; i < D; i += bd) sd[i] = x[i] + t2[i];
-    __syncthreads();
-  }
-
-  // heads: MLPLayer = dense -> LayerNorm -> relu -> dense
-  for (int hi = 0; hi < 4; ++hi) {
-    round_vec<T>(sd, xr, D);
-    matvec<T>(xr, D, w.wh0 + (size_t)hi * D * D, D, w.bh0 + hi * D, t1,
-              part);
-    layer_norm(t1, t2, w.lnh_s + hi * D, w.lnh_b + hi * D, D, red);
-    for (int i = tid; i < D; i += bd) xr[i] = round_to<T>(fmaxf(t2[i], 0.f));
-    __syncthreads();
-    if (hi < 3)
-      matvec<T>(xr, D, w.wsm + (size_t)hi * D * kSmallCols, kSmallCols,
-                w.bsm + hi * kSmallCols, out_small + hi * kSmallCols, part);
-    else
-      matvec<T>(xr, D, w.wpos, G, w.bpos, out_pos, part);
-  }
 }
 
 }  // namespace

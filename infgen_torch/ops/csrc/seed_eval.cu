@@ -1,7 +1,8 @@
 // One insertion-seed evaluation on Hopper: the seed stack (L layers x
 // {occ2sa, pt2sa, a2sa} attention sublayers, each with pre-LN, masked softmax
 // with a zero-aggregate fallback, gated update, post-LN and a 4D FFN) and the
-// four seed heads (state, type, shape, grid-cell logits), in one launch.
+// four seed heads (state, type, shape, grid-cell logits), in one launch of
+// one thread-block cluster.
 //
 // Replaces the TPU kernel infgen_tpu/ops/seed_kernel.py::seed_eval_kernel
 // (its math is _stack_and_heads there). The TPU's blocking does not carry
@@ -24,62 +25,83 @@
 // (at most K_pt+V_pt 1.57 MB and K_a+V_a 0.2 MB; masked keys' rows are not
 // read), the sublayer weights (12 D^2 in each of the 9 sublayers, plus the
 // query projection D^2 in the 6 that attend: 3.7 MB) and the heads 0.6 MB:
-// at most about 6 MB, so about 1.8 us at the 3.35 TB/s of HBM. Across the
-// evaluations of one token step the weights and K/V would stay in the 50 MB
-// L2, which could go lower still; the bound quoted is HBM's. Its arithmetic
-// is ~6 MFLOP of fp32 FMA, far below either roof: the kernel is bound by
-// bytes.
+// at most about 6 MB, so about 1.8 us at the 3.35 TB/s of HBM. Its
+// arithmetic is ~6 MFLOP of fp32 FMA, far below either roof: the kernel is
+// bound by bytes.
 //
-// Design, and what it leaves on the table. One thread block of 512 threads
-// per evaluation (the stack and heads live in common.cuh, shared with
-// seed_eval_full.cu); the running [D] vector and every intermediate stay in
-// shared memory. Mat-vecs use one thread per output column (consecutive
-// threads read consecutive weights of a row, so loads coalesce), with the
-// input split across thread groups when a layer has fewer columns than
-// threads. Scores use one thread per (key, head); the max and sum of each
-// head's softmax are warp reductions over the keys. One block runs on one
-// SM of the card's 132, so the kernel reaches a few percent of the HBM
-// bound at best: splitting the keys over a cluster and streaming K/V with
-// TMA is the work of a later change.
+// Design. The one-row chain of about 60 dependent mat-vecs is latency bound
+// on one SM. It runs on the cluster stack of cluster_stack.cuh (shared with
+// seed_eval_full.cu, which feeds it fp32 K/V): kCluster CTAs each own a
+// column slice of every mat-vec and a slice of each attention's keys,
+// prefetch their weight slices with cp.async in the chain's order, and
+// exchange each mat-vec's slice through distributed shared memory. K/V are
+// read in the compute type T, as the caller made them. Nothing precedes it
+// in this library, so it is launched without programmatic dependent launch.
 
-#include "common.cuh"
+#include "cluster_stack.cuh"
 
 namespace {
 
+struct Args {
+  const float* sd0;
+  const void *v_occ, *k_pt, *v_pt;
+  const uint8_t* mask_pl;
+  const void *k_a, *v_a;
+  const uint8_t* mask_a;
+  const void* weights;
+  const float* vectors;
+  float *out_small, *out_pos;
+  int L, P, A, D, H, Hd, G;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) seed_eval_kernel(
-    const float* sd0, const void* v_occ, const void* k_pt, const void* v_pt,
-    const uint8_t* mask_pl, const void* k_a, const void* v_a,
-    const uint8_t* mask_a, const void* weights, const float* vectors,
-    float* out_small, float* out_pos, int L, int P, int A, int D, int H,
-    int Hd, int G) {
-  extern __shared__ float smem[];
-  seed_stack_and_heads<T, T>(
-      seed_weights<T>(weights, vectors, L, D), sd0,
-      static_cast<const T*>(v_occ), static_cast<const T*>(k_pt),
-      static_cast<const T*>(v_pt), mask_pl, static_cast<const T*>(k_a),
-      static_cast<const T*>(v_a), mask_a, out_small, out_pos, L, P, A, D, H,
-      Hd, G, smem);
+__global__ void __launch_bounds__(kStackThreads, 1) seed_eval_kernel(
+    Args a) {
+  extern __shared__ __align__(16) float smem[];
+  cluster_stack_and_heads<T, T>(
+      seed_weights<T>(a.weights, a.vectors, a.L, a.D), a.sd0,
+      static_cast<const T*>(a.v_occ), static_cast<const T*>(a.k_pt),
+      static_cast<const T*>(a.v_pt), a.mask_pl, static_cast<const T*>(a.k_a),
+      static_cast<const T*>(a.v_a), a.mask_a, a.out_small, a.out_pos, a.L,
+      a.P, a.A, a.D, a.H, a.Hd, a.G, smem, [] {});
 }
 
 template <typename T>
-int launch(const float* sd0, const void* v_occ, const void* k_pt,
-           const void* v_pt, const uint8_t* mask_pl, const void* k_a,
-           const void* v_a, const uint8_t* mask_a, const void* weights,
-           const float* vectors, float* out_small, float* out_pos, int L,
-           int P, int A, int D, int H, int Hd, int G, cudaStream_t stream) {
-  const size_t bytes = seed_stack_floats(D, H, P, A) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      seed_eval_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t bytes = stack_bytes<T>(a.D, a.H, a.P, a.A);
+  static size_t allowed = 0;
+  cudaError_t err = allow_smem(seed_eval_kernel<T>, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
-  seed_eval_kernel<T><<<1, kThreads, bytes, stream>>>(
-      sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a, mask_a, weights, vectors,
-      out_small, out_pos, L, P, A, D, H, Hd, G);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kStackThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, seed_eval_kernel<T>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+INFGEN_STAMP_READER(infgen_seed_eval_stamps)
+
+// Bytes of shared memory a CTA of the stack needs (the wrapper checks them
+// against the 227 KB a block can use).
+extern "C" int infgen_seed_eval_smem(int dtype, int L, int P, int A, int D,
+                                     int H, int G) {
+  (void)L;
+  (void)G;
+  return (int)(dtype == 1 ? stack_bytes<__nv_bfloat16>(D, H, P, A)
+                          : stack_bytes<float>(D, H, P, A));
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (K/V, v_occ and packed matrices).
 // Returns a cudaError_t; 0 on a successful launch.
@@ -89,14 +111,11 @@ extern "C" int infgen_seed_eval(
     const void* v_a, const uint8_t* mask_a, const void* weights,
     const float* vectors, float* out_small, float* out_pos, int L, int P,
     int A, int D, int H, int Hd, int G, void* stream) {
+  const Args a{sd0,     v_occ,   k_pt,      v_pt,    mask_pl, k_a, v_a,
+               mask_a,  weights, vectors,   out_small, out_pos, L, P, A, D,
+               H,       Hd,      G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a, mask_a,
-                         weights, vectors, out_small, out_pos, L, P, A, D, H,
-                         Hd, G, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(sd0, v_occ, k_pt, v_pt, mask_pl, k_a, v_a,
-                                 mask_a, weights, vectors, out_small,
-                                 out_pos, L, P, A, D, H, Hd, G, s);
+  if (dtype == 0) return launch<float>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }

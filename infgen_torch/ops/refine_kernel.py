@@ -5,11 +5,17 @@ csrc/refine.cu, whose header states its bound and design).
   pack_refine_params  the 2L refine sublayers' (trunk layers 0..L-1 in the
                       order j = 2i + s: s=0 map pt2a_i, s=1 agent a2a_i) and
                       the two heads' parameters: matrices in the compute
-                      dtype, vectors fp32
+                      dtype, vectors fp32, and refine_tiles, the per-CTA
+                      weight stages the kernel streams
+  kernel_accepts      the widths the kernel takes
   refine_reference    the same math in plain PyTorch (the CPU path, and what
-                      the kernel is held against on the card)
+                      the kernel is held against on the card), sublayer by
+                      sublayer (refine_sublayer) and then the heads
+                      (refine_heads)
   refine_kernel       the wrapper: launches the kernel on CUDA tensors, takes
                       the plain version for CPU tensors, raises otherwise
+  refine_launch       the launch itself, uncounted, optionally returning x
+                      after every sublayer (a stage-wise check reads it)
 
 The inserted agent is row 0 of an R-row neighbourhood; only it attends. The
 other rows take the zero-aggregate closed form, which is the shared gated
@@ -19,16 +25,20 @@ logits [angle_size] and the two offset values before tanh. The TPU version's
 """
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import ctypes
 import torch
 import torch.nn.functional as F
 
-from infgen_torch.ops.seed_kernel import (_DTYPE_CODE, _check, _flat, _ln,
-                                          _ptr_array)
+from infgen_torch.ops.seed_kernel import (_DTYPE_CODE, SMEM_LIMIT, _check,
+                                          _flat, _ln, _ptr_array)
 
 _HEADS = ("seed_heading_rel_token_predict_head", "seed_offset_xy_predict_head")
+# the kernel's split (csrc/refine.cu): one CTA per head of SLICE columns, a
+# cluster of 2..MAX_CLUSTER CTAs, at most MAX_ROWS rows (two m16 tiles)
+SLICE, MAX_CLUSTER, MAX_ROWS = 16, 8, 32
+_SMEM_OK = set()   # (dtype, L, D, angle_size) whose shared memory fits
 
 
 @dataclass
@@ -37,10 +47,11 @@ class RefinePack:
     vectors: torch.Tensor          # flat, fp32
     w: Dict[str, torch.Tensor]     # views into `weights`
     v: Dict[str, torch.Tensor]     # views into `vectors`
-    ptrs: ctypes.Array             # data_ptr of each view, layout order
+    ptrs: ctypes.Array             # data_ptr of each vector, layout order
     L: int
     D: int
     angle_size: int
+    tiles: Optional[torch.Tensor] = None   # refine_tiles (kernel widths)
 
     @property
     def dtype(self):
@@ -48,7 +59,8 @@ class RefinePack:
 
 
 def _layouts(L: int, D: int, angle_size: int):
-    """(name, shape) of each packed array, in the order of the pointer
+    """(name, shape) of each packed array: the matrices (read by the plain
+    version and refine_tiles) and the vectors, in the order of the pointer
     array that csrc/refine.cu reads (its `Arg` enum)."""
     J = 2 * L
     mats = [(n, (J, D, D)) for n in ("wq", "wk", "wv", "wkr", "wvr")]
@@ -67,6 +79,79 @@ def _layouts(L: int, D: int, angle_size: int):
     return mats, vecs
 
 
+def kernel_accepts(dtype, D: int, num_heads: int, head_dim: int,
+                   rows: int) -> bool:
+    """Whether csrc/refine.cu takes these widths: fp32 or bf16, heads of
+    SLICE = 16 columns (one CTA each), 2 to 8 of them (D = 32 .. 128), and
+    at most 32 rows."""
+    return (dtype in (torch.float32, torch.bfloat16) and head_dim == SLICE
+            and num_heads * head_dim == D
+            and 2 <= num_heads <= MAX_CLUSTER and 1 <= rows <= MAX_ROWS)
+
+
+def tile_layout(L: int, D: int, angle_size: int, dtype) -> Dict[str, int]:
+    """The per-CTA weight stages of csrc/refine.cu (its TileLayout): rows
+    of W^T padded by 16 bytes (`ld` for D, `ld4` for 4D elements); per CTA
+    4L + 1 stages of `slot` elements: per sublayer an A stage (8 blocks of
+    16 rows) and a B stage (to_out 16, ff_0 64 rows of ld; ff_1 16 rows of
+    ld4), then the heads (2 x 16 rows, nh heading and no offset rows; ch
+    and co of them are this CTA's columns)."""
+    kc = D // SLICE
+    pad = 16 // torch.empty((), dtype=dtype).element_size()
+    ld, ld4 = D + pad, 4 * D + pad
+    ch, co = -(-angle_size // kc), -(-2 // kc)
+    nh, no = -(-ch // 8) * 8, -(-co // 8) * 8
+    a = 8 * SLICE * ld
+    b = 5 * SLICE * ld + SLICE * ld4
+    h = (2 * SLICE + nh + no) * ld
+    return dict(kc=kc, ld=ld, ld4=ld4, ch=ch, co=co, nh=nh, no=no, a=a, b=b,
+                h=h, slot=max(a, b, h), stages=4 * L + 1)
+
+
+def _heads_of(m: torch.Tensor, kc: int, per: int) -> torch.Tensor:
+    """[D, n] output columns -> [kc, per, D]: CTA c's columns [c per,
+    c per + per) as rows, zero past n."""
+    D, n = m.shape
+    return F.pad(m, (0, kc * per - n)).T.reshape(kc, per, D)
+
+
+@torch.no_grad()
+def refine_tiles(w: Dict[str, torch.Tensor], L: int, D: int,
+                 angle_size: int) -> torch.Tensor:
+    """The kernel's weights, [kc, 4L + 1, slot] in the pack's dtype (see
+    tile_layout): CTA c's column slice of every product as rows of W^T,
+    each row padded to ld (ld4 for ff_1). A stage j: to_q, to_k, w_kr,
+    to_v, w_vr, to_g's dst_n half and to_s at columns [16c, 16c + 16), then
+    to_g's aggregate-half rows [16c, 16c + 16) (every column); B stage j:
+    to_out's columns, ff_0's columns [64c, 64c + 64), ff_1's columns; the
+    heads: both Dense_0's columns, then CTA c's heading-bin and offset
+    columns. `w` holds the pack's matrices."""
+    lay = tile_layout(L, D, angle_size, w["wq"].dtype)
+    kc, ld, ld4, slot = lay["kc"], lay["ld"], lay["ld4"], lay["slot"]
+    J = 2 * L
+    cols = lambda m: m.transpose(-1, -2).reshape(J, kc, -1, m.shape[-2])
+    rows = lambda t, width: F.pad(t, (0, width - t.shape[-1])).reshape(
+        *t.shape[:2], -1)
+    wg = w["wg"]
+    a = torch.cat([cols(w[n]) for n in ("wq", "wk", "wkr", "wv", "wvr")]
+                  + [cols(wg[:, D:]), cols(w["ws"]),
+                     wg[:, :D].reshape(J, kc, SLICE, D)], 2)  # [J, kc, 128, D]
+    b = torch.cat([rows(cols(w["wo"]), ld), rows(cols(w["wf0"]), ld),
+                   rows(cols(w["wf1"]), ld4)], 2)
+    heads = torch.cat([w["wh0"].transpose(-1, -2).reshape(2, kc, SLICE, D)
+                       .transpose(0, 1).reshape(kc, 2 * SLICE, D),
+                       F.pad(_heads_of(w["wh_head"], kc, lay["ch"]),
+                             (0, 0, 0, lay["nh"] - lay["ch"])),
+                       F.pad(_heads_of(w["wh_off"], kc, lay["co"]),
+                             (0, 0, 0, lay["no"] - lay["co"]))], 1)
+    out = torch.zeros((kc, lay["stages"], slot), dtype=w["wq"].dtype,
+                      device=w["wq"].device)
+    out[:, 0:2 * J:2, :lay["a"]] = rows(a, ld).transpose(0, 1)
+    out[:, 1:2 * J:2, :lay["b"]] = b.transpose(0, 1)
+    out[:, 2 * J, :lay["h"]] = F.pad(heads, (0, ld - D)).reshape(kc, -1)
+    return out
+
+
 @torch.no_grad()
 def pack_refine_params(decoder, L: int, angle_size: int,
                        dtype=None) -> RefinePack:
@@ -74,7 +159,8 @@ def pack_refine_params(decoder, L: int, angle_size: int,
     heads of an AgentDecoder. Matrices go to the compute dtype (`dtype`,
     None = fp32) in [in, out] layout; LayerNorm parameters and biases stay
     fp32. The query LayerNorm is prenorm_dst for the map layers (bipartite)
-    and prenorm_src for the agent layers."""
+    and prenorm_src for the agent layers. At widths of 16-column heads that
+    the kernel takes (2 to 8 heads) the pack also holds refine_tiles."""
     dtype = dtype or torch.float32
     subs = []
     for i in range(L):
@@ -120,9 +206,70 @@ def pack_refine_params(decoder, L: int, angle_size: int,
     device = parts["wq"].device
     weights, w = _flat(parts, mats, dtype, device)
     vectors, v = _flat(parts, vecs, torch.float32, device)
-    return RefinePack(weights, vectors, w, v, _ptr_array({**w, **v},
-                                                         mats + vecs),
-                      L, D, angle_size)
+    tiles = refine_tiles(w, L, D, angle_size) \
+        if D % SLICE == 0 and 2 <= D // SLICE <= MAX_CLUSTER else None
+    return RefinePack(weights, vectors, w, v, _ptr_array(v, vecs), L, D,
+                      angle_size, tiles)
+
+
+def _mm(pack, a, m):
+    """a @ m with a rounded to the compute dtype, products and sums fp32."""
+    return a.to(pack.dtype).to(torch.float32) @ m.to(torch.float32)
+
+
+def refine_sublayer(pack: RefinePack, j: int, x, pl_keys, r_pl, mask_pl,
+                    r_aa, mask_a, num_heads: int, head_dim: int):
+    """Sublayer j of the pass on features x [R, D] fp32 (refine_reference's
+    step): row 0 attends to the map keys (j even) or to the rows of x (j
+    odd); every row takes the gated update and FFN epilogue, rows but 0
+    with a zero aggregate. Returns the new x."""
+    f32 = torch.float32
+    w, v, D = pack.w, pack.v, pack.D
+    R = x.shape[0]
+    H, Hd = num_heads, head_dim
+    row0 = (torch.arange(R, device=x.device) == 0)[:, None]
+    mm = lambda a, m: _mm(pack, a, m)
+    dst_n = _ln(x, v["lnq_s"][j], v["lnq_b"][j])
+    src, r, m = (pl_keys.to(f32), r_pl.to(f32), mask_pl) if j % 2 == 0 \
+        else (x, r_aa.to(f32), mask_a)
+    rn = _ln(r, v["lnr_s"][j], v["lnr_b"][j])
+    src_n = _ln(src, v["lns_s"][j], v["lns_b"][j])
+    K = mm(src_n, w["wk"][j]) + mm(rn, w["wkr"][j])
+    V = mm(src_n, w["wv"][j]) + v["bv"][j] + mm(rn, w["wvr"][j]) \
+        + v["bvr"][j]
+    q = mm(dst_n[0], w["wq"][j]) + v["bq"][j]
+    maskf = m.to(f32)
+    scores = (K * q).reshape(R, H, Hd).sum(-1) * Hd ** -0.5 \
+        + (maskf[:, None] - 1.0) * 1e9
+    mx = scores.max(0, keepdim=True).values
+    e = torch.exp(scores - mx) * maskf[:, None]
+    attn = e / torch.clamp(e.sum(0, keepdim=True), min=1e-30)
+    agg0 = (attn[:, :, None] * V.reshape(R, H, Hd)).sum(0).reshape(-1)
+    # zero aggregate everywhere but row 0: the shared epilogue with
+    # agg == 0 is the zero-aggregate closed form
+    agg = torch.where(row0, agg0[None], 0.0)
+    g = torch.sigmoid(mm(agg, w["wg"][j][:D]) + mm(dst_n, w["wg"][j][D:])
+                      + v["bg"][j])
+    agg = agg + g * (mm(dst_n, w["ws"][j]) + v["bs"][j] - agg)
+    x1 = x + _ln(mm(agg, w["wo"][j]) + v["bo"][j], v["post_s"][j],
+                 v["post_b"][j])
+    h = _ln(x1, v["ffp_s"][j], v["ffp_b"][j])
+    h = F.relu(mm(h, w["wf0"][j]) + v["bf0"][j])
+    h = mm(h, w["wf1"][j]) + v["bf1"][j]
+    return x1 + _ln(h, v["ffq_s"][j], v["ffq_b"][j])
+
+
+def refine_heads(pack: RefinePack, x0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The heading-bin and offset heads on row 0's features x0 [D]:
+    MLPLayer = dense -> LayerNorm -> relu -> dense."""
+    w, v = pack.w, pack.v
+    outs = []
+    for hi, (wn, bn) in enumerate((("wh_head", "bh_head"),
+                                   ("wh_off", "bh_off"))):
+        h = _mm(pack, x0, w["wh0"][hi]) + v["bh0"][hi]
+        h = F.relu(_ln(h, v["lnh_s"][hi], v["lnh_b"][hi]))
+        outs.append(_mm(pack, h, w[wn]) + v[bn])
+    return outs[0], outs[1]
 
 
 def refine_reference(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
@@ -131,55 +278,38 @@ def refine_reference(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     """Plain-PyTorch refine pass, the kernel's math: matmul inputs rounded
     to the compute dtype, products and sums in fp32; fp32 LayerNorm (eps
     1e-6) and softmax; an all-masked key set aggregates to zero."""
-    f32, cdt = torch.float32, pack.dtype
-    w, v = pack.w, pack.v
-    H, Hd, D = num_heads, head_dim, pack.D
-    scale = Hd ** -0.5
-
-    def mm(a, m):
-        return a.to(cdt).to(f32) @ m.to(f32)
-
-    x = x_sub.to(f32)
-    R = x.shape[0]
-    plk, rpl, raa = pl_keys.to(f32), r_pl.to(f32), r_aa.to(f32)
-    row0 = (torch.arange(R, device=x.device) == 0)[:, None]
+    x = x_sub.to(torch.float32)
     for j in range(2 * pack.L):
-        s = j % 2
-        dst_n = _ln(x, v["lnq_s"][j], v["lnq_b"][j])
-        src, r, m = (plk, rpl, mask_pl) if s == 0 else (x, raa, mask_a)
-        rn = _ln(r, v["lnr_s"][j], v["lnr_b"][j])
-        src_n = _ln(src, v["lns_s"][j], v["lns_b"][j])
-        K = mm(src_n, w["wk"][j]) + mm(rn, w["wkr"][j])
-        V = mm(src_n, w["wv"][j]) + v["bv"][j] + mm(rn, w["wvr"][j]) \
-            + v["bvr"][j]
-        q = mm(dst_n[0], w["wq"][j]) + v["bq"][j]
-        maskf = m.to(f32)
-        scores = (K * q).reshape(R, H, Hd).sum(-1) * scale \
-            + (maskf[:, None] - 1.0) * 1e9
-        mx = scores.max(0, keepdim=True).values
-        e = torch.exp(scores - mx) * maskf[:, None]
-        attn = e / torch.clamp(e.sum(0, keepdim=True), min=1e-30)
-        agg0 = (attn[:, :, None] * V.reshape(R, H, Hd)).sum(0).reshape(-1)
-        # zero aggregate everywhere but row 0: the shared epilogue with
-        # agg == 0 is the zero-aggregate closed form
-        agg = torch.where(row0, agg0[None], 0.0)
-        g = torch.sigmoid(mm(agg, w["wg"][j][:D]) + mm(dst_n, w["wg"][j][D:])
-                          + v["bg"][j])
-        agg = agg + g * (mm(dst_n, w["ws"][j]) + v["bs"][j] - agg)
-        x1 = x + _ln(mm(agg, w["wo"][j]) + v["bo"][j], v["post_s"][j],
-                     v["post_b"][j])
-        h = _ln(x1, v["ffp_s"][j], v["ffp_b"][j])
-        h = F.relu(mm(h, w["wf0"][j]) + v["bf0"][j])
-        h = mm(h, w["wf1"][j]) + v["bf1"][j]
-        x = x1 + _ln(h, v["ffq_s"][j], v["ffq_b"][j])
+        x = refine_sublayer(pack, j, x, pl_keys, r_pl, mask_pl, r_aa,
+                            mask_a, num_heads, head_dim)
+    return refine_heads(pack, x[0])
 
-    outs = []
-    for hi, (wn, bn) in enumerate((("wh_head", "bh_head"),
-                                   ("wh_off", "bh_off"))):
-        h = mm(x[0], w["wh0"][hi]) + v["bh0"][hi]
-        h = F.relu(_ln(h, v["lnh_s"][hi], v["lnh_b"][hi]))
-        outs.append(mm(h, w[wn]) + v[bn])
-    return outs[0], outs[1]
+
+def refine_launch(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
+                  mask_a, num_heads: int, head_dim: int, trace: bool = False):
+    """Launch csrc/refine.cu on CUDA tensors that refine_kernel has checked,
+    without counting. Returns (heading logits, offset), and with `trace`
+    also x after each sublayer, [2L, R, D] fp32 (after the last one only
+    row 0 is computed): a sublayer-wise check reads it."""
+    from infgen_torch.ops.build import library
+    lib = library()
+    dev = x_sub.device
+    R, D = x_sub.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    head = torch.empty((pack.angle_size,), **f32)
+    off = torch.empty((2,), **f32)
+    tr = torch.zeros((2 * pack.L, R, D), **f32) if trace else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.infgen_refine(
+        _DTYPE_CODE[pack.dtype], x_sub.data_ptr(), pl_keys.data_ptr(),
+        r_pl.data_ptr(), mask_pl.data_ptr(), r_aa.data_ptr(),
+        mask_a.data_ptr(), ctypes.addressof(pack.ptrs),
+        pack.tiles.data_ptr(), head.data_ptr(), off.data_ptr(),
+        0 if tr is None else tr.data_ptr(), pack.L, R, D, num_heads,
+        head_dim, pack.angle_size, stream)
+    if err != 0:
+        raise RuntimeError(f"refine kernel launch failed: cudaError {err}")
+    return (head, off, tr) if trace else (head, off)
 
 
 def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
@@ -191,42 +321,42 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     padding masked) in the pack's compute dtype; mask_pl / mask_a [R] bool.
     Returns (heading logits [angle_size], offset [2] before tanh), fp32.
     CUDA tensors launch csrc/refine.cu on the current stream (counted in
-    `refine_kernel.launches`); CPU tensors take refine_reference."""
+    `refine_kernel.launches`); CPU tensors take refine_reference. The
+    kernel takes the widths of kernel_accepts; others raise."""
     dev = x_sub.device
     if dev.type == "cpu":
         return refine_reference(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
                                 mask_a, num_heads, head_dim)
     if dev.type != "cuda":
         raise ValueError(f"refine_kernel: unsupported device {dev}")
-    D, Ah, cdt = pack.D, pack.angle_size, pack.dtype
+    D, cdt = pack.D, pack.dtype
     R = x_sub.shape[0]
-    if cdt not in _DTYPE_CODE:
-        raise ValueError(f"refine_kernel: compute dtype {cdt} unsupported")
-    if num_heads * head_dim != D or D > 512 or R > 64:
-        raise ValueError("refine_kernel needs num_heads * head_dim == D <= "
-                         "512 and at most 64 rows")
+    if not kernel_accepts(cdt, D, num_heads, head_dim, R):
+        raise ValueError(
+            "refine_kernel takes fp32 or bf16, 2 to 8 heads of 16 columns "
+            f"(num_heads * head_dim == D) and at most 32 rows, got {cdt}, "
+            f"D={D}, {num_heads} heads of {head_dim}, {R} rows")
     _check("x_sub", x_sub, torch.float32, (R, D), dev)
     for name, t in (("pl_keys", pl_keys), ("r_pl", r_pl), ("r_aa", r_aa)):
         _check(name, t, cdt, (R, D), dev)
     _check("mask_pl", mask_pl, torch.bool, (R,), dev)
     _check("mask_a", mask_a, torch.bool, (R,), dev)
-    _check("weights", pack.weights, cdt, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
-
-    from infgen_torch.ops.build import library
-    lib = library()
-    head = torch.empty((Ah,), dtype=torch.float32, device=dev)
-    off = torch.empty((2,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.infgen_refine(
-        _DTYPE_CODE[cdt], x_sub.data_ptr(), pl_keys.data_ptr(),
-        r_pl.data_ptr(), mask_pl.data_ptr(), r_aa.data_ptr(),
-        mask_a.data_ptr(), ctypes.addressof(pack.ptrs), head.data_ptr(),
-        off.data_ptr(), pack.L, R, D, num_heads, head_dim, Ah, stream)
-    if err != 0:
-        raise RuntimeError(f"refine kernel launch failed: cudaError {err}")
+    lay = tile_layout(pack.L, D, pack.angle_size, cdt)
+    _check("tiles", pack.tiles, cdt, (lay["kc"], lay["stages"], lay["slot"]),
+           dev)
+    shape = (_DTYPE_CODE[cdt], pack.L, D, pack.angle_size)
+    if shape not in _SMEM_OK:
+        from infgen_torch.ops.build import library
+        smem = library().infgen_refine_smem(*shape)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"refine_kernel: {smem} B of shared memory "
+                             "exceed the 227 KB a block can use")
+        _SMEM_OK.add(shape)
+    out = refine_launch(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a,
+                        num_heads, head_dim)
     refine_kernel.launches += 1
-    return head, off
+    return out
 
 
 refine_kernel.launches = 0

@@ -34,7 +34,9 @@ SMALL_COLS = 4
 _HEADS = ("seed_state_predict_head", "seed_type_predict_head",
           "seed_shape_predict_head", "seed_pos_rel_token_predict_head")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_OK = set()        # seed_eval shapes whose shared memory fits
 _FULL_SMEM_OK = set()   # seed_eval_full shapes whose shared memory fits
+SMEM_LIMIT = 232448     # bytes of shared memory a block can use
 
 
 @dataclass
@@ -54,7 +56,7 @@ class SeedPack:
 
 def _layouts(L: int, D: int, G: int):
     """(name, shape) of each packed array, in buffer order. The order is
-    shared with csrc/seed_eval.cu. The query projection is packed only for
+    shared with csrc/common.cuh::seed_weights. The query projection is packed only for
     the 2L sublayers that attend (k = 2i + s - 1): occ2sa never uses it."""
     J = 3 * L
     mats = [("wq", (2 * L, D, D)), ("wg", (J, 2 * D, D)), ("ws", (J, D, D)),
@@ -208,6 +210,17 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def seed_eval_accepts(dtype, D: int, num_heads: int, head_dim: int) -> bool:
+    """Whether csrc/seed_eval.cu takes these widths (its shared memory is
+    checked apart): fp32 or bf16, num_heads * head_dim == D, heads a
+    multiple of 4 wide (the key loops' 4-wide loads), and column slices of
+    the cluster stack's 8 CTAs of whole 16-byte pieces: D divisible by 32
+    in fp32, by 64 in bf16."""
+    if dtype not in _DTYPE_CODE or num_heads * head_dim != D or head_dim % 4:
+        return False
+    return D % (64 if dtype == torch.bfloat16 else 32) == 0
+
+
 def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
                      K_a, V_a, mask_a, num_heads: int, head_dim: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -215,7 +228,9 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
     [L, P, D], K_a / V_a [L, A, D] in the pack's compute dtype; mask_pl [P]
     and mask_a [A] bool. CUDA tensors launch csrc/seed_eval.cu on the
     current stream (counted in `seed_eval_kernel.launches`); CPU tensors
-    take seed_eval_reference."""
+    take seed_eval_reference. The kernel takes the widths of
+    seed_eval_accepts whose stack fits a block's shared memory; others
+    raise."""
     dev = sd0.device
     if dev.type == "cpu":
         return seed_eval_reference(pack, sd0, v_occ, K_pt, V_pt, mask_pl,
@@ -225,11 +240,11 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
     L, D, G = pack.L, pack.D, pack.G
     P, A = K_pt.shape[1], K_a.shape[1]
     cdt = pack.dtype
-    if cdt not in _DTYPE_CODE:
-        raise ValueError(f"seed_eval_kernel: compute dtype {cdt} unsupported")
-    if num_heads * head_dim != D or D > 512:
-        raise ValueError("seed_eval_kernel needs num_heads * head_dim == D "
-                         "<= 512")
+    if not seed_eval_accepts(cdt, D, num_heads, head_dim):
+        raise ValueError(
+            "seed_eval_kernel takes fp32 or bf16, num_heads * head_dim == D "
+            "with heads a multiple of 4 wide, and D divisible by 32 (bf16: "
+            f"64), got {cdt}, D={D}, {num_heads} heads of {head_dim}")
     _check("sd0", sd0, torch.float32, (D,), dev)
     _check("v_occ", v_occ, cdt, (L, D), dev)
     _check("K_pt", K_pt, cdt, (L, P, D), dev)
@@ -240,13 +255,16 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
     _check("mask_a", mask_a, torch.bool, (A,), dev)
     _check("weights", pack.weights, cdt, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
-    smem = 4 * (16 * D + 512 + 32 + num_heads + max(P, A) * num_heads)
-    if smem > 232448:
-        raise ValueError(f"seed_eval_kernel: {smem} B of shared memory "
-                         "exceeds the 227 KB a block can use")
 
     from infgen_torch.ops.build import library
     lib = library()
+    shape = (_DTYPE_CODE[cdt], L, P, A, D, num_heads, G)
+    if shape not in _SMEM_OK:
+        smem = lib.infgen_seed_eval_smem(*shape)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"seed_eval_kernel: {smem} B of shared memory "
+                             "exceed the 227 KB a block can use")
+        _SMEM_OK.add(shape)
     small = torch.empty((3, SMALL_COLS), dtype=torch.float32, device=dev)
     pos = torch.empty((G,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -516,7 +534,7 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     shape = (_DTYPE_CODE[cdt], L, P, A, D, num_heads, G)
     if shape not in _FULL_SMEM_OK:
         smem = library().infgen_seed_eval_full_smem(*shape)
-        if smem > 232448:
+        if smem > SMEM_LIMIT:
             raise ValueError(f"seed_eval_full_kernel: {smem} B of shared "
                              "memory exceed the 227 KB a block can use")
         _FULL_SMEM_OK.add(shape)

@@ -20,6 +20,8 @@ ends in a synchronise), then runs the same rollout under `torch.profiler`
                         rollout's `rollout.insertion` / `rollout.motion`
                         spans
   top_kernels           the ten kernels with the most device time
+  port_kernels          count and device ms of each of the port's own
+                        kernels (infgen_torch/ops/csrc), by name
 
 It needs a GPU and fails without one.
 """
@@ -27,6 +29,7 @@ It needs a GPU and fails without one.
 import argparse
 import bisect
 import json
+import re
 import time
 
 import torch
@@ -39,6 +42,15 @@ from infgen_torch.config import SHIFT, load_config
 from infgen_torch.utils.device import resolve_device
 
 SPANS = ("rollout.insertion", "rollout.motion")
+
+
+def _port_kernel_names():
+    """The __global__ functions of the port's CUDA sources."""
+    from infgen_torch.ops.build import CSRC
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"(\w+)\s*\(")
+    return {n for f in CSRC.glob("*.cu") for n in pat.findall(f.read_text())}
 
 
 def _union_ms(intervals):
@@ -91,13 +103,20 @@ def summarize(prof, n_steps, wall_ms):
                           for e in dev if find(e.time_range.start) >= 0)
             / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    port = {}
+    for k, (c, ms) in by_name.items():
+        m = re.search(r"\(anonymous namespace\)::(\w+)", k)
+        if m and m.group(1) in _port_kernel_names():
+            name = k.split("(anonymous namespace)::", 1)[1].split("(", 1)[0]
+            port[name] = dict(count=c, ms=ms)
     return dict(
         profiled_wall_ms=wall_ms, device_busy_ms=busy,
         device_idle_share=1.0 - busy / wall_ms,
         kernels=len(dev), kernels_per_step=len(dev) / n_steps,
         host_launches=len(launches), spans=span_rows,
         top_kernels=[dict(name=k[:80], count=c, ms=ms)
-                     for k, (c, ms) in top])
+                     for k, (c, ms) in top],
+        port_kernels=port)
 
 
 def main(argv=None):

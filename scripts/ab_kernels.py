@@ -2,17 +2,19 @@
 this checkout's, on one card, in one process. The A/B numbers of PERF.md's
 kernel redesigns come from this script.
 
-    git archive 2018a19 infgen_torch/ops/csrc | tar -x -C snapshot/parent
-    python scripts/ab_kernels.py --parent 2018a19 \
+    git archive 1617e9f infgen_torch/ops/csrc | tar -x -C snapshot/parent
+    python scripts/ab_kernels.py --parent 1617e9f \
         --parent-csrc snapshot/parent/infgen_torch/ops/csrc \
-        --kernels motion_column,r_biased_attention
+        --kernels refine,seed_eval
 
 --parent names the other tree's C interface (PARENT_ARGS): 3bd251f, the
 commit before seed_eval_full and fused_attention_block were redesigned
 (seed_eval_full with 7 ints, fused_block with a key-projection scratch
-pointer), or 2018a19, the one before motion_column and r_biased_attention
-were (motion_column without the tile pointer); another tree is refused by
-the loader or misread. The other tree is built into build/parent/. Then,
+pointer), 2018a19, the one before motion_column and r_biased_attention
+were (motion_column without the tile pointer), or 1617e9f, the one before
+refine and seed_eval were (refine with one pointer array for matrices and
+vectors, no tiles and no trace); another tree is refused by the loader or
+misread. The other tree is built into build/parent/. Then,
 on chip_smoke.py's inputs at the flagship shapes, for each kernel of
 --kernels (the ones the change redesigned):
   - median ms per call of each build (CUDA events around each call, as
@@ -29,6 +31,10 @@ on chip_smoke.py's inputs at the flagship shapes, for each kernel of
       motion_column    the latency preset's column, bf16 (the main path's
                        type) and fp32, every row live;
       r_biased_attention  the rollout's agent-agent call, fp32;
+      refine           the latency preset's pass, bf16 and fp32 (parent
+                       1617e9f);
+      seed_eval        the flagship's evaluation, bf16 and fp32 (parent
+                       1617e9f);
   - for every other kernel, whether the two builds' outputs are equal bit
     for bit on the smoke's cases.
 A call whose host time exceeds its device time reads its host time in the
@@ -54,9 +60,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def build_tree(csrc: Path, lib_path: Path) -> float:
+def build_tree(csrc: Path, lib_path: Path, extra=()) -> float:
     """Compile every .cu of `csrc` into `lib_path` with the port's nvcc
-    flags, one nvcc per source, all started together. Returns seconds."""
+    flags and `extra`, one nvcc per source, all started together. Returns
+    seconds."""
     from infgen_torch.ops import build as B
 
     t0 = time.perf_counter()
@@ -66,7 +73,7 @@ def build_tree(csrc: Path, lib_path: Path) -> float:
     for src in sorted(csrc.glob("*.cu")):
         obj = lib_path.parent / (src.stem + ".o")
         procs.append((src, obj, subprocess.Popen(
-            [nvcc, *B.NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *B.NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for src, _, proc in procs:
         out, _ = proc.communicate()
@@ -90,13 +97,20 @@ PARENT_ARGS = {
     "2018a19": {"infgen_seed_eval": (12, 7), "infgen_seed_eval_full": (19, 8),
                 "infgen_refine": (9, 6), "infgen_motion_column": (13, 7),
                 "infgen_fused_block": (6, 6),
+                "infgen_r_biased_attention": (9, 6)},
+    "1617e9f": {"infgen_seed_eval": (12, 7), "infgen_seed_eval_full": (19, 8),
+                "infgen_refine": (9, 6), "infgen_motion_column": (14, 7),
+                "infgen_fused_block": (6, 6),
                 "infgen_r_biased_attention": (9, 6)}}
 KERNELS = ("seed_eval", "seed_eval_full", "refine", "motion_column",
            "fused_attention_block", "r_biased_attention")
 # the kernels whose redesign each parent precedes: only these are timed
 # against it
 TIMED = {"3bd251f": ("seed_eval_full", "fused_attention_block"),
-         "2018a19": ("motion_column", "r_biased_attention")}
+         "2018a19": ("motion_column", "r_biased_attention"),
+         "1617e9f": ("refine", "seed_eval")}
+# the parents whose motion_column takes the tile pointer
+COLUMN_TILES = ("1617e9f",)
 
 
 def _declare_parent(lib, parent):
@@ -209,6 +223,63 @@ def rba_call(lib, args, H):
         k.shape[1], HD, r.shape[-1], H, _stream())
     assert err == 0, f"r_biased_attention: cudaError {err}"
     return out
+
+
+def parent_refine(lib, pack, args, H, Hd):
+    """The parent build's refine (one pointer array for the pack's
+    matrices and vectors) on the wrapper's inputs."""
+    from infgen_torch.ops import refine_kernel as RK
+    from infgen_torch.ops.seed_kernel import _DTYPE_CODE, _ptr_array
+
+    x = args[0]
+    R, D = x.shape
+    if not hasattr(pack, "parent_ptrs"):
+        mats, vecs = RK._layouts(pack.L, D, pack.angle_size)
+        pack.parent_ptrs = _ptr_array({**pack.w, **pack.v}, mats + vecs)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    head = torch.empty((pack.angle_size,), **f32)
+    off = torch.empty((2,), **f32)
+    err = lib.infgen_refine(
+        _DTYPE_CODE[pack.dtype], *(t.data_ptr() for t in args),
+        ctypes.addressof(pack.parent_ptrs), head.data_ptr(), off.data_ptr(),
+        pack.L, R, D, H, Hd, pack.angle_size, _stream())
+    assert err == 0, f"parent refine: cudaError {err}"
+    return head, off
+
+
+def change_refine(lib, pack, args, H, Hd):
+    """This build's refine on the same inputs, as lean as parent_refine."""
+    from infgen_torch.ops.seed_kernel import _DTYPE_CODE
+
+    x = args[0]
+    R, D = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    head = torch.empty((pack.angle_size,), **f32)
+    off = torch.empty((2,), **f32)
+    err = lib.infgen_refine(
+        _DTYPE_CODE[pack.dtype], *(t.data_ptr() for t in args),
+        ctypes.addressof(pack.ptrs), pack.tiles.data_ptr(), head.data_ptr(),
+        off.data_ptr(), 0, pack.L, R, D, H, Hd, pack.angle_size, _stream())
+    assert err == 0, f"refine: cudaError {err}"
+    return head, off
+
+
+def seed_eval_call(lib, pack, args, H, Hd):
+    """One seed_eval call through `lib`, no argument checks (the interface
+    is the same in both trees)."""
+    from infgen_torch.ops.seed_kernel import _DTYPE_CODE, SMALL_COLS
+
+    sd0, K_pt, K_a = args[0], args[2], args[5]
+    f32 = dict(dtype=torch.float32, device=sd0.device)
+    small = torch.empty((3, SMALL_COLS), **f32)
+    pos = torch.empty((pack.G,), **f32)
+    err = lib.infgen_seed_eval(
+        _DTYPE_CODE[pack.dtype], *(t.data_ptr() for t in args),
+        pack.weights.data_ptr(), pack.vectors.data_ptr(), small.data_ptr(),
+        pos.data_ptr(), pack.L, K_pt.shape[1], K_a.shape[1], pack.D, H, Hd,
+        pack.G, _stream())
+    assert err == 0, f"seed_eval: cudaError {err}"
+    return small, pos
 
 
 def stage_ms(fn, n=50):
@@ -370,6 +441,60 @@ def ab_rba(lib_p, lib_c, cfg, attr, dev, emit):
          max_abs_diff=diff[0], mean_abs_diff=diff[1])
 
 
+def _ab(lib_p, lib_c, fns, what, emit, name, dtype):
+    """Time fns['parent'] / fns['change'] in turns, with their device ms
+    and host enqueue time, and emit their outputs' difference."""
+    import chip_smoke as S
+
+    with torch.no_grad():
+        a, b = fns["change"](), fns["parent"]()
+        diff = S._err(a, b, what)
+        t = in_turns(fns, S.KERNEL_LAUNCHES)
+        for who, fn in fns.items():
+            t[who]["device_ms"] = sum(stage_ms(fn).values())
+            t[who]["host_us"] = host_us(fn)
+    emit(name, dtype=str(dtype)[6:], builds=t,
+         ratio=t["change"]["ms"] / t["parent"]["ms"],
+         device_ratio=t["change"]["device_ms"] / t["parent"]["device_ms"],
+         max_abs_diff=diff[0], mean_abs_diff=diff[1],
+         bitwise_equal=all(torch.equal(x, y) for x, y in zip(a, b)))
+
+
+def ab_refine(lib_p, lib_c, lat, attr, dev, emit):
+    import chip_smoke as S
+    from infgen_torch.ops import refine_kernel as RK
+
+    H, Hd, L = lat.num_heads, lat.head_dim, lat.num_seed_layers
+    for dtype in (S.BF16, S.F32):
+        dec = S.decoder_for(lat, attr, dtype, dev)
+        pdt = None if dtype == S.F32 else dtype
+        pack = RK.pack_refine_params(dec, L, attr.angle_size, pdt)
+        args = S.refine_inputs(dec, lat, pdt, np.random.default_rng(31),
+                               "masked", dev)
+        _ab(lib_p, lib_c,
+            {"parent": lambda: parent_refine(lib_p, pack, args, H, Hd),
+             "change": lambda: change_refine(lib_c, pack, args, H, Hd)},
+            "refine A/B", emit, "refine", dtype)
+
+
+def ab_seed_eval(lib_p, lib_c, cfg, attr, dev, emit):
+    import chip_smoke as S
+    from infgen_torch.ops import seed_kernel as SK
+
+    G, H, Hd, L = (attr.grid_size, cfg.num_heads, cfg.head_dim,
+                   cfg.num_seed_layers)
+    for dtype in (S.BF16, S.F32):
+        dec = S.decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == S.F32 else dtype
+        pack = SK.pack_seed_params(dec, L, G, pdt)
+        args = S.seed_eval_inputs(dec, cfg, G, pdt, np.random.default_rng(23),
+                                  "masked", dev)
+        _ab(lib_p, lib_c,
+            {"parent": lambda: seed_eval_call(lib_p, pack, args, H, Hd),
+             "change": lambda: seed_eval_call(lib_c, pack, args, H, Hd)},
+            "seed_eval A/B", emit, "seed_eval", dtype)
+
+
 def _both(lib_change, lib_parent, fn):
     """fn() through each build: the wrappers load the library through
     build.library(), which returns build._lib once it is set."""
@@ -391,11 +516,13 @@ def _equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def ab_unchanged(lib_c, lib_p, kernels, cfg, lat, attr, dev, emit):
+def ab_unchanged(lib_c, lib_p, kernels, cfg, lat, attr, dev, emit,
+                 parent_tiles=False):
     """`kernels`, the ones outside the change: outputs of both builds on
     the smoke's cases, equal bit for bit (each wrapper called once with
-    each build's library; motion_column through column_call, whose
-    interface differs)."""
+    each build's library; motion_column through column_call and refine
+    through change_refine / parent_refine, whose interfaces differ;
+    `parent_tiles`: the parent's column takes the tile pointer too)."""
     import chip_smoke as S
     from infgen_torch.ops import column_kernel as CK
     from infgen_torch.ops import fused_block as FB
@@ -435,9 +562,10 @@ def ab_unchanged(lib_c, lib_p, kernels, cfg, lat, attr, dev, emit):
             for case in ("masked", "map_all_masked", "agents_all_masked"):
                 args = S.refine_inputs(ldec, lat, pdt,
                                        np.random.default_rng(31), case, dev)
-                res[f"refine/{tag}/{case}"] = _equal(*_both(
-                    lib_c, lib_p, lambda: RK.refine_kernel(
-                        rpack, *args, H, Hd)))
+                with torch.no_grad():
+                    a = change_refine(lib_c, rpack, args, H, Hd)
+                    b = parent_refine(lib_p, rpack, args, H, Hd)
+                res[f"refine/{tag}/{case}"] = _equal(a, b)
         if "motion_column" in kernels:
             cpack = CK.pack_column_params(ldec, lat.num_agent_layers, pdt)
             for case in ("masked", "aa_all_masked", "n_rows"):
@@ -446,7 +574,8 @@ def ab_unchanged(lib_c, lib_p, kernels, cfg, lat, attr, dev, emit):
                                           dev)
                 with torch.no_grad():
                     a = column_call(lib_c, cpack, args, H, Hd, True)
-                    b = column_call(lib_p, cpack, args, H, Hd, False)
+                    b = column_call(lib_p, cpack, args, H, Hd,
+                                    parent_tiles)
                 res[f"motion_column/{tag}/{case}"] = _equal(a, b)
         if "fused_attention_block" in kernels:
             fdec = S.decoder_for(cfg, attr, S.F32, dev)
@@ -535,8 +664,12 @@ def main(argv=None):
         ab_column(lib_p, lib_c, lat, attr, dev, emit)
     if "r_biased_attention" in timed:
         ab_rba(lib_p, lib_c, cfg, attr, dev, emit)
+    if "refine" in timed:
+        ab_refine(lib_p, lib_c, lat, attr, dev, emit)
+    if "seed_eval" in timed:
+        ab_seed_eval(lib_p, lib_c, cfg, attr, dev, emit)
     ab_unchanged(lib_c, lib_p, [k for k in KERNELS if k not in timed], cfg,
-                 lat, attr, dev, emit)
+                 lat, attr, dev, emit, args.parent in COLUMN_TILES)
     return 0
 
 

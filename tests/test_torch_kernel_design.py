@@ -2,10 +2,12 @@
 plain torch (no JAX): the reassociated attention of the fused DenseAttention
 block (csrc/fused_block.cu) against the plain `fused_attention_block_reference`,
 the reassociated relation-biased attention (csrc/r_biased_attention.cu)
-against `r_biased_attention_reference`, the host-side weight layouts the
-kernels read (the fused block's head-blocked key projections, the
-seed_eval_full bf16 path's weight tiles, the trunk column's swizzled tiles)
-against the module parameters they come from, and the kernels' width rules.
+against `r_biased_attention_reference`, the refine pass as its cluster of
+head slices computes it (csrc/refine.cu) against `refine_reference`, the
+host-side weight layouts the kernels read (the fused block's head-blocked
+key projections, the seed_eval_full bf16 path's weight tiles, the trunk
+column's swizzled tiles, refine's per-CTA stages) against the module
+parameters they come from, and the kernels' width rules.
 
 Reassociation: with u_h = W_k[:, h] q_h and ur_h = W_kr[:, h] q_h, a pair's
 score is LN(key) . u_h + LN(r) . ur_h, and its values enter only through the
@@ -26,6 +28,7 @@ from infgen_torch.model.layers import DenseAttention, LayerNorm
 from infgen_torch.ops import column_kernel as CK
 from infgen_torch.ops import fused_block as FB
 from infgen_torch.ops import pallas_attention as PA
+from infgen_torch.ops import refine_kernel as RK
 from infgen_torch.ops import seed_kernel as SK
 
 ATOL = 1e-5
@@ -389,3 +392,235 @@ def test_column_tiles_round_trip(column_pack, name):
     (torch.float32, 128, 8, 8, 128, False)))    # heads x head_dim != D
 def test_column_kernel_accepts(dtype, D, H, Hd, keys, ok):
     assert CK.kernel_accepts(dtype, D, H, Hd, keys) is ok
+
+
+# --------------------------------------------------------------------- #
+# refine over a cluster of head slices (csrc/refine.cu)
+# --------------------------------------------------------------------- #
+
+REFINE_WIDTHS = {"narrow": (32, 2), "flagship": (128, 8)}   # D, heads
+REFINE_L, REFINE_R, REFINE_KA, REFINE_BINS = 3, 32, 24, 120
+
+
+def _refine_pack(D, H, dtype):
+    from infgen_torch.cli import build_tokenizers
+    from infgen_torch.model.infgen import InfGenModel
+
+    cfg = Config(max_agents=16, max_map_tokens=32,
+                 num_agent_layers=REFINE_L, num_seed_layers=1,
+                 num_map_layers=1, hidden_dim=D, num_heads=H,
+                 head_dim=D // H, num_freq_bands=8)
+    attr = build_tokenizers(cfg)[0]
+    model = InfGenModel(cfg, attr.grid, attr.grid_size, attr.angle_size)
+    _fill(model, np.random.default_rng(7 + D))
+    assert attr.angle_size == REFINE_BINS
+    return RK.pack_refine_params(model.agent_decoder, REFINE_L,
+                                 attr.angle_size, dtype)
+
+
+@pytest.fixture(scope="module")
+def refine_packs():
+    return {(w, dt): _refine_pack(*REFINE_WIDTHS[w], dt)
+            for w in REFINE_WIDTHS for dt in (torch.float32, torch.bfloat16)}
+
+
+def _refine_args(D, dtype, case):
+    """The rollout's padded inputs: row 0 the inserted agent, rows 1..24
+    its neighbours, map key k in row k."""
+    rng = np.random.default_rng(17 + D)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+    R, Ka = REFINE_R, REFINE_KA
+    x = torch.zeros(R, D)
+    x[:1 + Ka] = f(1 + Ka, D)
+    r_aa = torch.zeros(R, D)
+    r_aa[1:1 + Ka] = f(Ka, D)
+    mask_a = torch.zeros(R, dtype=torch.bool)
+    mask_a[1:1 + Ka] = torch.as_tensor(rng.uniform(size=Ka) < 0.6)
+    mask_pl = torch.as_tensor(rng.uniform(size=R) < 0.6)
+    if case == "agents_all_masked":
+        mask_a[:] = False
+    if case == "map_all_masked":
+        mask_pl[:] = False
+    return (x, f(R, D).to(dtype), f(R, D).to(dtype), mask_pl, r_aa.to(dtype),
+            mask_a)
+
+
+def _tile_rows(pack, c, t, off, n, width, K):
+    """Rows [off / width, + n) of stage t of CTA c, each cut to K."""
+    return pack.tiles[c, t, off:off + n * width].view(n, width)[:, :K]
+
+
+def sliced_refine(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a, H):
+    """The refine pass as csrc/refine.cu computes it, from the pack's tiles
+    alone (refine_tiles) and its vectors: per CTA c its head's 16 columns of
+    every product, its attention, and its share of row 0's agg @ to_g[:D]
+    (its 16 aggregate values times its rows of to_g[:D]), the H shares
+    added in head order; rows but 0 updated as g * s (agg == 0); the last
+    sublayer's epilogue on row 0 only; the heads on CTA c's columns. fp32
+    sums, operands rounded to the compute dtype where the kernel rounds
+    them. Returns (heading logits, offset)."""
+    f32, cdt = torch.float32, pack.dtype
+    v, D, L = pack.v, pack.D, pack.L
+    lay = RK.tile_layout(L, D, pack.angle_size, cdt)
+    ld, ld4 = lay["ld"], lay["ld4"]
+    rnd = lambda t: t.to(cdt).to(f32)
+    ln = lambda t, n, j: SK._ln(t, v[n + "_s"][j], v[n + "_b"][j])
+    cs = [slice(16 * c, 16 * c + 16) for c in range(H)]
+    x = x_sub.to(f32).clone()
+    R = x.shape[0]
+    for j in range(2 * L):
+        last = j == 2 * L - 1
+        A = lambda c, b: _tile_rows(pack, c, 2 * j, b * 16 * ld, 16, ld,
+                                    D).to(f32)
+        B = lambda c, off, n, w, K: _tile_rows(pack, c, 2 * j + 1, off, n, w,
+                                               K).to(f32)
+        src, rel, m = (pl_keys.to(f32), r_pl, mask_pl) if j % 2 == 0 \
+            else (x, r_aa, mask_a)
+        dn, sn = rnd(ln(x, "lnq", j)), rnd(ln(src, "lns", j))
+        rn = rnd(ln(rel.to(f32), "lnr", j))
+        ag = torch.zeros(R, D)
+        parts, a0, g0, s0 = [], [], [], []
+        for c, cc in enumerate(cs):
+            K = sn @ A(c, 1).T + rn @ A(c, 2).T
+            V = ((sn @ A(c, 3).T + v["bv"][j][cc]) + rn @ A(c, 4).T) \
+                + v["bvr"][j][cc]
+            G, S = dn @ A(c, 5).T, dn @ A(c, 6).T + v["bs"][j][cc]
+            q = dn[0] @ A(c, 0).T + v["bq"][j][cc]
+            sc = torch.where(m, (K @ q) * 0.25, -torch.inf)
+            e = torch.where(m, torch.exp(sc - sc.max()), 0.0)
+            agg0 = (e / torch.clamp(e.sum(), min=1e-30)) @ V
+            parts.append(rnd(agg0) @ A(c, 7))          # [16 k] x [16, D]
+            a0.append(agg0)
+            g0.append(G[0])
+            s0.append(S[0])
+            ag[1:, cc] = torch.sigmoid(G[1:] + v["bg"][j][cc]) * S[1:]
+        ga = parts[0]
+        for p in parts[1:]:
+            ga = ga + p
+        a, g = torch.cat(a0), torch.sigmoid((ga + torch.cat(g0))
+                                            + v["bg"][j])
+        ag[0] = a + g * (torch.cat(s0) - a)
+        rows = slice(0, 1) if last else slice(None)
+        ag = rnd(ag[rows])
+        o = torch.cat([ag @ B(c, 0, 16, ld, D).T + v["bo"][j][cc]
+                       for c, cc in enumerate(cs)], 1)
+        x1 = x[rows] + ln(o, "post", j)
+        h_in = rnd(ln(x1, "ffp", j))
+        hh = rnd(torch.cat([torch.relu(
+            h_in @ B(c, 16 * ld, 64, ld, D).T
+            + v["bf0"][j][64 * c:64 * c + 64]) for c in range(H)], 1))
+        f = torch.cat([hh @ B(c, 80 * ld, 16, ld4, 4 * D).T
+                       + v["bf1"][j][cc] for c, cc in enumerate(cs)], 1)
+        x[rows] = x1 + ln(f, "ffq", j)
+    hop = rnd(x[0])
+    hid = []
+    for hi in range(2):
+        hb = torch.cat([hop @ _tile_rows(pack, c, 4 * L, hi * 16 * ld, 16, ld,
+                                         D).to(f32).T + v["bh0"][hi][cc]
+                        for c, cc in enumerate(cs)])
+        hid.append(rnd(torch.relu(SK._ln(hb, v["lnh_s"][hi],
+                                         v["lnh_b"][hi]))))
+    outs = []
+    for hi, (n, off, per, bias) in enumerate(
+            ((pack.angle_size, 32, lay["ch"], v["bh_head"]),
+             (2, 32 + lay["nh"], lay["co"], v["bh_off"]))):
+        cols = [hid[hi] @ _tile_rows(pack, c, 4 * L, off * ld, per, ld,
+                                     D).to(f32).T for c in range(H)]
+        outs.append(torch.cat(cols)[:n] + bias)
+    return outs[0], outs[1]
+
+
+@pytest.mark.parametrize("case", ("masked", "map_all_masked",
+                                  "agents_all_masked"))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("width", sorted(REFINE_WIDTHS))
+def test_sliced_refine_matches_reference(refine_packs, width, dtype, case):
+    """The kernel's shortcuts hold exactly but for summation order: row 0's
+    agg @ to_g[:D] as H head partials, g * s for the other rows, the last
+    epilogue on row 0 only. fp32 outputs of order 1-10: atol 1e-5; bf16
+    the same, as no operand lands on a rounding near-tie at these seeds."""
+    D, H = REFINE_WIDTHS[width]
+    pack = refine_packs[(width, dtype)]
+    args = _refine_args(D, dtype, case)
+    with torch.no_grad():
+        got = sliced_refine(pack, *args, H)
+        ref = RK.refine_reference(pack, *args, H, D // H)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        err = float((g - r).abs().max())
+        assert err <= ATOL, f"max abs error {err} > {ATOL}"
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("width", sorted(REFINE_WIDTHS))
+def test_refine_tiles_round_trip(refine_packs, width, dtype):
+    """Each block of each CTA's stages is the pack's view of the module
+    parameter that csrc/refine.cu expects there; padding is zero."""
+    D, H = REFINE_WIDTHS[width]
+    pack = refine_packs[(width, dtype)]
+    w, L = pack.w, pack.L
+    lay = RK.tile_layout(L, D, pack.angle_size, dtype)
+    ld, ld4 = lay["ld"], lay["ld4"]
+    assert pack.tiles.shape == (H, 4 * L + 1, lay["slot"])
+    assert pack.tiles.dtype == dtype
+    for c in range(H):
+        cc = slice(16 * c, 16 * c + 16)
+        for j in range(2 * L):
+            want = [w["wq"][j][:, cc].T, w["wk"][j][:, cc].T,
+                    w["wkr"][j][:, cc].T, w["wv"][j][:, cc].T,
+                    w["wvr"][j][:, cc].T, w["wg"][j][D:, cc].T,
+                    w["ws"][j][:, cc].T, w["wg"][j][:D][cc]]
+            for b, m in enumerate(want):
+                assert torch.equal(
+                    _tile_rows(pack, c, 2 * j, b * 16 * ld, 16, ld, D), m)
+            for off, n, width_, m in (
+                    (0, 16, ld, w["wo"][j][:, cc].T),
+                    (16 * ld, 64, ld, w["wf0"][j][:, 64 * c:64 * c + 64].T),
+                    (80 * ld, 16, ld4, w["wf1"][j][:, cc].T)):
+                assert torch.equal(_tile_rows(pack, c, 2 * j + 1, off, n,
+                                              width_, m.shape[1]), m)
+        t = 4 * L
+        for hi in range(2):
+            assert torch.equal(_tile_rows(pack, c, t, hi * 16 * ld, 16, ld,
+                                          D), w["wh0"][hi][:, cc].T)
+        for off, per, n, m in ((32, lay["ch"], pack.angle_size, w["wh_head"]),
+                               (32 + lay["nh"], lay["co"], 2, w["wh_off"])):
+            got = _tile_rows(pack, c, t, off * ld, per, ld, D)
+            lo, hi_ = min(n, c * per), min(n, (c + 1) * per)
+            assert torch.equal(got[:hi_ - lo], m[:, lo:hi_].T)
+            assert not got[hi_ - lo:].any()
+    # everything outside the blocks is zero padding
+    nz = pack.tiles.reshape(H, 4 * L + 1, -1).ne(0).sum()
+    assert nz == sum(int(m.ne(0).sum()) for m in (
+        w["wq"], w["wk"], w["wkr"], w["wv"], w["wvr"], w["wg"], w["ws"],
+        w["wo"], w["wf0"], w["wf1"], w["wh0"], w["wh_head"], w["wh_off"]))
+
+
+@pytest.mark.parametrize("dtype,D,H,Hd,R,ok", (
+    (torch.bfloat16, 128, 8, 16, 32, True),     # the latency preset
+    (torch.float32, 128, 8, 16, 32, True),
+    (torch.float32, 32, 2, 16, 32, True),       # the parity rollout's
+    (torch.bfloat16, 32, 2, 16, 32, True),      # the narrowest cluster
+    (torch.bfloat16, 48, 3, 16, 20, True),
+    (torch.bfloat16, 128, 16, 8, 32, False),    # heads of 8
+    (torch.float32, 64, 2, 32, 32, False),      # heads of 32
+    (torch.float32, 16, 1, 16, 32, False),      # a cluster of one
+    (torch.bfloat16, 144, 9, 16, 32, False),    # more than 8 CTAs
+    (torch.bfloat16, 128, 8, 16, 33, False),    # more than two m16 tiles
+    (torch.float16, 128, 8, 16, 32, False)))
+def test_refine_kernel_accepts(dtype, D, H, Hd, R, ok):
+    assert RK.kernel_accepts(dtype, D, H, Hd, R) is ok
+
+
+@pytest.mark.parametrize("dtype,D,H,Hd,ok", (
+    (torch.bfloat16, 128, 8, 16, True),         # the flagship
+    (torch.float32, 128, 8, 16, True),
+    (torch.float32, 32, 2, 16, True),           # the parity rollout's
+    (torch.bfloat16, 64, 4, 16, True),
+    (torch.bfloat16, 32, 2, 16, False),         # 4 bf16 columns per CTA
+    (torch.float32, 48, 3, 16, False),          # 6 columns per CTA
+    (torch.float32, 64, 32, 2, False),          # heads of 2
+    (torch.float32, 128, 8, 8, False),          # heads x head_dim != D
+    (torch.float16, 128, 8, 16, False)))
+def test_seed_eval_accepts(dtype, D, H, Hd, ok):
+    assert SK.seed_eval_accepts(dtype, D, H, Hd) is ok
