@@ -332,13 +332,11 @@ __device__ void cluster_stack_and_heads(
   wait_inputs();
   for (int i = tid; i < D; i += bd) s.sd[i] = sd0[i];
   cl.sync();  // every CTA of the cluster runs before any remote write
-  stamp(0);  // then 8 points per sublayer j from 1 + 8j, 2 for the heads
 
   for (int j = 0; j < J; ++j) {
     const int li = j / 3, sub = j % 3;
     layer_norm(s.sd, s.dst_n, w.lnq_s + j * D, w.lnq_b + j * D, D, s.red);
     const T* wa = acquire();  // wq, wg, ws, wo slices
-    stamp(1 + 8 * j);
     if (sub == 0) {
       for (int i = tid; i < D; i += bd) s.agg[i] = to_f(v_occ[li * D + i]);
       __syncthreads();
@@ -347,14 +345,12 @@ __device__ void cluster_stack_and_heads(
       round_into<T>(s.dst_n, s.xr, D);
       slice_mv(s.xr, D, wa, wc, w.bq + k * D + c0, s.ys, s.part);
       gather(cl, s.ys, wc, s.q, c0);
-      stamp(2 + 8 * j);
       cluster_attend<KV>(cl, rank, s.q,
                          (sub == 1 ? k_pt : k_a) + (size_t)li * N * D,
                          (sub == 1 ? v_pt : v_a) + (size_t)li * N * D,
                          sub == 1 ? mask_pl : mask_a, N, D, H, Hd, s.sc,
                          s.mp, s.part, s.agg);
     }
-    stamp(3 + 8 * j);
     // gate: sigmoid(to_g([agg, dst_n])); update toward to_s(dst_n)
     round_into<T>(s.agg, s.xr, D);
     round_into<T>(s.dst_n, s.xr + D, D);
@@ -370,13 +366,11 @@ __device__ void cluster_stack_and_heads(
     }
     __syncthreads();
     gather(cl, s.ys, wc, s.gag, c0);
-    stamp(4 + 8 * j);
     // x = sd + postnorm(to_out(agg))
     round_into<T>(s.gag, s.xr, D);
     slice_mv(s.xr, D, wg + (size_t)3 * D * wc, wc, w.bo + j * D + c0, s.ys,
              s.part);
     gather(cl, s.ys, wc, s.o, c0);
-    stamp(5 + 8 * j);
     layer_norm(s.o, s.t2, w.post_s + j * D, w.post_b + j * D, D, s.red);
     for (int i = tid; i < D; i += bd) s.x[i] = s.sd[i] + s.t2[i];
     __syncthreads();
@@ -384,13 +378,11 @@ __device__ void cluster_stack_and_heads(
     // sd = x + ff_postnorm(ff_1(relu(ff_0(ff_prenorm(x)))))
     layer_norm(s.x, s.t1, w.ffp_s + j * D, w.ffp_b + j * D, D, s.red);
     const T* wf = acquire();
-    stamp(6 + 8 * j);
     round_into<T>(s.t1, s.xr, D);
     slice_mv(s.xr, D, wf, 4 * wc, w.bf0 + j * 4 * D + 4 * c0, s.ys, s.part);
     for (int i = tid; i < 4 * wc; i += bd) s.ys[i] = fmaxf(s.ys[i], 0.f);
     __syncthreads();
     gather(cl, s.ys, 4 * wc, s.h, 4 * c0);
-    stamp(7 + 8 * j);
     round_into<T>(s.h, s.xr, 4 * D);
     slice_mv(s.xr, 4 * D, wf + (size_t)4 * D * wc, wc, w.bf1 + j * D + c0,
              s.ys, s.part);
@@ -399,12 +391,10 @@ __device__ void cluster_stack_and_heads(
     for (int i = tid; i < D; i += bd) s.sd[i] = s.x[i] + s.t2[i];
     __syncthreads();
     ++st;
-    stamp(8 + 8 * j);
   }
 
   // heads: MLPLayer = dense -> LayerNorm -> relu -> dense
   const T* wh = acquire();
-  stamp(1 + 8 * J);
   const int gs = (G + kCluster - 1) / kCluster;
   for (int hi = 0; hi < 4; ++hi) {
     float* buf = hi % 2 ? s.gag : s.o;  // alternate: see the header
@@ -430,7 +420,6 @@ __device__ void cluster_stack_and_heads(
       }
     }
   }
-  stamp(2 + 8 * J);
 }
 
 }  // namespace

@@ -125,29 +125,6 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& done) {
   return e;
 }
 
-// Phase stamps (scripts/kernel_stamps.py builds the sources with
-// -DINFGEN_STAMPS): thread 0 of CTA b < kStampBlocks records %globaltimer
-// as point i < kStampPoints of that CTA; a source's reader entry copies
-// them out. Otherwise stamp() is empty and the reader absent.
-#ifdef INFGEN_STAMPS
-constexpr int kStampBlocks = 8, kStampPoints = 128;
-__device__ unsigned long long g_stamps[kStampBlocks][kStampPoints];
-__device__ __forceinline__ void stamp(int i) {
-  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks && i < kStampPoints) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    g_stamps[blockIdx.x][i] = t;
-  }
-}
-#define INFGEN_STAMP_READER(name)                                  \
-  extern "C" int name(void* host) {                                \
-    return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps)); \
-  }
-#else
-__device__ __forceinline__ void stamp(int) {}
-#define INFGEN_STAMP_READER(name)
-#endif
-
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }

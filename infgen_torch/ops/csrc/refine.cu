@@ -520,7 +520,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
   for (int i = tid; i < kRows * D; i += kRefThreads)
     s.x[i] = i / D < R ? p.x_sub[i] : 0.f;
   cl.sync();  // every CTA of the cluster runs before any remote write
-  stamp(0);
 
   auto V = [&](Arg a, int j, int per) { return p.v[a] + (size_t)j * per; };
   const float scale = 1.f / sqrtf((float)kSlice);  // exact: 1 / 4
@@ -540,7 +539,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
                   ln_params(V(LNR_S, 0, D), V(LNR_B, 0, D), D), 0);
   }
   cl.sync();
-  stamp(1);  // then 8 points per sublayer j from 2 + 8j, 3 for the heads
   for (int j = 0; j < J; ++j) {
     const bool map = j % 2 == 0, last = j == J - 1;
     const int nm = last ? 1 : 2;  // m16 tiles the epilogue needs
@@ -590,7 +588,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
         }
       }
       __syncthreads();
-      stamp(2 + 8 * j);
 
       const float* bg = V(BG, j, D);
       if (warp == 0) {
@@ -671,7 +668,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
         }
       }
       cl.sync();  // (1)
-      stamp(3 + 8 * j);
       w.issue(2 * j + 2);
       // row 0: g = sigmoid((agg wg[:D] + dst_n wg[D:]) + bg), agg + g (s -
       // agg); the partials added in head order
@@ -683,7 +679,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
         s.ag[n] = to_t<T>(a + g * (s.s0[n] - a));
       }
       __syncthreads();
-      stamp(4 + 8 * j);
     }
 
     // the epilogue: x = x + postnorm(to_out(agg)); x = x +
@@ -707,7 +702,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
       const LnParams pp = ln_params(V(POST_S, j, D), V(POST_B, j, D), D);
       const LnParams pf = ln_params(V(FFP_S, j, D), V(FFP_B, j, D), D);
       cl.sync();  // (2)
-      stamp(5 + 8 * j);
       {
         if (last)
           post_ffp_rows<T, 2>(s.x, s.ob, s.dn, ld, D, pp, pf);
@@ -715,7 +709,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
           post_ffp_rows<T, 4>(s.x, s.ob, s.dn, ld, D, pp, pf);
       }
       __syncthreads();
-      stamp(6 + 8 * j);
       {  // ff_0: this CTA's 64 columns, 8 per warp; relu, rounded
         const T* wf0 = wb + (size_t)kSlice * ld;
         const int n0 = 8 * warp;
@@ -735,7 +728,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
         }
       }
       cl.sync();  // (3)
-      stamp(7 + 8 * j);
       {  // ff_1: this head's columns, K = 4D split over the warps
         const T* wf1 = wb + (size_t)5 * kSlice * ld;
         const int tiles = 2 * nm, splits = 8 / tiles, tile = warp % tiles;
@@ -769,7 +761,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
         const LnParams pq = ln_params(V(LNQ_S, jn, D), V(LNQ_B, jn, D), D);
         const LnParams ps = ln_params(V(LNS_S, jn, D), V(LNS_B, jn, D), D);
         cl.sync();  // (4)
-        stamp(8 + 8 * j);
         float* tr = p.trace != nullptr && c == 0 ? p.trace + (size_t)j * R * D
                                                  : nullptr;
         if (last)
@@ -781,7 +772,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
                          ps);
       }
       __syncthreads();
-      stamp(9 + 8 * j);
     }
   }
 
@@ -789,7 +779,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
   const T* wh = w.acquire(lay.stages - 1);
   for (int i = tid; i < D; i += kRefThreads) s.hop[i] = to_t<T>(s.x[i]);
   __syncthreads();
-  stamp(2 + 8 * J);
   {  // both heads' Dense_0, this CTA's 16 columns each; k over 8 groups
     const int o = tid & 31, kg = tid >> 5, hi = o >> 4, n = o & 15;
     const int kw = D / 8;
@@ -808,7 +797,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
     }
   }
   cl.sync();
-  stamp(3 + 8 * J);
   if (warp < 2) {
     float v[1][4], m[1], rs[1];
     load_lanes(v[0], s.hb + warp * D, D);
@@ -840,7 +828,6 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
         p.out_off[c * lay.co + n] = acc + p.v[BH_OFF][c * lay.co + n];
     }
   }
-  stamp(4 + 8 * J);
 }
 
 template <typename T>
@@ -873,8 +860,6 @@ int launch(const Params& p, int kc, cudaStream_t stream) {
 }
 
 }  // namespace
-
-INFGEN_STAMP_READER(infgen_refine_stamps)
 
 // Bytes of shared memory a CTA needs (the wrapper checks them against the
 // 227 KB a block can use).

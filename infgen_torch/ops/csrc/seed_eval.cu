@@ -91,8 +91,6 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-INFGEN_STAMP_READER(infgen_seed_eval_stamps)
-
 // Bytes of shared memory a CTA of the stack needs (the wrapper checks them
 // against the 227 KB a block can use).
 extern "C" int infgen_seed_eval_smem(int dtype, int L, int P, int A, int D,

@@ -13,9 +13,9 @@ csrc/refine.cu, whose header states its bound and design).
                       sublayer (refine_sublayer) and then the heads
                       (refine_heads)
   refine_kernel       the wrapper: launches the kernel on CUDA tensors, takes
-                      the plain version for CPU tensors, raises otherwise
-  refine_launch       the launch itself, uncounted, optionally returning x
-                      after every sublayer (a stage-wise check reads it)
+                      the plain version for CPU tensors, raises otherwise;
+                      optionally also returns x after every sublayer (a
+                      stage-wise check reads it)
 
 The inserted agent is row 0 of an R-row neighbourhood; only it attends. The
 other rows take the zero-aggregate closed form, which is the shared gated
@@ -272,61 +272,45 @@ def refine_heads(pack: RefinePack, x0) -> Tuple[torch.Tensor, torch.Tensor]:
     return outs[0], outs[1]
 
 
+def _sublayers(pack: RefinePack, x_sub, *args):
+    """x after each sublayer of the plain pass, a list of [R, D] fp32."""
+    xs = [x_sub.to(torch.float32)]
+    for j in range(2 * pack.L):
+        xs.append(refine_sublayer(pack, j, xs[-1], *args))
+    return xs[1:]
+
+
 def refine_reference(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
                      mask_a, num_heads: int, head_dim: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch refine pass, the kernel's math: matmul inputs rounded
     to the compute dtype, products and sums in fp32; fp32 LayerNorm (eps
     1e-6) and softmax; an all-masked key set aggregates to zero."""
-    x = x_sub.to(torch.float32)
-    for j in range(2 * pack.L):
-        x = refine_sublayer(pack, j, x, pl_keys, r_pl, mask_pl, r_aa,
-                            mask_a, num_heads, head_dim)
+    x = _sublayers(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a,
+                   num_heads, head_dim)[-1]
     return refine_heads(pack, x[0])
 
 
-def refine_launch(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
-                  mask_a, num_heads: int, head_dim: int, trace: bool = False):
-    """Launch csrc/refine.cu on CUDA tensors that refine_kernel has checked,
-    without counting. Returns (heading logits, offset), and with `trace`
-    also x after each sublayer, [2L, R, D] fp32 (after the last one only
-    row 0 is computed): a sublayer-wise check reads it."""
-    from infgen_torch.ops.build import library
-    lib = library()
-    dev = x_sub.device
-    R, D = x_sub.shape
-    f32 = dict(dtype=torch.float32, device=dev)
-    head = torch.empty((pack.angle_size,), **f32)
-    off = torch.empty((2,), **f32)
-    tr = torch.zeros((2 * pack.L, R, D), **f32) if trace else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.infgen_refine(
-        _DTYPE_CODE[pack.dtype], x_sub.data_ptr(), pl_keys.data_ptr(),
-        r_pl.data_ptr(), mask_pl.data_ptr(), r_aa.data_ptr(),
-        mask_a.data_ptr(), ctypes.addressof(pack.ptrs),
-        pack.tiles.data_ptr(), head.data_ptr(), off.data_ptr(),
-        0 if tr is None else tr.data_ptr(), pack.L, R, D, num_heads,
-        head_dim, pack.angle_size, stream)
-    if err != 0:
-        raise RuntimeError(f"refine kernel launch failed: cudaError {err}")
-    return (head, off, tr) if trace else (head, off)
-
-
 def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
-                  mask_a, num_heads: int, head_dim: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  mask_a, num_heads: int, head_dim: int, trace: bool = False):
     """One refine pass. x_sub [R, D] fp32 (row 0 the inserted agent, rows
     past the real neighbourhood zero); pl_keys / r_pl [R, D] (map key k
     and its relation), r_aa [R, D] (agent key row k's relation; rows 0 and
     padding masked) in the pack's compute dtype; mask_pl / mask_a [R] bool.
-    Returns (heading logits [angle_size], offset [2] before tanh), fp32.
-    CUDA tensors launch csrc/refine.cu on the current stream (counted in
-    `refine_kernel.launches`); CPU tensors take refine_reference. The
-    kernel takes the widths of kernel_accepts; others raise."""
+    Returns (heading logits [angle_size], offset [2] before tanh), fp32,
+    and with `trace` also x after each sublayer, [2L, R, D] fp32 (the
+    kernel computes only row 0 of the last one). CUDA tensors launch
+    csrc/refine.cu on the current stream (counted in
+    `refine_kernel.launches`); CPU tensors take the plain version
+    (refine_reference). The kernel takes the widths of kernel_accepts;
+    others raise."""
     dev = x_sub.device
     if dev.type == "cpu":
-        return refine_reference(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
-                                mask_a, num_heads, head_dim)
+        args = (pl_keys, r_pl, mask_pl, r_aa, mask_a, num_heads, head_dim)
+        if not trace:
+            return refine_reference(pack, x_sub, *args)
+        xs = _sublayers(pack, x_sub, *args)
+        return (*refine_heads(pack, xs[-1][0]), torch.stack(xs))
     if dev.type != "cuda":
         raise ValueError(f"refine_kernel: unsupported device {dev}")
     D, cdt = pack.D, pack.dtype
@@ -345,18 +329,29 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     lay = tile_layout(pack.L, D, pack.angle_size, cdt)
     _check("tiles", pack.tiles, cdt, (lay["kc"], lay["stages"], lay["slot"]),
            dev)
+    from infgen_torch.ops.build import library
     shape = (_DTYPE_CODE[cdt], pack.L, D, pack.angle_size)
     if shape not in _SMEM_OK:
-        from infgen_torch.ops.build import library
         smem = library().infgen_refine_smem(*shape)
         if smem > SMEM_LIMIT:
             raise ValueError(f"refine_kernel: {smem} B of shared memory "
                              "exceed the 227 KB a block can use")
         _SMEM_OK.add(shape)
-    out = refine_launch(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a,
-                        num_heads, head_dim)
+    f32 = dict(dtype=torch.float32, device=dev)
+    head = torch.empty((pack.angle_size,), **f32)
+    off = torch.empty((2,), **f32)
+    tr = torch.zeros((2 * pack.L, R, D), **f32) if trace else None
+    err = library().infgen_refine(
+        _DTYPE_CODE[cdt], x_sub.data_ptr(), pl_keys.data_ptr(),
+        r_pl.data_ptr(), mask_pl.data_ptr(), r_aa.data_ptr(),
+        mask_a.data_ptr(), ctypes.addressof(pack.ptrs),
+        pack.tiles.data_ptr(), head.data_ptr(), off.data_ptr(),
+        0 if tr is None else tr.data_ptr(), pack.L, R, D, num_heads,
+        head_dim, pack.angle_size, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"refine kernel launch failed: cudaError {err}")
     refine_kernel.launches += 1
-    return out
+    return (head, off, tr) if trace else (head, off)
 
 
 refine_kernel.launches = 0

@@ -103,10 +103,10 @@ def summarize(prof, n_steps, wall_ms):
                           for e in dev if find(e.time_range.start) >= 0)
             / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    port = {}
+    port, names = {}, _port_kernel_names()
     for k, (c, ms) in by_name.items():
         m = re.search(r"\(anonymous namespace\)::(\w+)", k)
-        if m and m.group(1) in _port_kernel_names():
+        if m and m.group(1) in names:
             name = k.split("(anonymous namespace)::", 1)[1].split("(", 1)[0]
             port[name] = dict(count=c, ms=ms)
     return dict(

@@ -60,10 +60,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def build_tree(csrc: Path, lib_path: Path, extra=()) -> float:
+def build_tree(csrc: Path, lib_path: Path) -> float:
     """Compile every .cu of `csrc` into `lib_path` with the port's nvcc
-    flags and `extra`, one nvcc per source, all started together. Returns
-    seconds."""
+    flags, one nvcc per source, all started together. Returns seconds."""
     from infgen_torch.ops import build as B
 
     t0 = time.perf_counter()
@@ -73,7 +72,7 @@ def build_tree(csrc: Path, lib_path: Path, extra=()) -> float:
     for src in sorted(csrc.glob("*.cu")):
         obj = lib_path.parent / (src.stem + ".o")
         procs.append((src, obj, subprocess.Popen(
-            [nvcc, *B.NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+            [nvcc, *B.NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for src, _, proc in procs:
         out, _ = proc.communicate()

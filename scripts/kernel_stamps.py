@@ -1,12 +1,18 @@
 """Where the time of the refine and seed_eval kernels goes on the card:
-phase stamps of an instrumented build.
+phase stamps of an instrumented copy of the sources.
 
     python scripts/kernel_stamps.py [--calls 30] [--dtype bfloat16]
 
-Builds this checkout's kernels with -DINFGEN_STAMPS into build/stamps/
-(thread 0 of each of the first 8 CTAs records %globaltimer at the points
-that csrc/refine.cu and csrc/cluster_stack.cuh mark with stamp()), calls
-each kernel through its wrapper on chip_smoke.py's inputs at the flagship
+Copies this checkout's csrc into build/stamps/csrc and inserts the stamps
+there (the shipped sources carry none): `stamp(i)` calls at the points of
+POINTS in refine.cu and cluster_stack.cuh, each after the first line equal
+to its target that follows the one line holding its anchor (thread 0 of
+each of the first 8 CTAs records %globaltimer as point i), the stamp
+buffer and stamp() itself (STAMP_CODE) at the top of common.cuh's
+namespace, and one reader entry (READER) at the end of refine.cu and
+seed_eval.cu. An anchor that is not found exactly once stops the script:
+after a kernel edit, move the point. Then builds the copy, calls each
+kernel through its wrapper on chip_smoke.py's inputs at the flagship
 shapes (refine: the latency preset's pass; seed_eval: the flagship's
 evaluation, some keys masked) and prints one JSON line per kernel: for CTA
 0, the median over the calls of the microseconds from one point to the
@@ -17,6 +23,7 @@ stamped total; the card's name and power limit first. Needs a GPU.
 import argparse
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +34,96 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+STAMP_CODE = """
+// phase stamps (inserted by scripts/kernel_stamps.py)
+constexpr int kStampBlocks = 8, kStampPoints = 128;
+__device__ unsigned long long g_stamps[kStampBlocks][kStampPoints];
+__device__ __forceinline__ void stamp(int i) {
+  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks && i < kStampPoints) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_stamps[blockIdx.x][i] = t;
+  }
+}
+"""
+READER = """
+extern "C" int {name}(void* host) {{
+  return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+}}
+"""
+# (file, anchor: text of exactly one line, target: the first line after it
+# equal to this, "" = the anchor's own line; the stamp's index), in the
+# order of the phase names below. refine: 0, 1, then 8 points per sublayer
+# j from 2 + 8j, 3 for the heads; the stack: 0, then 8 per sublayer j from
+# 1 + 8j, 2 for the heads.
+POINTS = (
+    ("refine.cu", "cl.sync();  // every CTA of the cluster runs before", "",
+     "0"),
+    ("refine.cu", "ln_params(V(LNR_S, 0, D), V(LNR_B, 0, D), D), 0);",
+     "  cl.sync();", "1"),
+    ("refine.cu", "s.q[n0 + acc_col(1)] = a4[1] + bq[n0 + acc_col(1)];",
+     "      __syncthreads();", "2 + 8 * j"),
+    ("refine.cu", "cl.sync();  // (1)", "", "3 + 8 * j"),
+    ("refine.cu", "s.ag[n] = to_t<T>(a + g * (s.s0[n] - a));",
+     "      __syncthreads();", "4 + 8 * j"),
+    ("refine.cu", "cl.sync();  // (2)", "", "5 + 8 * j"),
+    ("refine.cu", "post_ffp_rows<T, 4>(s.x, s.ob, s.dn, ld, D, pp, pf);",
+     "      __syncthreads();", "6 + 8 * j"),
+    ("refine.cu", "cl.sync();  // (3)", "", "7 + 8 * j"),
+    ("refine.cu", "cl.sync();  // (4)", "", "8 + 8 * j"),
+    ("refine.cu", "map ? s.sn + (size_t)kRows * ld : nullptr, ld, pq,",
+     "      __syncthreads();", "9 + 8 * j"),
+    ("refine.cu", "s.hop[i] = to_t<T>(s.x[i]);", "  __syncthreads();",
+     "2 + 8 * J"),
+    ("refine.cu", "cl.map_shared_rank(s.hb, rr)[hi * D + c0 + n] = h;",
+     "  cl.sync();", "3 + 8 * J"),
+    ("refine.cu", "p.out_off[c * lay.co + n] = acc + p.v[BH_OFF]", "  }",
+     "4 + 8 * J"),
+    ("cluster_stack.cuh", "cl.sync();  // every CTA of the cluster runs",
+     "", "0"),
+    ("cluster_stack.cuh", "const T* wa = acquire();", "", "1 + 8 * j"),
+    ("cluster_stack.cuh", "gather(cl, s.ys, wc, s.q, c0);", "", "2 + 8 * j"),
+    ("cluster_stack.cuh", "s.mp, s.part, s.agg);", "    }", "3 + 8 * j"),
+    ("cluster_stack.cuh", "gather(cl, s.ys, wc, s.gag, c0);", "",
+     "4 + 8 * j"),
+    ("cluster_stack.cuh", "gather(cl, s.ys, wc, s.o, c0);", "", "5 + 8 * j"),
+    ("cluster_stack.cuh", "const T* wf = acquire();", "", "6 + 8 * j"),
+    ("cluster_stack.cuh", "gather(cl, s.ys, 4 * wc, s.h, 4 * c0);", "",
+     "7 + 8 * j"),
+    ("cluster_stack.cuh", "s.sd[i] = s.x[i] + s.t2[i];", "    ++st;",
+     "8 + 8 * j"),
+    ("cluster_stack.cuh", "const T* wh = acquire();", "", "1 + 8 * J"),
+    ("cluster_stack.cuh", "out_pos[c] = acc + w.bpos[c];", "  }",
+     "2 + 8 * J"))
+READERS = (("refine.cu", "infgen_refine_stamps"),
+           ("seed_eval.cu", "infgen_seed_eval_stamps"))
+
+
+def instrument(src: Path, dst: Path):
+    """Copy the sources `src` to `dst` with the stamps inserted."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    text = {}
+    read = lambda f: text.setdefault(f, (dst / f).read_text().splitlines())
+    for f, anchor, target, index in POINTS:
+        lines = read(f)
+        at = [i for i, line in enumerate(lines) if anchor in line]
+        assert len(at) == 1, f"{f}: {len(at)} lines hold {anchor!r}"
+        i = at[0]
+        if target:
+            i = next(k for k in range(i + 1, len(lines))
+                     if lines[k] == target)
+        indent = lines[i][:len(lines[i]) - len(lines[i].lstrip())]
+        lines.insert(i + 1, f"{indent}stamp({index});")
+    lines = read("common.cuh")
+    i = lines.index("namespace {")
+    lines[i + 1:i + 1] = STAMP_CODE.splitlines()
+    for f, name in READERS:
+        read(f).extend(READER.format(name=name).splitlines())
+    for f, lines in text.items():
+        (dst / f).write_text("\n".join(lines) + "\n")
+
 
 # phase names, in time order, of the points of one sublayer and the heads
 REFINE_PHASES = ("products_a", "attend_exchange", "row0_gate",
@@ -107,8 +204,10 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps(dict(item="device", nvidia_smi=smi)), flush=True)
-    lib_path = B.BUILD_DIR / "stamps" / "libinfgen_kernels.so"
-    secs = build_tree(B.CSRC, lib_path, ("-DINFGEN_STAMPS",))
+    csrc = B.BUILD_DIR / "stamps" / "csrc"
+    instrument(B.CSRC, csrc)
+    lib_path = csrc.parent / "libinfgen_kernels.so"
+    secs = build_tree(csrc, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     B._declare(lib)
     for name in ("infgen_refine_stamps", "infgen_seed_eval_stamps"):

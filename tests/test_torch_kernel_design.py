@@ -596,6 +596,29 @@ def test_refine_tiles_round_trip(refine_packs, width, dtype):
         w["wo"], w["wf0"], w["wf1"], w["wh0"], w["wh_head"], w["wh_off"]))
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("width", sorted(REFINE_WIDTHS))
+def test_refine_kernel_trace(refine_packs, width, dtype):
+    """refine_kernel(..., trace=True) on CPU tensors: the untraced call's
+    outputs bit for bit, and x after each sublayer as the plain sublayers
+    give it, the heads reading the last one's row 0."""
+    D, H = REFINE_WIDTHS[width]
+    pack = refine_packs[(width, dtype)]
+    args = _refine_args(D, dtype, "masked")
+    x, rest = args[0], args[1:]
+    with torch.no_grad():
+        head, off, tr = RK.refine_kernel(pack, *args, H, D // H, trace=True)
+        want = RK.refine_kernel(pack, *args, H, D // H)
+        assert torch.equal(head, want[0]) and torch.equal(off, want[1])
+        assert tr.shape == (2 * pack.L, *x.shape) and tr.dtype == torch.float32
+        for j in range(2 * pack.L):
+            step = RK.refine_sublayer(pack, j, x if j == 0 else tr[j - 1],
+                                      *rest, H, D // H)
+            assert torch.equal(tr[j], step)
+        heads = RK.refine_heads(pack, tr[-1][0])
+        assert torch.equal(head, heads[0]) and torch.equal(off, heads[1])
+
+
 @pytest.mark.parametrize("dtype,D,H,Hd,R,ok", (
     (torch.bfloat16, 128, 8, 16, 32, True),     # the latency preset
     (torch.float32, 128, 8, 16, 32, True),
