@@ -20,12 +20,24 @@ before the last line):
            `refine_widths`, `fused_block_widths` and `rba_widths` hold those
            kernels at their narrowest widths and check a width each
            refuses
-  parity   a small closed-loop rollout on the card (through the kernels)
-           equal to the same rollout on the CPU (through the plain
-           versions), with the flagship's flags and, as `parity_latency`,
-           `parity_fused` and `parity_pallas`, with the latency preset's
-           three kernel flags, with use_fused_block, with
-           use_pallas_attention
+           `seed_eval_lanes` holds the lane form (B = 8 lanes, two masked
+           off, in one launch) against its plain version and against the
+           single launch, with its time, per-lane time and bound; after
+           `serving`, again at the shapes its batches gave the kernel
+  parity   a small closed-loop rollout (70 frames, past the temporal
+           window) on the card (through the kernels) equal to the same
+           rollout on the CPU (through the plain versions), with the
+           flagship's flags and, as `parity_latency`, `parity_fused` and
+           `parity_pallas`, with the latency preset's three kernel flags,
+           with use_fused_block, with use_pallas_attention;
+           `parity_serving` the same for three scenarios served as one
+           batched rollout of four lanes (RolloutServer.rollout_batch),
+           with the flagship's flags and with use_pallas_attention
+  serving  the flagship at full width serving 8 synthetic scenarios
+           through RolloutServer.rollout_batch (agent buckets 32 / 64 /
+           128), in batches of up to 8 lanes and one scenario at a time,
+           unforced and forced: ms per batched token step, agent-steps/s,
+           launches, host reads and peak memory
   rollout  the flagship rollout (configs/ours_long_term.yaml), its two
            variants (use_fused_block, use_pallas_attention: the command
            line's --fused-block / --pallas-attention) and the latency
@@ -35,8 +47,9 @@ before the last line):
            without forced insertion (the seed head biased to decline) and
            once with it, with every kernel's launch count of that run
 
-then the summary line of every kernel ({"kernels": [...]}) and, last, the
-device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
+then the summary line of every kernel ({"kernels": [...]}; seed_eval's
+entry also carries its lane form's time, bound and launches in the serving
+phase) and, last, the device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
 and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
 """
 
@@ -151,6 +164,10 @@ MAIN_PATHS = (
 # run_preset)
 ENTER_LOGIT_SHIFT = -30.0
 POSE_TOL = 1e-3          # parity poses: fp32 reduction order only
+PARITY_FRAMES = 70       # 14 token steps: Ti = 16 columns > W = 12
+SEED_LANES, SEED_LANES_OFF = 8, (2, 5)   # the lane check's lanes, masked
+SERVING_SCENARIOS = 8    # synthetic scenarios (seeds 0..7) of `serving`
+SERVING_BUCKETS = (32, 64, 128)
 REFINE_ROWS, REFINE_AGENTS = 32, 24   # the rollout's refine neighbourhood
 
 
@@ -285,6 +302,24 @@ def seed_eval_cost(pack, args, outs):
     nbytes = kv_rows * D * K_pt.element_size() + _nbytes(
         pack.weights, pack.vectors, sd0, v_occ, mask_pl, mask_a, *outs)
     return nbytes, _stack_macs(L, D, G, kv_rows)
+
+
+def seed_lanes_cost(pack, sd0, lanes, outs, on):
+    """(bytes, multiply-adds) of one lane-form launch: what the lanes share
+    (the pack, sd0, the lane mask) read once, each active lane's valid K/V
+    rows, v_occ and masks read once, the outputs written once; each active
+    lane's mat-vecs, scores and aggregates. `lanes` holds the stacked
+    (v_occ, K_pt, V_pt, mask_pl, K_a, V_a, mask_a)."""
+    v_occ, K_pt, _, mask_pl, _, _, mask_a = lanes
+    L, D, G = pack.L, pack.D, pack.G
+    nbytes = _nbytes(pack.weights, pack.vectors, sd0, on, *outs)
+    macs = 0
+    for b in on.nonzero().flatten().tolist():
+        kv_rows = 2 * L * (int(mask_pl[b].sum()) + int(mask_a[b].sum()))
+        nbytes += kv_rows * D * K_pt.element_size() + _nbytes(
+            v_occ[b], mask_pl[b], mask_a[b])
+        macs += _stack_macs(L, D, G, kv_rows)
+    return nbytes, macs
 
 
 def _stack_macs(L, D, G, kv_rows):
@@ -614,8 +649,16 @@ def seed_eval_errors(pack, args, H, Hd, dtype, what):
 
     with torch.no_grad():
         got = SK.seed_eval_kernel(pack, *args, H, Hd)
-        ref = SK.seed_eval_reference(pack, *args, H, Hd)
     torch.cuda.synchronize()
+    return seed_errors_of(pack, args, got, H, Hd, dtype, what)
+
+
+def seed_errors_of(pack, args, got, H, Hd, dtype, what):
+    """seed_eval_errors of the kernel's output `got` on `args`."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    with torch.no_grad():
+        ref = SK.seed_eval_reference(pack, *args, H, Hd)
     err, mean = _err(got, ref, what)
     flip = None
     if dtype == BF16 and (err > TOL["seed_eval"][dtype]
@@ -728,6 +771,87 @@ def check_seed_eval(cfg, attr, dev):
                                 *seed_eval_cost(pack, args, outs),
                                 raw_max_abs_err=max(raw.values()),
                                 raw_errors=raw, explained_by_one_flip=flips)
+    return results
+
+
+def check_seed_eval_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
+    """seed_eval's lane form at cfg's shapes (the flagship's, and the
+    serving phase's buckets): n_lanes lanes of their own inputs in one
+    launch, the lanes SEED_LANES_OFF masked off, in fp32 and bf16. Each
+    active lane is held against the plain version on its inputs at
+    seed_eval's limits (with its one-flip rule) and must equal the single
+    launch on those inputs bit for bit; a masked-off lane's outputs must be
+    zeros. Times: the batched launch, per active lane, beside the single
+    launch; bound: seed_lanes_cost (the shared operands once, each active
+    lane's own). Returns {dtype: result}."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    G = attr.grid_size
+    H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
+    on = torch.tensor([b not in SEED_LANES_OFF for b in range(n_lanes)],
+                      device=dev)
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = SK.pack_seed_params(dec, L, G, pdt)
+        per = [seed_eval_inputs(dec, cfg, G, pdt,
+                                np.random.default_rng(100 + b),
+                                "agents_all_masked" if b == 3 else "masked",
+                                dev) for b in range(n_lanes)]
+        sd0 = per[0][0]
+        lanes = [torch.stack([a[i] for a in per]) for i in range(1, 8)]
+        with torch.no_grad():
+            small, pos = SK.seed_eval_kernel(pack, sd0, *lanes, H, Hd,
+                                             lanes=on)
+            singles = [SK.seed_eval_kernel(pack, sd0, *a[1:], H, Hd)
+                       for a in per]
+        torch.cuda.synchronize()
+        errs, means, raw, flips, same = {}, {}, {}, {}, {}
+        for b in range(n_lanes):
+            got = (small[b], pos[b])
+            if not on[b]:
+                require(not small[b].any() and not pos[b].any(),
+                        f"seed_eval lane {b} is masked off but wrote")
+                continue
+            key = f"lane{b}"
+            same[key] = bool(torch.equal(got[0], singles[b][0])
+                             and torch.equal(got[1], singles[b][1]))
+            args = (sd0, *per[b][1:])
+            errs[key], means[key], raw[key], flip = seed_errors_of(
+                pack, args, got, H, Hd, dtype, f"seed_eval lanes {key}")
+            if flip:
+                flips[key] = flip
+        with torch.no_grad():
+            ms = median_ms(lambda: SK.seed_eval_kernel(
+                pack, sd0, *lanes, H, Hd, lanes=on), KERNEL_LAUNCHES)
+            single_ms = median_ms(lambda: SK.seed_eval_kernel(
+                pack, sd0, *per[0][1:], H, Hd), KERNEL_LAUNCHES)
+        nbytes, macs = seed_lanes_cost(pack, sd0, lanes, (small, pos), on)
+        bound_ms, bound_by = bound_of(nbytes, macs, 0, dtype)
+        n_on = int(on.sum())
+        res = dict(dtype=str(dtype)[6:], A=cfg.max_agents,
+                   P=cfg.max_map_tokens, lanes=n_lanes,
+                   lanes_off=[b for b in SEED_LANES_OFF if b < n_lanes],
+                   max_abs_err=max(
+                       errs.values()), errors=errs,
+                   mean_abs_err=max(means.values()), mean_errors=means,
+                   raw_max_abs_err=max(raw.values()), raw_errors=raw,
+                   explained_by_one_flip=flips, tolerance=TOL[
+                       "seed_eval"][dtype],
+                   mean_tolerance=MEAN_TOL["seed_eval"][dtype],
+                   equal_to_single_launch=same, ms=ms, ms_per_lane=ms / n_on,
+                   single_ms=single_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, operations=2 * macs)
+        emit("seed_eval_lanes", **res)
+        require(res["max_abs_err"] <= TOL["seed_eval"][dtype]
+                and res["mean_abs_err"] <= MEAN_TOL["seed_eval"][dtype],
+                f"seed_eval lanes {dtype} disagree with the plain version: "
+                f"{errs} / {means}")
+        require(all(same.values()),
+                f"seed_eval lanes {dtype}: a lane differs from the single "
+                f"launch on its inputs: {same}")
+        results[dtype] = res
     return results
 
 
@@ -1366,14 +1490,15 @@ def check_r_biased_attention(cfg, attr, dev):
 # rollouts
 # --------------------------------------------------------------------- #
 
-def check_rollout(out, cfg, n_steps):
+def check_rollout(out, cfg, n_steps, A=None):
     """The invariants of the JAX package's rollout tests
     (tests/test_rollout.py): shapes, finite values, zero positions on
     invalid steps, the ego valid throughout, inactive slots inert, bounded
-    token motion, consistent insertion counts."""
+    token motion, consistent insertion counts. A: the agent slots of the
+    rollout's bucket (default cfg.max_agents)."""
     from infgen_torch.config import INVALID_STATE, SHIFT
 
-    A, R, Hs = cfg.max_agents, cfg.num_recurrent_steps_val, \
+    A, R, Hs = A or cfg.max_agents, cfg.num_recurrent_steps_val, \
         cfg.num_historical_steps
     Ti = (R + Hs) // SHIFT
     o = {k: v.detach().cpu().numpy() for k, v in out.items()}
@@ -1401,6 +1526,27 @@ def check_rollout(out, cfg, n_steps):
     require(active.sum() <= A, "more active slots than slots")
 
 
+PARITY_EXACT = ("next_token_idx", "next_state_idx", "slot_active",
+                "n_inserted", "per_step_inserted", "grid_index", "pred_type",
+                "valid_mask")
+PARITY_CLOSE = ("pos_a", "head_a", "pred_traj", "pred_head", "pred_state",
+                "pred_shape", "seed_probs")
+PARITY_DESC = (f"A=16 P=128 D=32 L=3 fp32 beam 1 force_insert "
+               f"{PARITY_FRAMES} frames")
+
+
+def parity_config(**flags):
+    """The parity phases' small config (tests/test_torch_rollout.py's)."""
+    from infgen_torch.config import Config
+
+    return Config(max_agents=16, max_map_tokens=128, num_agent_layers=3,
+                  num_seed_layers=3, num_map_layers=1, hidden_dim=32,
+                  num_heads=2, head_dim=16, num_freq_bands=8,
+                  num_recurrent_steps_val=PARITY_FRAMES,
+                  use_seed_kernel=True, compute_dtype="float32",
+                  motion_beam_size=1, insert_beam_size=1, **flags)
+
+
 # the parity phases: name -> kernel flags on top of the flagship's
 PARITY_FLAGS = {
     "parity": {},
@@ -1417,19 +1563,13 @@ def check_parity(dev, phase):
     within POSE_TOL. `phase` names the kernel flags (PARITY_FLAGS)."""
     from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
                                   kernel_launches)
-    from infgen_torch.config import Config
     from infgen_torch.data.features import build_model_inputs
     from infgen_torch.data.scenario import to_device
     from infgen_torch.data.synthetic import make_synthetic_scenario
     from infgen_torch.rollout.closed_loop import make_rollout_fn
 
     flags = PARITY_FLAGS[phase]
-    cfg = Config(max_agents=16, max_map_tokens=128, num_agent_layers=3,
-                 num_seed_layers=3, num_map_layers=1, hidden_dim=32,
-                 num_heads=2, head_dim=16, num_freq_bands=8,
-                 num_recurrent_steps_val=30, use_seed_kernel=True,
-                 compute_dtype="float32", motion_beam_size=1,
-                 insert_beam_size=1, **flags)
+    cfg = parity_config(**flags)
     attr, mt, mv = build_tokenizers(cfg)
     scen = make_synthetic_scenario(cfg, seed=2, num_agents=10)
     uniform = np.random.default_rng(5).uniform(size=cfg.max_map_tokens)
@@ -1448,13 +1588,10 @@ def check_parity(dev, phase):
         outs[str(d)] = {k: v.detach().cpu().numpy() for k, v in out.items()}
     launches = kernel_launches()
     cpu, gpu = outs["cpu"], outs[str(dev)]
-    exact = ("next_token_idx", "next_state_idx", "slot_active", "n_inserted",
-             "per_step_inserted", "grid_index", "pred_type", "valid_mask")
-    close = ("pos_a", "head_a", "pred_traj", "pred_head", "pred_state",
-             "pred_shape", "seed_probs")
+    exact, close = PARITY_EXACT, PARITY_CLOSE
     mismatched = [k for k in exact if not np.array_equal(cpu[k], gpu[k])]
     pose_err = max(float(np.abs(cpu[k] - gpu[k]).max()) for k in close)
-    emit(phase, config="A=16 P=128 D=32 L=3 fp32 beam 1 force_insert",
+    emit(phase, config=PARITY_DESC,
          flags=flags, launches={k: n for k, n in launches.items() if n},
          inserted=int(gpu["n_inserted"]), mismatched=mismatched,
          max_pose_err=pose_err, tolerance=POSE_TOL)
@@ -1465,6 +1602,134 @@ def check_parity(dev, phase):
                          ("use_pallas_attention", "r_biased_attention")):
         require(not flags.get(flag) or launches[kernel] > 0,
                 f"{phase}: {kernel} never launched")
+
+
+SERVING_PARITY_FLAGS = {"flagship": {},
+                        "pallas_attention": dict(use_pallas_attention=True)}
+
+
+def check_parity_serving(dev):
+    """Three scenarios with 10, 6 and 3 agents served as one batched
+    rollout (RolloutServer.rollout_batch: one bucket, a batch of four
+    lanes, the last one padding) at the parity phases' config, on the card
+    (kernels in fp32) against the CPU (plain versions): decisions equal,
+    poses within POSE_TOL, per scenario; once with the flagship's flags and
+    once with use_pallas_attention. seed_eval (and r_biased_attention in
+    its run) must have launched."""
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches)
+    from infgen_torch.data.synthetic import make_synthetic_scenario
+    from infgen_torch.rollout.serving import RolloutServer
+
+    runs = {}
+    for name, flags in SERVING_PARITY_FLAGS.items():
+        cfg = parity_config(**flags)
+        tok = build_tokenizers(cfg)
+        scens = [make_synthetic_scenario(cfg, seed=s, num_agents=n)
+                 for s, n in ((2, 10), (3, 6), (4, 3))]
+        for fn in KERNELS.values():
+            fn.launches = 0
+        outs, dispatch = {}, {}
+        for d in ("cpu", dev):
+            srv = RolloutServer(cfg, *tok, agent_buckets=(cfg.max_agents,),
+                                agent_headroom=0, force_insert=True)
+            res = srv.rollout_batch(build_model(cfg, tok[0], d), scens,
+                                    [0, 1, 2])
+            outs[str(d)] = [{k: v.detach().cpu().numpy() for k, v in
+                             o.items()} for o in res]
+            dispatch[str(d)] = srv.last_dispatch["batches"]
+        launches = kernel_launches()
+        mismatched, pose_err = [], 0.0
+        for i, (c, g) in enumerate(zip(outs["cpu"], outs[str(dev)])):
+            mismatched += [f"{i}:{k}" for k in PARITY_EXACT
+                           if not np.array_equal(c[k], g[k])]
+            pose_err = max([pose_err] + [float(np.abs(c[k] - g[k]).max())
+                                         for k in PARITY_CLOSE])
+        inserted = [int(o["n_inserted"]) for o in outs[str(dev)]]
+        runs[name] = dict(flags=flags, batches=dispatch[str(dev)],
+                          launches={k: n for k, n in launches.items() if n},
+                          inserted=inserted, mismatched=mismatched,
+                          max_pose_err=pose_err)
+        require(dispatch[str(dev)] == [(16, 128, 4, 3)],
+                f"parity_serving {name}: dispatch {dispatch[str(dev)]}")
+        require(not mismatched, f"parity_serving {name}: cuda and cpu "
+                f"differ in {mismatched}")
+        require(pose_err <= POSE_TOL, f"parity_serving {name}: pose error "
+                f"{pose_err} > {POSE_TOL}")
+        require(all(n > 0 for n in inserted),
+                f"parity_serving {name}: a scenario inserted no agent")
+        require(launches["seed_eval"] > 0,
+                f"parity_serving {name}: seed_eval never launched")
+        require(not flags.get("use_pallas_attention")
+                or launches["r_biased_attention"] > 0,
+                f"parity_serving {name}: r_biased_attention never launched")
+    emit("parity_serving", config=PARITY_DESC, scenarios=3, lanes=4,
+         tolerance=POSE_TOL, runs=runs)
+
+
+def check_serving(dev):
+    """This slice's main path: the flagship (configs/ours_long_term.yaml) at
+    full width serving SERVING_SCENARIOS synthetic scenarios through
+    RolloutServer.rollout_batch (the command line's --batch), in batches of
+    up to SERVING_SCENARIOS lanes and, on the same scenarios, one at a
+    time; unforced (the seed head's "enter" logit shifted by
+    ENTER_LOGIT_SHIFT) and forced, as run_preset drives its rollouts. Every
+    kernel count is set to 0 just before each batched run and read just
+    after; check_rollout holds every lane. Returns the seed_eval launches of
+    the batched runs and the (A, P, lanes) of each batch they dispatched."""
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches, run_batched)
+    from infgen_torch.config import SHIFT, load_config
+
+    cfg = load_config(FLAGSHIP)
+    n_steps = cfg.num_recurrent_steps_val // SHIFT
+    tokenizers = build_tokenizers(cfg)
+    model = build_model(cfg, tokenizers[0], dev)
+    with torch.no_grad():
+        model.agent_decoder.seed_state_predict_head.Dense_1.bias[1] += \
+            ENTER_LOGIT_SHIFT
+    runs, lanes_launches, shapes = [], 0, set()
+    for force in (False, True):
+        for batch in (SERVING_SCENARIOS, 1):
+            torch.cuda.reset_peak_memory_stats()
+            for fn in KERNELS.values():
+                fn.launches = 0
+            outs, summary = run_batched(
+                cfg, dev, SERVING_SCENARIOS, batch, force, model=model,
+                tokenizers=tokenizers, agent_buckets=SERVING_BUCKETS)
+            launches = kernel_launches()
+            for o in outs:
+                check_rollout(o, cfg, n_steps, A=o["pred_traj"].shape[0])
+            require(launches["seed_eval"] > 0,
+                    f"serving (force={force}, batch={batch}): seed_eval "
+                    "never launched")
+            if batch > 1:
+                lanes_launches += launches["seed_eval"]
+                shapes |= {(b["A"], b["P"], b["lanes"])
+                           for b in summary["batches"]}
+            runs.append(dict(
+                {k: summary[k] for k in (
+                    "force_insert", "batch", "batches", "wall_ms",
+                    "ms_per_batched_token_step", "agent_steps",
+                    "agent_steps_per_s", "agents_inserted", "host_reads")},
+                kernel_launches={k: n for k, n in launches.items() if n},
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev)))
+    by = {(r["force_insert"], r["batch"]): r for r in runs}
+    require(sum(by[True, 1]["agents_inserted"])
+            > sum(by[False, 1]["agents_inserted"]),
+            "serving: the unforced runs did not decline")
+    emit("serving", config=os.path.relpath(FLAGSHIP, ROOT),
+         scenarios=SERVING_SCENARIOS, agent_buckets=SERVING_BUCKETS,
+         token_steps=n_steps, enter_logit_shift=ENTER_LOGIT_SHIFT,
+         runs=runs, same_inserts_batched_and_single={
+             f"{'forced' if f else 'unforced'}":
+             by[f, SERVING_SCENARIOS]["agents_inserted"]
+             == by[f, 1]["agents_inserted"] for f in (False, True)},
+         agent_steps_per_s={
+             f"{'forced' if f else 'unforced'}_B{b}":
+             by[f, b]["agent_steps_per_s"]
+             for f in (False, True) for b in (SERVING_SCENARIOS, 1)})
+    return lanes_launches, sorted(shapes)
 
 
 def run_preset(path, dev, **flags):
@@ -1584,6 +1849,7 @@ def main():
 
     cfg, lat = load_config(FLAGSHIP), load_config(LATENCY)
     attr = build_tokenizers(cfg)[0]
+    check_seed_eval_lanes(cfg, attr, dev)
     checks = {"seed_eval": check_seed_eval(cfg, attr, dev),
               "seed_eval_full": check_seed_eval_full(lat, attr, dev),
               "refine": check_refine(lat, attr, dev),
@@ -1593,11 +1859,18 @@ def main():
                                                              dev)}
     for phase in PARITY_FLAGS:
         check_parity(dev, phase)
+    check_parity_serving(dev)
     # each kernel's launches on the main path that runs it
     launches = {}
     for path, flags, kernels in MAIN_PATHS:
         run = run_preset(path, dev, **flags)
         launches.update({k: run[k] for k in kernels})
+    lanes_launches, served = check_serving(dev)
+    # the lane form at the shapes the served batches gave it
+    served_lanes = [check_seed_eval_lanes(
+        cfg.replace(max_agents=A, max_map_tokens=P), attr, dev, n)
+        for A, P, n in served]
+    require(served_lanes, "serving dispatched no batch of lanes")
     missing = [k for k in checks if launches[k] == 0]
     require(not missing, f"kernels never launched on a main path: {missing}")
 
@@ -1612,6 +1885,14 @@ def main():
             max_abs_err=r.get("raw_max_abs_err", r["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None))
+    lane = served_lanes[-1].get(main_dt, served_lanes[-1][F32])
+    line[0].update(lanes_A=lane["A"], lanes_P=lane["P"],
+                   lanes=lane["lanes"], lanes_on=lane["lanes"] - len(
+        lane["lanes_off"]), lanes_ms=lane["ms"],
+        lanes_ms_per_lane=lane["ms_per_lane"],
+        lanes_bound_ms=lane["bound_ms"], lanes_bound_by=lane["bound_by"],
+        lanes_max_abs_err=lane["raw_max_abs_err"],
+        lanes_launches=lanes_launches)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

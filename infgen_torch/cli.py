@@ -2,12 +2,18 @@
 
   python -m infgen_torch.cli rollout --config configs/ours_long_term.yaml \
       --synthetic [--device cuda|cpu] [--force-insert] [--num-scenarios N] \
-      [--params converted.npz] [--fused-block] [--pallas-attention]
+      [--batch B] [--params converted.npz] [--fused-block] \
+      [--pallas-attention]
 
 Weights come from `cfg.seed` through a torch.Generator, or from a flax
 params tree converted with `convert.save_npz`. The command runs
 `--num-scenarios` closed-loop rollouts on synthetic scenarios and prints one
-JSON summary line. `--fused-block` and `--pallas-attention` turn on
+JSON summary line: one scenario after another, or with `--batch B` through
+the occupancy-bucketed server (`rollout/serving.RolloutServer.
+rollout_batch`, at most B lanes per batched rollout; the JAX package's
+batched `rollout_many` on one card), whose summary adds the lanes of each
+batch, ms per batched token step and agent-steps/s (active agents x token
+steps / wall time). `--fused-block` and `--pallas-attention` turn on
 `use_fused_block` / `use_pallas_attention` on the loaded config (the JAX
 package's `scripts/profile_rollout.py --fused` and bench.py's
 INFGEN_BENCH_FUSED / INFGEN_BENCH_PALLAS). Training, WOSAC scoring and the
@@ -21,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from infgen_torch.config import SHIFT, Config, load_config
+from infgen_torch.config import INVALID_STATE, SHIFT, Config, load_config
 from infgen_torch.convert import load_flax_params, load_npz
 from infgen_torch.data.features import build_model_inputs
 from infgen_torch.data.scenario import to_device
@@ -34,6 +40,7 @@ from infgen_torch.ops import pallas_attention as PA
 from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_kernel as SKN
 from infgen_torch.rollout.closed_loop import make_rollout_fn
+from infgen_torch.rollout.serving import RolloutServer
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
@@ -133,21 +140,87 @@ def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
         inserted.append(int(out["n_inserted"]))
         host_reads += rollout.host_reads
         outputs.append(out)
-    launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
     summary = dict(
+        _summary_head(cfg, device, num_scenarios, n_steps, force_insert),
+        ms_per_token_step=ms_per_step,
+        agents_inserted=inserted,
+        **_launch_counts(launches0),
+        host_reads=host_reads,
+    )
+    return outputs, summary
+
+
+def _summary_head(cfg: Config, device, num_scenarios, n_steps, force_insert):
+    return dict(
         device=str(device),
         device_name=(torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
         compute_dtype=cfg.compute_dtype,
         scenarios=num_scenarios,
         token_steps=n_steps,
-        force_insert=force_insert,
-        ms_per_token_step=ms_per_step,
-        agents_inserted=inserted,
-        kernel_launches=launches,
-        seed_kernel_launches=(launches["seed_eval"]
-                              + launches["seed_eval_full"]),
-        host_reads=host_reads,
+        force_insert=force_insert)
+
+
+def _launch_counts(launches0):
+    """Each kernel's launches since `launches0`, and the two seed-evaluation
+    kernels' sum."""
+    launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
+    return dict(kernel_launches=launches,
+                seed_kernel_launches=(launches["seed_eval"]
+                                      + launches["seed_eval_full"]))
+
+
+def agent_steps(out, cfg: Config) -> float:
+    """Active agents x token steps of one rollout: its non-invalid 10 Hz
+    states after the history (as the JAX bench counts them), over SHIFT."""
+    state = out["pred_state"][..., cfg.num_historical_steps:]
+    return float((state != INVALID_STATE).sum()) / SHIFT
+
+
+def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
+                batch: int = 1, force_insert: bool = False,
+                params: Optional[str] = None,
+                num_recurrent_steps: Optional[int] = None, model=None,
+                tokenizers=None, agent_buckets=(32, 64, 128)):
+    """The `num_scenarios` synthetic scenarios (seeds 0, 1, ...) through
+    RolloutServer.rollout_batch with at most `batch` lanes per batched
+    rollout. Returns (outputs, summary): one rollout dict per scenario and
+    a summary of the dispatch (bucket, lanes and real scenarios of each
+    batch), wall time, ms per batched token step, agent-steps and
+    agent-steps/s, inserted agents, kernel launches and host reads."""
+    device = resolve_device(device)
+    attr, motion_tok, map_vocab = tokenizers or build_tokenizers(cfg)
+    model = model or build_model(cfg, attr, device, params)
+    server = RolloutServer(cfg, attr, motion_tok, map_vocab,
+                           agent_buckets=agent_buckets,
+                           num_recurrent_steps=num_recurrent_steps,
+                           force_insert=force_insert)
+    R = num_recurrent_steps or cfg.num_recurrent_steps_val
+    n_steps = R // SHIFT
+    map_tok = MapTokenizer(map_vocab)
+    scenarios = [make_synthetic_scenario(cfg, seed=i, map_tokenizer=map_tok)
+                 for i in range(num_scenarios)]
+    launches0 = kernel_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    outputs = server.rollout_batch(model, scenarios, cfg.seed,
+                                   max_batch=batch)
+    _sync(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    batches = server.last_dispatch["batches"]
+    steps = sum(agent_steps(o, cfg) for o in outputs)
+    summary = dict(
+        _summary_head(cfg, device, num_scenarios, n_steps, force_insert),
+        batch=batch,
+        batches=[dict(A=a, P=p, lanes=b, scenarios=k)
+                 for a, p, b, k in batches],
+        wall_ms=wall_ms,
+        ms_per_batched_token_step=wall_ms / (len(batches) * n_steps),
+        agent_steps=steps,
+        agent_steps_per_s=steps / (wall_ms / 1e3),
+        agents_inserted=[int(o["n_inserted"]) for o in outputs],
+        **_launch_counts(launches0),
+        host_reads=server.last_dispatch["host_reads"],
     )
     return outputs, summary
 
@@ -165,6 +238,9 @@ def main(argv=None):
     p.add_argument("--force-insert", action="store_true",
                    help="every insertion iteration proposes an agent")
     p.add_argument("--num-scenarios", type=int, default=1)
+    p.add_argument("--batch", type=int, default=None,
+                   help="serve the scenarios through RolloutServer."
+                        "rollout_batch, at most this many lanes per batch")
     p.add_argument("--num-recurrent-steps", type=int, default=None,
                    help="10 Hz frames to roll out (default from the config)")
     p.add_argument("--params", default=None,
@@ -174,9 +250,14 @@ def main(argv=None):
     if not args.synthetic:
         p.error("only --synthetic scenarios are ported so far")
     cfg = apply_variant_flags(load_config(args.config), args)
-    _, summary = run_rollouts(
-        cfg, args.device, args.num_scenarios, args.force_insert, args.params,
-        args.num_recurrent_steps)
+    if args.batch:
+        _, summary = run_batched(
+            cfg, args.device, args.num_scenarios, args.batch,
+            args.force_insert, args.params, args.num_recurrent_steps)
+    else:
+        _, summary = run_rollouts(
+            cfg, args.device, args.num_scenarios, args.force_insert,
+            args.params, args.num_recurrent_steps)
     print(json.dumps(summary))
 
 

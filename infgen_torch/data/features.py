@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from infgen_torch.config import Config, ENTER_STATE, INVALID_STATE
-from infgen_torch.data.scenario import Scenario
+from infgen_torch.data.scenario import Scenario, lane_of, stack_scenarios
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import (MotionTokenizer,
                                                       TokenizedAgents)
@@ -147,3 +147,14 @@ def build_model_inputs(cfg: Config, motion_tok: MotionTokenizer,
         pt_target_mask=pt_target, pt_next_token_idx=pt_next,
         **ent,
     )
+
+
+def build_model_inputs_batch(cfg: Config, motion_tok: MotionTokenizer,
+                             attr: AttrTokenizer, scenarios: Scenario,
+                             generators) -> ModelInputs:
+    """build_model_inputs for a stack of scenarios (leading lane axis, from
+    stack_scenarios): each lane with its own generator, then stacked, as
+    `jax.vmap(build_model_inputs)` gives it with one key per lane."""
+    return stack_scenarios([
+        build_model_inputs(cfg, motion_tok, attr, lane_of(scenarios, b), g)
+        for b, g in enumerate(generators)])

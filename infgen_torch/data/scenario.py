@@ -2,6 +2,8 @@
 
 `build_scenario` pads host-side numpy arrays to static shapes, as the JAX
 package does; `to_device` turns every leaf into a tensor on one device.
+`stack_scenarios` puts a leading lane axis on a list of such trees (the
+batched rollout's input) and `lane_of` takes one lane back out.
   A  = cfg.max_agents      agent slots
   T10= raw 10 Hz steps     (91 for WOMD 9.1 s logs)
   P  = cfg.max_map_tokens  map ("pt") tokens per scenario
@@ -45,11 +47,35 @@ class Scenario(NamedTuple):
     scenario_id: object  # [] int32
 
 
+def tree_map(fn, *trees):
+    """fn over the leaves of NamedTuple trees of one structure."""
+    t = trees[0]
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    return fn(*trees)
+
+
 def to_device(tree, device):
     """Every array leaf of a NamedTuple tree -> a tensor on `device`."""
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_device(x, device) for x in tree))
-    return torch.as_tensor(np.asarray(tree), device=device)
+    return tree_map(lambda x: torch.as_tensor(np.asarray(x), device=device),
+                    tree)
+
+
+def stack_scenarios(trees):
+    """Stack a list of NamedTuple trees (Scenario, ModelInputs, ...) into
+    one with a leading lane axis: numpy leaves host-side with np.stack (the
+    port's copy of infgen_tpu/train/train_step.py::stack_scenarios),
+    tensors with torch.stack."""
+    def stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return np.stack([np.asarray(x) for x in xs])
+    return tree_map(stack, *trees)
+
+
+def lane_of(tree, i: int):
+    """Lane `i` of a stacked tree (stack_scenarios' inverse, one lane)."""
+    return tree_map(lambda x: x[i], tree)
 
 
 def pad_axis(x: np.ndarray, size: int, axis: int = 0, fill=0):

@@ -175,10 +175,12 @@ class AgentDecoder(nn.Module):
                       column_pack=None, fused_packs=None):
         """The trunk for ONE token column.
 
-        x_c [A, D]; key_stack [L, A, W, D]; t_r_raw [A, W, 4]; t_mask [A, W];
-        a2a_r_raw [A, A, 3]; a2a_mask [A, A]; pl_keys [A, K, D]; pl_r_raw /
-        pl_mask per (agent, map key). Returns (new_cols [L, A, D], out
-        [A, D]); new_cols[i] is what the cache stores for layer i+1.
+        x_c [..., A, D]; key_stack [L, ..., A, W, D]; t_r_raw [..., A, W, 4];
+        t_mask [..., A, W]; a2a_r_raw [..., A, A, 3]; a2a_mask [..., A, A];
+        pl_keys [..., A, K, D]; pl_r_raw / pl_mask per (agent, map key).
+        The leading dims are the rollout's lanes (one scenario each).
+        Returns (new_cols [L, ..., A, D], out [..., A, D]); new_cols[i] is
+        what the cache stores for layer i+1.
 
         With `cfg.use_column_kernel` the whole column is one call of
         ops/column_kernel (the relation embeddings stay modules here), its
@@ -192,7 +194,23 @@ class AgentDecoder(nn.Module):
         ops/fused_block, its parameters from `fused_packs`
         (pack_column_blocks, built once per rollout; packed here when
         None).
+
+        Both kernels take one scenario's [A, ...] rows: with a lane axis
+        they take one lane (n_rows then [1]) and refuse more.
         """
+        if (self.cfg.use_column_kernel or self.cfg.use_fused_block) \
+                and x_c.dim() == 3:
+            if x_c.shape[0] != 1:
+                flag = "use_column_kernel" if self.cfg.use_column_kernel \
+                    else "use_fused_block"
+                raise ValueError(f"{flag}: the kernel takes one lane, got "
+                                 f"{x_c.shape[0]}")
+            cols, out = self.motion_column(
+                x_c[0], key_stack[:, 0], t_r_raw[0], t_mask[0], a2a_r_raw[0],
+                a2a_mask[0], pl_keys[0], pl_r_raw[0], pl_mask[0],
+                n_rows=None if n_rows is None else n_rows[0],
+                column_pack=column_pack, fused_packs=fused_packs)
+            return cols[:, None], out[None]
         r_t = self.r_t_emb(t_r_raw)
         r_aa = self.r_a2a_emb(a2a_r_raw)
         r_pl = self.r_pt2a_emb(pl_r_raw)
@@ -228,17 +246,17 @@ class AgentDecoder(nn.Module):
             return torch.stack(new_cols), x
         for i in range(L):
             x = self.t_attn_layers[i](
-                x[:, None, :], key_stack[i], r_t[:, None, :, :],
-                t_mask[:, None, :])[:, 0, :]
+                x[..., None, :], key_stack[i], r_t[..., None, :, :],
+                t_mask[..., None, :])[..., 0, :]
             x = self.pt2a_attn_layers[i](
-                x[:, None, :], pl_keys, r_pl[:, None, :, :],
-                pl_mask[:, None, :])[:, 0, :]
+                x[..., None, :], pl_keys, r_pl[..., None, :, :],
+                pl_mask[..., None, :])[..., 0, :]
             x = self.a2a_attn_layers[i](x, None, r_aa, a2a_mask)
             new_cols.append(x)
         return torch.stack(new_cols), x
 
     def prefill_column(self, x_c):
-        """Zero-aggregate trunk chain for history column 0: [L, A, D]."""
+        """Zero-aggregate trunk chain for history column 0: [L, ..., A, D]."""
         x = x_c
         cols = []
         for i in range(self.cfg.num_agent_layers):
@@ -265,9 +283,9 @@ class AgentDecoder(nn.Module):
         return self.seed_agent_occ_embed(occ_vec.float())
 
     def seed_key_chain(self, agent_col):
-        """[num_seed_layers, A, D]: the agent-row key snapshots each a2sa
-        layer of the seed stack consumes (zero-aggregate chains, independent
-        of the seed query)."""
+        """[num_seed_layers, ..., A, D]: the agent-row key snapshots each
+        a2sa layer of the seed stack consumes (zero-aggregate chains,
+        independent of the seed query)."""
         ag = agent_col
         keys = []
         for i in range(self.cfg.num_seed_layers):
@@ -282,26 +300,29 @@ class AgentDecoder(nn.Module):
                           a2a_r_raw, a2a_mask):
         """Heading/offset refine on the inserted agent's subgraph.
 
-        x_sub [1+K, D]: row 0 the inserted agent, rows 1: its agent
+        x_sub [..., 1+K, D]: row 0 the inserted agent, rows 1: its agent
         neighbours; only row 0 attends, the rest take the zero-aggregate
-        path. pl_keys [Km, D]; pl_r_raw [Km, 3]; pl_mask [Km]; a2a_r_raw
-        [K, 3]; a2a_mask [K]. Returns row 0's refined feature [D].
+        path. pl_keys [..., Km, D]; pl_r_raw [..., Km, 3]; pl_mask
+        [..., Km]; a2a_r_raw [..., K, 3]; a2a_mask [..., K]; leading dims
+        are the rollout's lanes. Returns row 0's refined feature [..., D].
         """
         r_pl = self.r_pt2a_emb(pl_r_raw)
         r_aa = self.r_a2a_emb(a2a_r_raw)
         x = x_sub
         for i in range(self.cfg.num_seed_layers):
             q = self.pt2a_attn_layers[i](
-                x[0:1][:, None, :], pl_keys[None], r_pl[None, None],
-                pl_mask[None, None])[:, 0, :]
-            rest = self.pt2a_attn_layers[i].zero_agg(x[1:])
-            x = torch.cat([q, rest], 0)
+                x[..., 0:1, None, :], pl_keys[..., None, :, :],
+                r_pl[..., None, None, :, :],
+                pl_mask[..., None, None, :])[..., 0, :]
+            rest = self.pt2a_attn_layers[i].zero_agg(x[..., 1:, :])
+            x = torch.cat([q, rest], -2)
             q = self.a2a_attn_layers[i](
-                x[0:1][:, None, :], x[1:][None], r_aa[None, None],
-                a2a_mask[None, None])[:, 0, :]
-            rest = self.a2a_attn_layers[i].zero_agg(x[1:])
-            x = torch.cat([q, rest], 0)
-        return x[0]
+                x[..., 0:1, None, :], x[..., None, 1:, :],
+                r_aa[..., None, None, :, :],
+                a2a_mask[..., None, None, :])[..., 0, :]
+            rest = self.a2a_attn_layers[i].zero_agg(x[..., 1:, :])
+            x = torch.cat([q, rest], -2)
+        return x[..., 0, :]
 
     def motion_heads(self, feat_c):
         return self.token_predict_head(feat_c), self.state_predict_head(feat_c)

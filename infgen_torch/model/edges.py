@@ -21,21 +21,22 @@ INVALID_HEAD_VALUE = -2.0
 def build_motion_vectors(pos, head, state):
     """Per-step motion vector with invalid-transition sentinels.
 
-    pos [A, T, 2]; head [A, T]; state [A, T]. Returns (motion [A, T, 2],
-    head_vector [A, T, 2]).
+    pos [..., A, T, 2]; head [..., A, T]; state [..., A, T] (leading dims:
+    the rollout's lanes). Returns (motion [..., A, T, 2], head_vector
+    [..., A, T, 2]).
     """
-    motion = torch.cat([torch.zeros_like(pos[:, :1]), pos[:, 1:] - pos[:, :-1]],
-                       dim=1)
+    motion = torch.cat([torch.zeros_like(pos[..., :1, :]),
+                        pos[..., 1:, :] - pos[..., :-1, :]], dim=-2)
     is_invalid = state == INVALID_STATE
     motion = torch.where(is_invalid[..., None], INVALID_MOTION_VALUE, motion)
 
-    prev_invalid = torch.roll(is_invalid, 1, dims=1)
+    prev_invalid = torch.roll(is_invalid, 1, dims=-1)
     became_valid = prev_invalid & ~is_invalid
-    became_valid[:, 0] = state[:, 0] == ENTER_STATE
+    became_valid[..., 0] = state[..., 0] == ENTER_STATE
     motion = torch.where(became_valid[..., None], MOTION_GAP, motion)
 
     became_invalid = ~prev_invalid & is_invalid
-    became_invalid[:, 0] = False
+    became_invalid[..., 0] = False
     motion = torch.where(became_invalid[..., None], -MOTION_GAP, motion)
 
     head_vector = torch.stack([torch.cos(head), torch.sin(head)], dim=-1)

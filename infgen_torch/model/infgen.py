@@ -16,5 +16,6 @@ class InfGenModel(nn.Module):
         self.agent_decoder = AgentDecoder(cfg, grid_xy, grid_size, angle_size)
 
     def encode_map(self, scenario_map, map_vocab_traj):
-        """Map features x_pt [P, D], encoded once per scenario."""
+        """Map features x_pt [..., P, D], encoded once per scenario (leading
+        dims: one map per lane)."""
         return self.map_encoder(scenario_map, map_vocab_traj)

@@ -13,7 +13,7 @@ from infgen_torch.config import Config
 from infgen_torch.model.layers import (DenseAttention, Embed,
                                        FourierEmbedding, MLPEmbedding,
                                        MLPLayer)
-from infgen_torch.ops.neighbors import topk_neighbors
+from infgen_torch.ops.neighbors import gather_rows, topk_neighbors
 from infgen_torch.ops.precision import compute_dtype_of
 from infgen_torch.utils.geometry import angle_between_2d_vectors, wrap_angle
 
@@ -41,9 +41,10 @@ class MapEncoder(nn.Module):
         self.token_predict_head = MLPLayer(D, D, cfg.map_token_size)
 
     def forward(self, map_data, map_vocab_traj, pt_valid_mask=None):
-        """map_data: MapData of tensors (fields [P, ...]); map_vocab_traj
-        [V_map, 11, 2]. Returns x_pt [P, D] (the rollout needs only the
-        features, not the next-token logits)."""
+        """map_data: MapData of tensors (fields [..., P, ...]: leading dims
+        are the rollout's lanes, one map each); map_vocab_traj
+        [V_map, 11, 2]. Returns x_pt [..., P, D] (the rollout needs only
+        the features, not the next-token logits)."""
         pos = map_data.position
         orient = map_data.orientation
         if pt_valid_mask is None:
@@ -55,23 +56,25 @@ class MapEncoder(nn.Module):
                 + self.polygon_type_emb(map_data.pl_type)
                 + self.light_pl_emb(map_data.light_type))
 
+        nb = pos.dim() - 2                       # leading (lane) dims
         nbr_idx, nbr_valid = topk_neighbors(
             pos, pos, PT2PT_K, self.cfg.pl2pl_radius,
             query_mask=pt_valid_mask, key_mask=pt_valid_mask,
             exclude_self=True)
-        rel_pos = pos[nbr_idx] - pos[:, None]
-        rel_orient = wrap_angle(orient[nbr_idx] - orient[:, None])
+        rel_pos = gather_rows(pos, nbr_idx, nb) - pos[..., None, :]
+        rel_orient = wrap_angle(gather_rows(orient, nbr_idx, nb)
+                                - orient[..., None])
         orient_vec = torch.stack([torch.cos(orient), torch.sin(orient)], -1)
         r = torch.stack([
             torch.linalg.norm(rel_pos, dim=-1),
-            angle_between_2d_vectors(orient_vec[:, None], rel_pos),
+            angle_between_2d_vectors(orient_vec[..., None, :], rel_pos),
             rel_orient,
         ], dim=-1)
         r = self.r_pt2pt_emb(r)
 
         for i in range(self.cfg.num_map_layers):
-            x_src = x_pt[nbr_idx]
+            x_src = gather_rows(x_pt, nbr_idx, nb)
             x_pt = getattr(self, f"pt2pt_{i}")(
-                x_pt[:, None, :], x_src, r[:, None, :, :],
-                nbr_valid[:, None, :])[:, 0, :]
+                x_pt[..., None, :], x_src, r[..., None, :, :],
+                nbr_valid[..., None, :])[..., 0, :]
         return x_pt

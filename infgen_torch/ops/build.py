@@ -79,6 +79,7 @@ def build(force: bool = False, verbose: bool = False) -> float:
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, n_ptrs, n_ints in (("infgen_seed_eval", 12, 7),
+                                 ("infgen_seed_eval_lanes", 13, 8),
                                  ("infgen_seed_eval_full", 19, 8),
                                  ("infgen_refine", 11, 6),
                                  ("infgen_motion_column", 14, 7),

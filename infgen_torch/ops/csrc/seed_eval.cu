@@ -37,6 +37,15 @@
 // exchange each mat-vec's slice through distributed shared memory. K/V are
 // read in the compute type T, as the caller made them. Nothing precedes it
 // in this library, so it is launched without programmatic dependent launch.
+//
+// Lanes. A batched rollout evaluates one seed per lane (scenario) at once:
+// one launch of B clusters, cluster b evaluating lane b's v_occ, K/V and
+// masks ([B, ...] arrays) against the shared sd0 and weights into its own
+// rows of the outputs. An optional lane mask [B] switches lanes off: every
+// CTA of a cluster reads the same flag, so a masked-off cluster leaves as a
+// whole before its first cluster barrier, having zeroed its outputs. At
+// B = 8 the grid is 64 CTAs, one wave on 132 SMs. The single evaluation is
+// the launch with B = 1 and no mask.
 
 #include "cluster_stack.cuh"
 
@@ -51,19 +60,37 @@ struct Args {
   const void* weights;
   const float* vectors;
   float *out_small, *out_pos;
-  int L, P, A, D, H, Hd, G;
+  const uint8_t* lanes;  // [B] lane mask, or null: every lane on
+  int B, L, P, A, D, H, Hd, G;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kStackThreads, 1) seed_eval_kernel(
     Args a) {
   extern __shared__ __align__(16) float smem[];
+  const int lane = blockIdx.x / kCluster;
+  float* out_small = a.out_small + (size_t)lane * 3 * kSmallCols;
+  float* out_pos = a.out_pos + (size_t)lane * a.G;
+  if (a.lanes != nullptr && !a.lanes[lane]) {
+    const int n = 3 * kSmallCols + a.G, step = kCluster * blockDim.x;
+    for (int i = (blockIdx.x % kCluster) * blockDim.x + threadIdx.x; i < n;
+         i += step) {
+      if (i < 3 * kSmallCols)
+        out_small[i] = 0.f;
+      else
+        out_pos[i - 3 * kSmallCols] = 0.f;
+    }
+    return;
+  }
+  const size_t lp = (size_t)a.L * a.P * a.D, la = (size_t)a.L * a.A * a.D;
   cluster_stack_and_heads<T, T>(
       seed_weights<T>(a.weights, a.vectors, a.L, a.D), a.sd0,
-      static_cast<const T*>(a.v_occ), static_cast<const T*>(a.k_pt),
-      static_cast<const T*>(a.v_pt), a.mask_pl, static_cast<const T*>(a.k_a),
-      static_cast<const T*>(a.v_a), a.mask_a, a.out_small, a.out_pos, a.L,
-      a.P, a.A, a.D, a.H, a.Hd, a.G, smem, [] {});
+      static_cast<const T*>(a.v_occ) + (size_t)lane * a.L * a.D,
+      static_cast<const T*>(a.k_pt) + lane * lp,
+      static_cast<const T*>(a.v_pt) + lane * lp, a.mask_pl + lane * a.P,
+      static_cast<const T*>(a.k_a) + lane * la,
+      static_cast<const T*>(a.v_a) + lane * la, a.mask_a + lane * a.A,
+      out_small, out_pos, a.L, a.P, a.A, a.D, a.H, a.Hd, a.G, smem, [] {});
 }
 
 template <typename T>
@@ -78,7 +105,7 @@ int launch(const Args& a, cudaStream_t stream) {
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
+  cfg.gridDim = dim3(kCluster * a.B);
   cfg.blockDim = dim3(kStackThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -102,18 +129,35 @@ extern "C" int infgen_seed_eval_smem(int dtype, int L, int P, int A, int D,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (K/V, v_occ and packed matrices).
+// B lanes: v_occ [B, L, D], K/V [B, L, P or A, D], masks [B, P or A],
+// out_small [B, 3, 4], out_pos [B, G]; lanes [B] bytes or null (all on).
 // Returns a cudaError_t; 0 on a successful launch.
+extern "C" int infgen_seed_eval_lanes(
+    int dtype, const float* sd0, const void* v_occ, const void* k_pt,
+    const void* v_pt, const uint8_t* mask_pl, const void* k_a,
+    const void* v_a, const uint8_t* mask_a, const void* weights,
+    const float* vectors, float* out_small, float* out_pos,
+    const uint8_t* lanes, int B, int L, int P, int A, int D, int H, int Hd,
+    int G, void* stream) {
+  const Args a{sd0,     v_occ,     k_pt,    v_pt,  mask_pl, k_a, v_a,
+               mask_a,  weights,   vectors, out_small, out_pos, lanes, B, L,
+               P,       A,         D,       H,     Hd,      G};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One evaluation: the launch above with one lane and no mask.
 extern "C" int infgen_seed_eval(
     int dtype, const float* sd0, const void* v_occ, const void* k_pt,
     const void* v_pt, const uint8_t* mask_pl, const void* k_a,
     const void* v_a, const uint8_t* mask_a, const void* weights,
     const float* vectors, float* out_small, float* out_pos, int L, int P,
     int A, int D, int H, int Hd, int G, void* stream) {
-  const Args a{sd0,     v_occ,   k_pt,      v_pt,    mask_pl, k_a, v_a,
-               mask_a,  weights, vectors,   out_small, out_pos, L, P, A, D,
-               H,       Hd,      G};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return infgen_seed_eval_lanes(dtype, sd0, v_occ, k_pt, v_pt, mask_pl, k_a,
+                                v_a, mask_a, weights, vectors, out_small,
+                                out_pos, nullptr, 1, L, P, A, D, H, Hd, G,
+                                stream);
 }

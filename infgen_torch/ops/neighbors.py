@@ -3,6 +3,9 @@
 `jax.lax.top_k` puts the lower index first among equal values; `torch.topk`
 promises no order for ties. Masked keys all share one fill value, so ties are
 common: a stable descending sort keeps the JAX order.
+
+Every function takes leading batch dims (the rollout's lane axis: one
+scenario per lane); `gather_rows` reads the selected rows lane by lane.
 """
 
 import torch
@@ -47,3 +50,34 @@ def pairwise_radius_mask(query_pos, key_pos, radius: float,
     if query_mask is not None:
         mask = mask & query_mask[..., :, None]
     return mask
+
+
+_ARANGE = {}
+
+
+def arange_on(n: int, device):
+    """torch.arange(n) on `device`, made once and kept: the lane index and
+    the one-hot writes' positions, read on every call without a launch of
+    their own. Callers must not write to it."""
+    key = (n, torch.device(device))
+    out = _ARANGE.get(key)
+    if out is None:
+        out = _ARANGE[key] = torch.arange(n, device=device)
+    return out
+
+
+def gather_rows(x, idx, batch_dims: int = 0):
+    """Rows of `x` at `idx`, within each of the leading `batch_dims` dims:
+    x [*batch, N, ...], idx [*batch, ...] int, every index in [0, N) ->
+    [*batch, *idx_rest, ...] (x[idx] when batch_dims = 0). One gather on
+    the device over an expanded (not copied) index, no host read: advanced
+    indexing with a lane index beside `idx` would make both index tensors
+    contiguous on a CUDA device, a copy each."""
+    if batch_dims == 0:
+        return x[idx]
+    lead, rest = x.shape[:batch_dims], x.shape[batch_dims + 1:]
+    xf = x.reshape(-1, *x.shape[batch_dims:])
+    idf = idx.reshape(xf.shape[0], -1).long()
+    out = torch.gather(xf, 1, idf.reshape(*idf.shape, *[1] * len(rest))
+                       .expand(*idf.shape, *rest))
+    return out.reshape(*lead, *idx.shape[batch_dims:], *rest)

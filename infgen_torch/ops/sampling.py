@@ -20,10 +20,24 @@ def sample_from_topk(generator, probs, k: int):
     """Top-k, then a multinomial draw over the k renormalised probabilities.
 
     probs [..., V] (need not be normalised). Returns indices [...] int64.
+    `generator` may be a list of generators, one per lane: probs is then
+    [B, ..., V] and lane b draws from generator b exactly what a call with
+    probs[b] and that generator alone draws (JAX's per-lane keys under
+    vmap). At k = 1 nothing is drawn.
     """
     topk_p, topk_idx = topk_stable(probs, k)
     if k == 1:
         return topk_idx[..., 0]
+    if isinstance(generator, (list, tuple)):
+        draws = [_draw(g, p, i) for g, p, i
+                 in zip(generator, topk_p, topk_idx)]
+        # one lane: a view, with no copy launched
+        return draws[0][None] if len(draws) == 1 else torch.stack(draws)
+    return _draw(generator, topk_p, topk_idx)
+
+
+def _draw(generator, topk_p, topk_idx):
+    k = topk_p.shape[-1]
     flat = torch.clamp(topk_p, min=1e-30).reshape(-1, k)
     choice = torch.multinomial(flat, 1, generator=generator)
     choice = choice.reshape(*topk_p.shape[:-1], 1)

@@ -33,13 +33,14 @@ def _mm(x, dense, dtype):
 
 
 def precompute_src_kv(layer, x_src, dtype=None):
-    """Source-side k/v projections (no geometry): [N, H*Hd] each."""
+    """Source-side k/v projections (no geometry): [..., N, H*Hd] each."""
     src_n = _ln(x_src, layer.prenorm_src, dtype)
     return _mm(src_n, layer.to_k, dtype), _mm(src_n, layer.to_v, dtype)
 
 
 def r_contrib(layer, r_emb, dtype=None):
-    """Geometry contributions k_r / v_r of the embedded relation r [N, D]."""
+    """Geometry contributions k_r / v_r of the embedded relation r
+    [..., N, D]."""
     r_n = _ln(r_emb, layer.prenorm_r, dtype)
     k_r = r_n @ _cast(layer.w_kr, dtype)
     v_r = r_n @ _cast(layer.w_vr, dtype) + _cast(layer.b_vr, dtype)
@@ -58,20 +59,24 @@ def gate_ffn(layer, x_dst, dst_n, agg, dtype=None):
 
 
 def attn_1q(layer, sd, k, v, mask, num_heads, dtype=None, bipartite=True):
-    """One-query attention over precomputed k/v [N, H*Hd] (source and
-    geometry terms summed) with mask [N], then the epilogue. sd [D]."""
+    """One-query attention over precomputed k/v [..., N, H*Hd] (source and
+    geometry terms summed) with mask [..., N], then the epilogue. sd
+    [..., D]; leading dims are the rollout's lanes, one query each."""
     dst_n = _ln(sd, layer.prenorm_dst if bipartite else layer.prenorm_src,
                 dtype)
     q = _mm(dst_n, layer.to_q, dtype)
     H = num_heads
     Hd = q.shape[-1] // H
-    sim = torch.einsum("hd,khd->kh", q.reshape(H, Hd).float(),
-                       k.reshape(-1, H, Hd).float()) * (Hd ** -0.5)
-    sim = torch.where(mask[:, None], sim, -torch.inf)
-    attn = torch.softmax(sim, dim=0)
-    attn = torch.where(mask.any(), attn, 0.0)
-    attn = torch.where(mask[:, None], attn, 0.0).to(v.dtype)
-    agg = torch.einsum("kh,khd->hd", attn, v.reshape(-1, H, Hd)).reshape(-1)
+    lead = q.shape[:-1]
+    sim = torch.einsum("...hd,...khd->...kh",
+                       q.reshape(*lead, H, Hd).float(),
+                       k.reshape(*lead, -1, H, Hd).float()) * (Hd ** -0.5)
+    sim = torch.where(mask[..., None], sim, -torch.inf)
+    attn = torch.softmax(sim, dim=-2)
+    attn = torch.where(mask.any(-1)[..., None, None], attn, 0.0)
+    attn = torch.where(mask[..., None], attn, 0.0).to(v.dtype)
+    agg = torch.einsum("...kh,...khd->...hd", attn,
+                       v.reshape(*lead, -1, H, Hd)).reshape(*lead, H * Hd)
     return gate_ffn(layer, sd, dst_n, agg, dtype)
 
 

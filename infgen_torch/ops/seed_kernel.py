@@ -8,7 +8,9 @@ csrc/seed_eval_full.cu, whose headers state their bounds and designs).
   seed_eval_reference  the same math in plain PyTorch (the CPU path, and
                      what the kernel is held against on the card)
   seed_eval_kernel   the wrapper: launches the kernel on CUDA tensors, takes
-                     the plain version for CPU tensors, raises otherwise
+                     the plain version for CPU tensors, raises otherwise.
+                     Both take a leading lane axis (a batched rollout's
+                     scenarios, one evaluation each) and a lane mask
 
   pack_seed_params_full / seed_eval_full_reference / seed_eval_full_kernel
                      the same with the per-step precompute folded in: the
@@ -146,14 +148,32 @@ def _ln(x, s, b):
 
 def seed_eval_reference(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
                         K_a, V_a, mask_a, num_heads: int, head_dim: int,
-                        round_operand=None
+                        round_operand=None, lanes=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch seed stack + heads, the kernel's math: matmul inputs
     rounded to the compute dtype, products and sums in fp32; fp32 LayerNorm
     (eps 1e-6) and softmax; all-masked key sets aggregate to zero.
     `round_operand(x)` replaces the rounding of each matmul input x (fp32 to
     fp32 values of the compute dtype), in call order: a study of rounding
-    near-ties hooks in there."""
+    near-ties hooks in there.
+
+    With a lane axis (v_occ [B, L, D], K/V [B, L, N, D], masks [B, N];
+    sd0 shared) each lane is evaluated as a call of its own would evaluate
+    it, into small [B, 3, 4] and pos [B, G]; a lane that `lanes` [B] bool
+    switches off gives zeros, as the kernel's masked-off clusters do."""
+    if v_occ.dim() == 3:
+        on = [True] * v_occ.shape[0] if lanes is None else lanes.tolist()
+        outs = [seed_eval_reference(pack, sd0, *(t[b] for t in (
+            v_occ, K_pt, V_pt, mask_pl, K_a, V_a, mask_a)), num_heads,
+            head_dim, round_operand) if on[b] else None
+            for b in range(v_occ.shape[0])]
+        zero = next(((torch.zeros_like(o[0]), torch.zeros_like(o[1]))
+                     for o in outs if o is not None),
+                    (torch.zeros((3, SMALL_COLS), device=sd0.device),
+                     torch.zeros((pack.G,), device=sd0.device)))
+        outs = [o or zero for o in outs]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     f32, cdt = torch.float32, pack.dtype
     w, v = pack.w, pack.v
     H, Hd = num_heads, head_dim
@@ -222,37 +242,50 @@ def seed_eval_accepts(dtype, D: int, num_heads: int, head_dim: int) -> bool:
 
 
 def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
-                     K_a, V_a, mask_a, num_heads: int, head_dim: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     K_a, V_a, mask_a, num_heads: int, head_dim: int,
+                     lanes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One seed evaluation. sd0 [D] fp32; v_occ [L, D], K_pt / V_pt
     [L, P, D], K_a / V_a [L, A, D] in the pack's compute dtype; mask_pl [P]
     and mask_a [A] bool. CUDA tensors launch csrc/seed_eval.cu on the
     current stream (counted in `seed_eval_kernel.launches`); CPU tensors
     take seed_eval_reference. The kernel takes the widths of
     seed_eval_accepts whose stack fits a block's shared memory; others
-    raise."""
+    raise.
+
+    Lanes: v_occ [B, L, D], K/V [B, L, N, D] and masks [B, N] (sd0 shared)
+    evaluate every lane in one launch, one cluster per lane, into small
+    [B, 3, 4] and pos [B, G]; `lanes` [B] bool switches lanes off (their
+    outputs are zeros). One launch counts once, whatever B."""
     dev = sd0.device
     if dev.type == "cpu":
         return seed_eval_reference(pack, sd0, v_occ, K_pt, V_pt, mask_pl,
-                                   K_a, V_a, mask_a, num_heads, head_dim)
+                                   K_a, V_a, mask_a, num_heads, head_dim,
+                                   lanes=lanes)
     if dev.type != "cuda":
         raise ValueError(f"seed_eval_kernel: unsupported device {dev}")
     L, D, G = pack.L, pack.D, pack.G
-    P, A = K_pt.shape[1], K_a.shape[1]
+    batched = v_occ.dim() == 3
+    lead = tuple(v_occ.shape[:1]) if batched else ()
+    B = lead[0] if batched else 1
+    P, A = K_pt.shape[-2], K_a.shape[-2]
     cdt = pack.dtype
     if not seed_eval_accepts(cdt, D, num_heads, head_dim):
         raise ValueError(
             "seed_eval_kernel takes fp32 or bf16, num_heads * head_dim == D "
             "with heads a multiple of 4 wide, and D divisible by 32 (bf16: "
             f"64), got {cdt}, D={D}, {num_heads} heads of {head_dim}")
+    if lanes is not None and not batched:
+        raise ValueError("seed_eval_kernel: a lane mask needs a lane axis")
     _check("sd0", sd0, torch.float32, (D,), dev)
-    _check("v_occ", v_occ, cdt, (L, D), dev)
-    _check("K_pt", K_pt, cdt, (L, P, D), dev)
-    _check("V_pt", V_pt, cdt, (L, P, D), dev)
-    _check("mask_pl", mask_pl, torch.bool, (P,), dev)
-    _check("K_a", K_a, cdt, (L, A, D), dev)
-    _check("V_a", V_a, cdt, (L, A, D), dev)
-    _check("mask_a", mask_a, torch.bool, (A,), dev)
+    _check("v_occ", v_occ, cdt, (*lead, L, D), dev)
+    _check("K_pt", K_pt, cdt, (*lead, L, P, D), dev)
+    _check("V_pt", V_pt, cdt, (*lead, L, P, D), dev)
+    _check("mask_pl", mask_pl, torch.bool, (*lead, P), dev)
+    _check("K_a", K_a, cdt, (*lead, L, A, D), dev)
+    _check("V_a", V_a, cdt, (*lead, L, A, D), dev)
+    _check("mask_a", mask_a, torch.bool, (*lead, A), dev)
+    if lanes is not None:
+        _check("lanes", lanes, torch.bool, (B,), dev)
     _check("weights", pack.weights, cdt, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
 
@@ -265,15 +298,17 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
             raise ValueError(f"seed_eval_kernel: {smem} B of shared memory "
                              "exceed the 227 KB a block can use")
         _SMEM_OK.add(shape)
-    small = torch.empty((3, SMALL_COLS), dtype=torch.float32, device=dev)
-    pos = torch.empty((G,), dtype=torch.float32, device=dev)
+    small = torch.empty((*lead, 3, SMALL_COLS), dtype=torch.float32,
+                        device=dev)
+    pos = torch.empty((*lead, G), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.infgen_seed_eval(
+    err = lib.infgen_seed_eval_lanes(
         _DTYPE_CODE[cdt], sd0.data_ptr(), v_occ.data_ptr(), K_pt.data_ptr(),
         V_pt.data_ptr(), mask_pl.data_ptr(), K_a.data_ptr(), V_a.data_ptr(),
         mask_a.data_ptr(), pack.weights.data_ptr(), pack.vectors.data_ptr(),
-        small.data_ptr(), pos.data_ptr(), L, P, A, D, num_heads, head_dim, G,
-        stream)
+        small.data_ptr(), pos.data_ptr(),
+        0 if lanes is None else lanes.data_ptr(), B, L, P, A, D, num_heads,
+        head_dim, G, stream)
     if err != 0:
         raise RuntimeError(f"seed_eval kernel launch failed: cudaError {err}")
     seed_eval_kernel.launches += 1

@@ -11,18 +11,30 @@ eager Python loop over token steps on one device:
   - top-k multinomial sampling on the device, from a `torch.Generator`;
   - trajectories stay on the device until the loop ends.
 
+Lanes. Every tensor of the rollout carries a leading lane axis B, one
+scenario per lane (JAX's one rollout function under `vmap`): the scenario
+and inputs are stacked (data.scenario.stack_scenarios) and each lane has a
+generator of its own. A single scenario is one lane, the axis squeezed on
+output. Per lane the result is the single rollout's of that scenario with
+that generator. The insertion loop runs while any lane runs; a stopped
+lane is frozen by the select of the fixed-trip form, and only running lanes
+draw. The column kernel, the full seed kernel, the refine kernel and the
+fused blocks take one scenario's rows: under those flags a rollout of more
+than one lane raises.
+
 The big rollout state (`RolloutCarry`) is updated in place, column by
 column; the small per-step insertion state is rebuilt functionally, so that
 the fixed-trip form can keep or drop a whole iteration with one select.
 `cfg.rollout_scan_unroll` is read and ignored: an eager loop has no scan to
 unroll.
 
-Host reads: the insertion loop's early exit reads its `stop` flag on the
-host once per iteration (at most `insert_limit + 1` times per step);
-`cfg.insertion_fixed_trip` runs exactly `insert_limit` masked iterations and
-reads nothing. Both give the same results whenever no random draw is made
-(beam sizes 1); with sampling, the fixed-trip form's discarded iterations
-also draw from the generator, so its stream differs.
+Host reads: the insertion loop's early exit reads the lanes' `running`
+flags on the host once per iteration (at most `insert_limit + 1` times per
+step, whatever the number of lanes); `cfg.insertion_fixed_trip` runs
+exactly `insert_limit` masked iterations and reads nothing. Both give the
+same results whenever no random draw is made (beam sizes 1); with
+sampling, the fixed-trip form's discarded iterations also draw from the
+generator, so its stream differs.
 
 Profiler spans (`torch.profiler.record_function`, near free when no
 profiler runs): `rollout.insertion` and `rollout.motion` per token step;
@@ -61,6 +73,7 @@ from torch.profiler import record_function
 
 from infgen_torch.config import (Config, ENTER_STATE, EXIT_STATE,
                                  INVALID_STATE, SHIFT, VALID_STATE)
+from infgen_torch.data.scenario import tree_map
 from infgen_torch.model import edges as E
 from infgen_torch.model.agent_decoder import (INVALID_SHAPE_VALUE, SEED_TYPE,
                                               map_token_index)
@@ -69,7 +82,8 @@ from infgen_torch.ops import fused_block as FB
 from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_fast as SF
 from infgen_torch.ops import seed_kernel as SKN
-from infgen_torch.ops.neighbors import topk_neighbors
+from infgen_torch.ops.neighbors import (arange_on, gather_rows,
+                                        topk_neighbors)
 from infgen_torch.ops.precision import compute_dtype_of
 from infgen_torch.ops.sampling import sample_from_topk, topk_stable
 from infgen_torch.utils.geometry import (angle_between_2d_vectors,
@@ -78,27 +92,31 @@ from infgen_torch.utils.geometry import (angle_between_2d_vectors,
 
 REFINE_A2SA_K = 24   # reference max_num_neighbors=24
 REFINE_PL2SA_K = 32  # 10 m radius holds far fewer map tokens
+# the flags whose kernels take one scenario's rows: a rollout of more than
+# one lane refuses them
+ONE_LANE_FLAGS = ("use_column_kernel", "use_seed_kernel_full",
+                  "use_refine_kernel", "use_fused_block")
 
 
 class RolloutCarry(NamedTuple):
-    pos: torch.Tensor          # [A, Ti, 2]
-    head: torch.Tensor         # [A, Ti]
-    state: torch.Tensor        # [A, Ti] int32
-    token: torch.Tensor        # [A, Ti] int32
-    grid: torch.Tensor         # [A, Ti] int32
-    valid: torch.Tensor        # [A, Ti] bool (agent_valid_mask)
-    interact: torch.Tensor     # [A, Ti] bool
-    temporal: torch.Tensor     # [A, Ti] bool
-    slot_active: torch.Tensor  # [A] bool
-    type_: torch.Tensor        # [A] int32
-    shape: torch.Tensor        # [A, 3]
-    raw_feat: torch.Tensor     # [A, Ti, D]
-    cache: torch.Tensor        # [L, A, Ti, D]
-    pred_traj: torch.Tensor    # [A, R, 2] 10 Hz
-    pred_head: torch.Tensor    # [A, R]
-    pred_state: torch.Tensor   # [A, R]
-    n_inserted: torch.Tensor   # [] int32
-    rng: torch.Generator
+    pos: torch.Tensor          # [B, A, Ti, 2]
+    head: torch.Tensor         # [B, A, Ti]
+    state: torch.Tensor        # [B, A, Ti] int32
+    token: torch.Tensor        # [B, A, Ti] int32
+    grid: torch.Tensor         # [B, A, Ti] int32
+    valid: torch.Tensor        # [B, A, Ti] bool (agent_valid_mask)
+    interact: torch.Tensor     # [B, A, Ti] bool
+    temporal: torch.Tensor     # [B, A, Ti] bool
+    slot_active: torch.Tensor  # [B, A] bool
+    type_: torch.Tensor        # [B, A] int32
+    shape: torch.Tensor        # [B, A, 3]
+    raw_feat: torch.Tensor     # [B, A, Ti, D]
+    cache: torch.Tensor        # [L, B, A, Ti, D]
+    pred_traj: torch.Tensor    # [B, A, R, 2] 10 Hz
+    pred_head: torch.Tensor    # [B, A, R]
+    pred_state: torch.Tensor   # [B, A, R]
+    n_inserted: torch.Tensor   # [B] int32
+    rng: list                  # a torch.Generator per lane
 
 
 def _argmax_first(x, dim=-1):
@@ -108,19 +126,21 @@ def _argmax_first(x, dim=-1):
     return torch.argmax(x, dim=dim)
 
 
-def _at(x, idx, dim=0):
-    """x[idx] along `dim` for a 0-d index tensor, without a host read."""
-    return x.index_select(dim, idx.reshape(1).long()).squeeze(dim)
+def _rows(x, idx):
+    """x[b, idx[b, ...]] in every lane b (x [B, N, ...], idx [B, ...]):
+    a gather on the device, no host read."""
+    return gather_rows(x, idx, 1)
 
 
-def _put(x, idx, val, mask=None, dim=0):
-    """x with x[idx] = val along `dim` where `mask` (a 0-d bool), as a new
-    tensor. An index out of range writes nothing (JAX's scatter drop)."""
+def _put(x, idx, val, mask=None, dim=1):
+    """x with x[b, ..., idx[b], ...] = val[b] along `dim` in every lane b
+    where mask[b] (idx, mask [B]), as a new tensor. An index out of range
+    writes nothing (JAX's scatter drop)."""
     n = x.shape[dim]
-    hit = torch.arange(n, device=x.device) == idx
+    hit = arange_on(n, x.device)[None] == idx[:, None]
     if mask is not None:
-        hit = hit & mask
-    shape = [1] * x.dim()
+        hit = hit & mask[:, None]
+    shape = [x.shape[0]] + [1] * (x.dim() - 1)
     shape[dim] = n
     val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
     val = val.unsqueeze(dim) if val.dim() == x.dim() - 1 else val
@@ -128,11 +148,24 @@ def _put(x, idx, val, mask=None, dim=0):
 
 
 def _tree_where(pred, new, old):
+    """new where the lane flag pred [B] holds, else old, leaf by leaf."""
     if isinstance(new, dict):
         return {k: _tree_where(pred, new[k], old[k]) for k in new}
     if isinstance(new, tuple):
         return tuple(_tree_where(pred, a, b) for a, b in zip(new, old))
-    return torch.where(pred, new, old)
+    return torch.where(pred.reshape(-1, *[1] * (new.dim() - 1)), new, old)
+
+
+def _vecmat(x, m):
+    """x[b] @ m[b] for every lane (x [B, n], m [B, n, k]) as one vector-
+    matrix product per lane: the single rollout's product, bit for bit."""
+    return _stack_lanes([xb @ mb for xb, mb in zip(x, m)])
+
+
+def _stack_lanes(xs):
+    """The per-lane results xs along a new lane axis: one lane is a view,
+    with no copy launched."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
 
 
 def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
@@ -143,10 +176,14 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     `model` is an InfGenModel on the device the rollout runs on; `scenario`
     and `inputs` are tensors on that device (data.scenario.to_device,
     data.features.build_model_inputs) and `generator` a torch.Generator on
-    it. force_insert=True makes every insertion iteration propose an agent
-    whatever the seed-state head says (bounds the trained-model insertion
-    cost for benchmarking). The returned function counts its host reads in
-    `rollout.host_reads` (reset at each call).
+    it. With a list of generators, one per lane, `scenario` and `inputs`
+    are stacked along a leading lane axis (data.scenario.stack_scenarios,
+    data.features.build_model_inputs_batch) and every output gains it. A
+    rollout of more than one lane under one of ONE_LANE_FLAGS raises
+    ValueError. force_insert=True makes every insertion iteration propose
+    an agent whatever the seed-state head says (bounds the trained-model
+    insertion cost for benchmarking). The returned function counts its
+    host reads in `rollout.host_reads` (reset at each call).
     """
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     if R < SHIFT or R % SHIFT:
@@ -171,6 +208,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     use_refk = (cfg.use_refine_kernel and cfg.use_head_token
                 and cfg.use_grid_token)
     use_fused = cfg.use_fused_block and not cfg.use_column_kernel
+    one_lane = [f for f in ONE_LANE_FLAGS if getattr(cfg, f)]
 
     f32, i32 = torch.float32, torch.int32
     token_traj_all = torch.as_tensor(np.stack(
@@ -195,9 +233,27 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
     @torch.no_grad()
     def rollout(scenario, inputs, generator) -> Dict[str, Any]:
-        rollout.host_reads = 1
-        av = int(inputs.av_index)                        # one host read
-        x_pt = model.encode_map(scenario.map, map_traj)
+        rollout.host_reads = 0
+        lanes = isinstance(generator, (list, tuple))
+        if not lanes:
+            scenario, inputs = (tree_map(lambda x: x[None], t)
+                                for t in (scenario, inputs))
+            generator = [generator]
+        B = len(generator)
+        if B > 1 and one_lane:
+            raise ValueError(f"{one_lane[0]}: its kernel takes one scenario;"
+                             f" a rollout of {B} lanes needs it off")
+        if inputs.slot_mask.shape[0] != B:
+            raise ValueError(f"{B} generators for "
+                             f"{inputs.slot_mask.shape[0]} lanes")
+        out = _rollout(scenario, inputs, list(generator))
+        return out if lanes else {k: v[0] for k, v in out.items()}
+
+    def _rollout(scenario, inputs, gens):
+        B = len(gens)
+        lane = arange_on(B, device)
+        av = inputs.av_index.long()                      # [B]
+        x_pt = model.encode_map(scenario.map, map_traj)  # [B, P, D]
         pt = dict(pos=scenario.map.position, orient=scenario.map.orientation,
                   mask=scenario.map.mask, x=x_pt)
         tables = dec.rollout_tables(agent_vocab)
@@ -212,8 +268,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             seed = dict(vec=_seed_vector(tables), ptkv0=ptkv0)
             if use_sknf:
                 seed["pack"] = SKN.pack_seed_params_full(dec, L_s, G, sf_dt)
-                seed["k0"] = torch.stack([kv[0] for kv in ptkv0])
-                seed["v0"] = torch.stack([kv[1] for kv in ptkv0])
+                seed["k0"] = torch.stack([kv[0] for kv in ptkv0], 1)
+                seed["v0"] = torch.stack([kv[1] for kv in ptkv0], 1)
             elif use_skn:
                 seed["pack"] = SKN.pack_seed_params(dec, L_s, G, sf_dt)
             if use_refk:
@@ -228,19 +284,20 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             trunk_pack = FB.pack_column_blocks(dec, L)
 
         tok = inputs.tokens
-        T0 = tok.token_idx.shape[1]
+        T0 = tok.token_idx.shape[2]
 
         # --- slot filtering ---
-        slot_active = inputs.slot_mask & (tok.state_idx[:, H - 1]
+        slot_active = inputs.slot_mask & (tok.state_idx[..., H - 1]
                                           != INVALID_STATE)
         eval_mask = slot_active & scenario.agents.valid[
-            :, cfg.num_historical_steps - 1]
+            ..., cfg.num_historical_steps - 1]
 
         def pad_t(x, fill):
             if T0 >= Ti:
-                return x[:, :Ti].clone()
-            return torch.cat([x, torch.full((A, Ti - T0, *x.shape[2:]), fill,
-                                            dtype=x.dtype, device=device)], 1)
+                return x[:, :, :Ti].clone()
+            return torch.cat([x, torch.full((B, A, Ti - T0, *x.shape[3:]),
+                                            fill, dtype=x.dtype,
+                                            device=device)], 2)
         pos = pad_t(tok.token_pos, 0.0)
         head = pad_t(tok.token_heading, 0.0)
         state = pad_t(tok.state_idx, INVALID_STATE)
@@ -248,17 +305,17 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         grid = pad_t(inputs.grid_token_idx, -1)
         valid = pad_t(tok.raw_token_valid, True)
 
-        col = torch.arange(Ti, device=device)[None]
+        col = torch.arange(Ti, device=device)[None, None]
         fut = col >= H
         pos = torch.where(fut[..., None], 0.0, pos)
         head = torch.where(fut, 0.0, head)
         state = torch.where(fut, INVALID_STATE, state)
         token = torch.where(fut, -1, token)
         grid = torch.where(fut, -1, grid)
-        valid = torch.where(fut, True, valid) & eval_mask[:, None]
+        valid = torch.where(fut, True, valid) & eval_mask[..., None]
 
         # deactivated slots are fully inert
-        act = slot_active[:, None]
+        act = slot_active[..., None]
         state = torch.where(act, state, INVALID_STATE)
         token = torch.where(act, token, -1)
         grid = torch.where(act, grid, -1)
@@ -267,14 +324,15 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         # --- masks ---
         is_bos = state == ENTER_STATE
         is_eos = state == EXIT_STATE
-        bos = torch.where(is_bos.any(1), _argmax_first(is_bos, 1), 0)
-        eos = torch.where(is_eos.any(1), _argmax_first(is_eos, 1), Ti - 1)
-        motion_win = (col > bos[:, None]) & (col <= eos[:, None]) & (col < H)
+        bos = torch.where(is_bos.any(-1), _argmax_first(is_bos, -1), 0)
+        eos = torch.where(is_eos.any(-1), _argmax_first(is_eos, -1), Ti - 1)
+        motion_win = (col > bos[..., None]) & (col <= eos[..., None]) \
+            & (col < H)
         temporal = torch.where(motion_win, valid, True) | fut
         non_motion = (~motion_win) & (col < H)
         interact = ~non_motion
         interact = torch.where(state == ENTER_STATE, True, interact)
-        interact[av] = True
+        interact[lane, av] = True
         interact = (interact | fut) & act
         temporal = temporal & act
 
@@ -283,12 +341,12 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
         # --- embeddings for all rows ---
         type_t = torch.where(state == INVALID_STATE, SEED_TYPE,
-                             type_[:, None])
+                             type_[..., None])
         shape_t = torch.where((state == INVALID_STATE)[..., None],
-                              INVALID_SHAPE_VALUE, shape[:, None, :])
+                              INVALID_SHAPE_VALUE, shape[..., None, :])
         t_idx = map_token_index(token, cfg.token_size).long()
         token_emb = tables["token_tables"][
-            torch.clamp(type_, 0, 2).long()[:, None], t_idx]
+            torch.clamp(type_, 0, 2).long()[..., None], t_idx]
         motion, hv = E.build_motion_vectors(pos, head, state)
         raw_feat = _fuse(tables, token_emb, motion, hv, type_t, shape_t,
                          state, grid)
@@ -298,27 +356,27 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             grid=grid.to(i32), valid=valid, interact=interact,
             temporal=temporal, slot_active=slot_active, type_=type_,
             shape=shape, raw_feat=raw_feat,
-            cache=torch.zeros((L, A, Ti, D), dtype=raw_feat.dtype,
+            cache=torch.zeros((L, B, A, Ti, D), dtype=raw_feat.dtype,
                               device=device),
-            pred_traj=torch.zeros((A, R, 2), device=device),
-            pred_head=torch.zeros((A, R), device=device),
-            pred_state=torch.zeros((A, R), device=device),
-            n_inserted=torch.zeros((), dtype=i32, device=device),
-            rng=generator)
+            pred_traj=torch.zeros((B, A, R, 2), device=device),
+            pred_head=torch.zeros((B, A, R), device=device),
+            pred_state=torch.zeros((B, A, R), device=device),
+            n_inserted=torch.zeros(B, dtype=i32, device=device),
+            rng=gens)
 
         # --- prefill cache column 0: the reference never queries column 0,
         # so its cached value per layer is the zero-aggregate transform of
         # the raw fused feature, not an attended motion pass
-        carry.cache[:, :, 0] = dec.prefill_column(carry.raw_feat[:, 0])
+        carry.cache[:, :, :, 0] = dec.prefill_column(carry.raw_feat[:, :, 0])
 
         outs = []
         for t in range(n_steps):
             carry, out = _step(carry, t, pt, tables, av, slot_active, seed,
                                trunk_pack)
             outs.append(out)
-        outs = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        outs = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
 
-        return _finalize(carry, outs, scenario, inputs, slot_active, av)
+        return _finalize(carry, outs, scenario, inputs, slot_active)
 
     rollout.host_reads = 0
 
@@ -334,90 +392,91 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     # ---------------------------------------------------------------- #
 
     def _motion_pass(carry, c, pt, trunk_pack):
-        pos_c, head_c = carry.pos[:, c], carry.head[:, c]
-        state_c, inter_c = carry.state[:, c], carry.interact[:, c]
+        B = carry.pos.shape[0]
+        pos_c, head_c = carry.pos[:, :, c], carry.head[:, :, c]
+        state_c, inter_c = carry.state[:, :, c], carry.interact[:, :, c]
         hv_c = hv_of(head_c)
 
         # temporal keys: sliding window of W columns ending at c-1
         start = min(max(c - W, 0), Ti - W)
         k_cols = torch.arange(start, start + W, device=device)
-        sl = lambda x: x[:, start:start + W]
+        sl = lambda x: x[:, :, start:start + W]
         key_pos, key_head = sl(carry.pos), sl(carry.head)
         key_state, key_hist = sl(carry.state), sl(carry.temporal)
 
         is_bos = carry.state == ENTER_STATE
-        bos = torch.where(is_bos.any(1), _argmax_first(is_bos, 1), 0)
-        k_valid = ((k_cols[None] < c) & key_hist
-                   & (k_cols[None] >= bos[:, None])
-                   & carry.slot_active[:, None])
+        bos = torch.where(is_bos.any(-1), _argmax_first(is_bos, -1), 0)
+        k_valid = ((k_cols < c) & key_hist
+                   & (k_cols >= bos[..., None])
+                   & carry.slot_active[..., None])
         if cfg.ref_rollout_quirks:
             # reference quirk: the last num_seed_feature active rows get no
             # temporal attention at inference (its temporal masks are sliced
             # by the TRAINING seed-row count). Active slots are a prefix
             # (slots fill in order), so those are the highest-indexed ones.
-            n_act = carry.slot_active.sum()
+            n_act = carry.slot_active.sum(-1, keepdim=True)
             quirk = torch.arange(A, device=device) >= n_act \
                 - cfg.num_seed_feature
-            k_valid = k_valid & ~quirk[:, None]
+            k_valid = k_valid & ~quirk[..., None]
 
-        rel_pos = key_pos - pos_c[:, None]
-        rel_head = wrap_angle(key_head - head_c[:, None])
+        rel_pos = key_pos - pos_c[:, :, None]
+        rel_head = wrap_angle(key_head - head_c[..., None])
         inv_k = key_state == INVALID_STATE
-        inv_q = (state_c == INVALID_STATE)[:, None]
+        inv_q = (state_c == INVALID_STATE)[..., None]
         rel_pos, rel_head = E._apply_invalid_sentinels(rel_pos, rel_head,
                                                        inv_k, inv_q)
         t_r_raw = torch.stack([
             torch.linalg.norm(rel_pos, dim=-1),
-            angle_between_2d_vectors(hv_c[:, None], rel_pos),
+            angle_between_2d_vectors(hv_c[:, :, None], rel_pos),
             rel_head,
-            (k_cols[None] - c).to(f32) * torch.ones((A, 1), device=device),
+            (k_cols - c).to(f32) * torch.ones((B, A, 1), device=device),
         ], dim=-1)
         key_stack = torch.cat([sl(carry.raw_feat)[None],
-                               carry.cache[:-1, :, start:start + W]], 0)
+                               carry.cache[:-1, :, :, start:start + W]], 0)
 
         # a2a at column c
         km = inter_c & carry.slot_active
-        d2 = ((pos_c[:, None] - pos_c[None]) ** 2).sum(-1)
+        d2 = ((pos_c[:, :, None] - pos_c[:, None]) ** 2).sum(-1)
         eye = torch.eye(A, dtype=torch.bool, device=device)
-        a2a_mask = ((d2 <= cfg.a2a_radius ** 2) & ~eye & km[None, :]
-                    & km[:, None])
-        rel_pos_aa = pos_c[None] - pos_c[:, None]
-        rel_head_aa = wrap_angle(head_c[None] - head_c[:, None])
+        a2a_mask = ((d2 <= cfg.a2a_radius ** 2) & ~eye & km[:, None, :]
+                    & km[:, :, None])
+        rel_pos_aa = pos_c[:, None] - pos_c[:, :, None]
+        rel_head_aa = wrap_angle(head_c[:, None] - head_c[:, :, None])
         inv_c = state_c == INVALID_STATE
         rel_pos_aa, rel_head_aa = E._apply_invalid_sentinels(
-            rel_pos_aa, rel_head_aa, inv_c[None, :], inv_c[:, None])
+            rel_pos_aa, rel_head_aa, inv_c[:, None, :], inv_c[:, :, None])
         a2a_r_raw = stack3(torch.linalg.norm(rel_pos_aa, dim=-1),
-                           angle_between_2d_vectors(hv_c[:, None],
+                           angle_between_2d_vectors(hv_c[:, :, None],
                                                     rel_pos_aa),
                            rel_head_aa)
 
         # pl2a at column c
         idx5, val5 = topk_neighbors(pos_c, pt["pos"], cfg.pl2a_num_neighbors,
                                     cfg.pl2a_radius, key_mask=pt["mask"])
-        val5 = val5 & km[:, None]
-        rel_pl = pt["pos"][idx5] - pos_c[:, None]
-        rel_or = wrap_angle(pt["orient"][idx5] - head_c[:, None])
-        rel_pl = torch.where(inv_c[:, None, None], E.MOTION_GAP, rel_pl)
-        rel_or = torch.where(inv_c[:, None], E.HEADING_GAP, rel_or)
+        val5 = val5 & km[..., None]
+        rel_pl = _rows(pt["pos"], idx5) - pos_c[:, :, None]
+        rel_or = wrap_angle(_rows(pt["orient"], idx5) - head_c[..., None])
+        rel_pl = torch.where(inv_c[..., None, None], E.MOTION_GAP, rel_pl)
+        rel_or = torch.where(inv_c[..., None], E.HEADING_GAP, rel_or)
         pl_r_raw = stack3(torch.linalg.norm(rel_pl, dim=-1),
-                          angle_between_2d_vectors(hv_c[:, None], rel_pl),
+                          angle_between_2d_vectors(hv_c[:, :, None], rel_pl),
                           rel_or)
-        pl_keys = pt["x"][idx5]
+        pl_keys = _rows(pt["x"], idx5)
 
         n_rows = None
         if cfg.use_column_kernel:
             # occupancy bound: 1 + the highest active slot (slots fill
             # lowest-free first), 0 with none; rows past it are inactive
-            # with every key masked. A device scalar: no host read.
+            # with every key masked. A device scalar per lane: no host read.
             act = carry.slot_active
-            n_rows = torch.where(act.any(), A - _argmax_first(act.flip(0)),
+            n_rows = torch.where(act.any(-1), A - _argmax_first(act.flip(-1)),
                                  0).to(i32)
         new_cols, out = dec.motion_column(
-            carry.raw_feat[:, c], key_stack, t_r_raw, k_valid, a2a_r_raw,
+            carry.raw_feat[:, :, c], key_stack, t_r_raw, k_valid, a2a_r_raw,
             a2a_mask, pl_keys, pl_r_raw, val5, n_rows=n_rows,
             column_pack=None if use_fused else trunk_pack,
             fused_packs=trunk_pack if use_fused else None)
-        carry.cache[:, :, c] = new_cols
+        carry.cache[:, :, :, c] = new_cols
         return carry, out
 
     # ---------------------------------------------------------------- #
@@ -429,15 +488,18 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         slices plus a bounded record buffer (`recs`, <= insert_limit rows);
         accepted insertions are written into the full carry once per step
         by `_apply_inserts`."""
-        ego_pos, ego_head = carry.pos[av, c], carry.head[av, c]
+        B = carry.pos.shape[0]
+        ego_pos = _rows(carry.pos[:, :, c], av)           # [B, 2]
+        ego_head = _rows(carry.head[:, :, c], av)         # [B]
         ego_hv = hv_of(ego_head)
 
         # map keys within pl2seed radius of ego (shared by all iterations)
-        rel_pl = pt["pos"] - ego_pos[None]
+        rel_pl = pt["pos"] - ego_pos[:, None]
         d_pl = torch.linalg.norm(rel_pl, dim=-1)
         pl_mask = (d_pl <= cfg.pl2seed_radius) & pt["mask"]
-        pl_r_raw = stack3(d_pl, angle_between_2d_vectors(ego_hv[None], rel_pl),
-                          wrap_angle(pt["orient"] - ego_head))
+        pl_r_raw = stack3(d_pl,
+                          angle_between_2d_vectors(ego_hv[:, None], rel_pl),
+                          wrap_angle(pt["orient"] - ego_head[:, None]))
 
         # per-step precompute for the decomposed seed evaluation: the map
         # K/V ride in from the rollout scope, geometry contributions and
@@ -452,46 +514,49 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                 K_pt.append(seed["ptkv0"][i][0] + kr)
                 V_pt.append(seed["ptkv0"][i][1] + vr)
         if use_skn:
-            K_pt_s, V_pt_s = torch.stack(K_pt), torch.stack(V_pt)
+            K_pt_s, V_pt_s = torch.stack(K_pt, 1), torch.stack(V_pt, 1)
 
         # per-step refine map-candidate subset: every insert lands within
         # pl2seed_radius of ego and its refine keys within pl2sa_radius of
         # the insert. Candidates are re-sorted to ORIGINAL index order so
         # the per-insert top-k breaks ties as the full-P computation does.
-        P_ = pt["pos"].shape[0]
+        P_ = pt["pos"].shape[1]
         NC = min(cfg.refine_map_candidates or P_, P_)
         if NC < P_:
             cand_idx, cand_ok = topk_neighbors(
-                ego_pos[None], pt["pos"], NC,
+                ego_pos[:, None], pt["pos"], NC,
                 cfg.pl2seed_radius + cfg.pl2sa_radius, key_mask=pt["mask"])
-            order = torch.argsort(torch.where(cand_ok[0], cand_idx[0], P_),
+            cand_idx, cand_ok = cand_idx[:, 0], cand_ok[:, 0]
+            order = torch.argsort(torch.where(cand_ok, cand_idx, P_), dim=-1,
                                   stable=True)
-            cand_idx, cand_ok = cand_idx[0][order], cand_ok[0][order]
-            cand = dict(pos=pt["pos"][cand_idx],
-                        orient=pt["orient"][cand_idx], x=pt["x"][cand_idx],
-                        ok=cand_ok)
+            cand_idx = torch.gather(cand_idx, 1, order)
+            cand_ok = torch.gather(cand_ok, 1, order)
+            cand = dict(pos=_rows(pt["pos"], cand_idx),
+                        orient=_rows(pt["orient"], cand_idx),
+                        x=_rows(pt["x"], cand_idx), ok=cand_ok)
         else:
             cand = dict(pos=pt["pos"], orient=pt["orient"], x=pt["x"],
                         ok=pt["mask"])
 
         # step-start occupancy / agent geometry (patched per insert)
-        pos_c0, head_c0 = carry.pos[:, c], carry.head[:, c]
-        grid_c0, inter_c0 = carry.grid[:, c], carry.interact[:, c]
-        rawf_c0 = carry.raw_feat[:, c]
+        pos_c0, head_c0 = carry.pos[:, :, c], carry.head[:, :, c]
+        grid_c0, inter_c0 = carry.grid[:, :, c], carry.interact[:, :, c]
+        rawf_c0 = carry.raw_feat[:, :, c]
 
         # agent-row key snapshots (zero-aggregate chains, independent of
         # the seed query), once per step; only the inserted row changes.
         # The full kernel computes the chains itself from the raw column.
+        # The occupancy scatter adds within each lane's row of cells.
         occ_hit = (grid_c0 >= 0) & carry.slot_active
-        occ_vec0 = torch.zeros(G, device=device).index_add_(
-            0, torch.where(grid_c0 >= 0, grid_c0, 0).long(),
+        occ_vec0 = torch.zeros((B, G), device=device).scatter_add_(
+            1, torch.where(grid_c0 >= 0, grid_c0, 0).long(),
             occ_hit.to(f32)) > 0
         km0 = inter_c0 & carry.slot_active
-        rel_a0 = pos_c0 - ego_pos[None]
+        rel_a0 = pos_c0 - ego_pos[:, None]
         d_a0 = torch.linalg.norm(rel_a0, dim=-1)
         r_sa_emb0 = dec.embed_a2sa_r(stack3(
-            d_a0, angle_between_2d_vectors(ego_hv[None], rel_a0),
-            wrap_angle(head_c0 - ego_head)))
+            d_a0, angle_between_2d_vectors(ego_hv[:, None], rel_a0),
+            wrap_angle(head_c0 - ego_head[:, None])))
         fast0 = dict(a2sa_mask=km0 & (d_a0 <= cfg.pl2seed_radius),
                      occ_vec=occ_vec0)
         if use_sknf:
@@ -505,60 +570,64 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                 kar, var_ = SF.r_contrib(layer, r_sa_emb0, sf_dt)
                 K_a0.append(ka + kar)
                 V_a0.append(va + var_)
-            fast0.update(K_a=torch.stack(K_a0), V_a=torch.stack(V_a0))
+            fast0.update(K_a=torch.stack(K_a0, 1), V_a=torch.stack(V_a0, 1))
             if cfg.use_grid_token:
                 fast0["v_occ"] = _occ_values(occ_vec0)
 
-        def eval_seed(slim, fast, p_used):
-            """One seed-head evaluation: the seed stack + heads + grid-cell
-            sampling. Occupied-cell rejections are retried HERE with fresh
-            draws instead of re-running the seed stack: a retry evaluates
-            identical inputs, so one retry is one fresh draw from the same
-            top-k, and each draw consumes one unit of the shared
+        def eval_seed(slim, fast, p_used, run=None, live=None):
+            """One seed-head evaluation per lane: the seed stack + heads +
+            grid-cell sampling. Occupied-cell rejections are retried HERE
+            with fresh draws instead of re-running the seed stack: a retry
+            evaluates identical inputs, so one retry is one fresh draw from
+            the same top-k, and each draw consumes one unit of the shared
             insert_limit budget. All potential retries are drawn at once;
             "first free candidate among insert_limit draws, budget
             permitting" has the same joint distribution of (accepted cell,
             draws consumed). p_used: budget already consumed; the proposal
-            reports n_draws >= 1."""
+            reports n_draws >= 1. run / live: the lanes still running, as
+            a device mask (the seed kernel skips the others) and a host
+            list (only they draw); None: every lane."""
             occ_vec = fast["occ_vec"]
             if use_sknf:
-                # precompute + stack + heads from raw inputs, one call
+                # precompute + stack + heads from raw inputs, one call (one
+                # lane)
                 small, posl = SKN.seed_eval_full_kernel(
-                    seed["pack"], seed["vec"].to(f32), seed["k0"],
-                    seed["v0"], r_pl_emb, pl_mask, fast["agent_col"],
-                    fast["r_sa"], fast["a2sa_mask"], occ_vec, cfg.num_heads,
+                    seed["pack"], seed["vec"].to(f32), seed["k0"][0],
+                    seed["v0"][0], r_pl_emb[0], pl_mask[0],
+                    fast["agent_col"][0], fast["r_sa"][0],
+                    fast["a2sa_mask"][0], occ_vec[0], cfg.num_heads,
                     cfg.head_dim)
-                heads = dict(state_logits=small[0, :2],
-                             type_logits=small[1, :3], shape=small[2, :3],
-                             pos_logits=posl[:G])
+                small, posl = small[None], posl[None]
             elif use_skn:
-                # the whole stack + heads in one CUDA kernel
+                # the whole stack + heads of every lane in one CUDA kernel
                 small, posl = SKN.seed_eval_kernel(
                     seed["pack"], seed["vec"].to(f32), fast["v_occ"],
                     K_pt_s, V_pt_s, pl_mask, fast["K_a"], fast["V_a"],
-                    fast["a2sa_mask"], cfg.num_heads, cfg.head_dim)
-                heads = dict(state_logits=small[0, :2],
-                             type_logits=small[1, :3], shape=small[2, :3],
-                             pos_logits=posl[:G])
+                    fast["a2sa_mask"], cfg.num_heads, cfg.head_dim,
+                    lanes=run)
+            if use_sknf or use_skn:
+                heads = dict(state_logits=small[:, 0, :2],
+                             type_logits=small[:, 1, :3],
+                             shape=small[:, 2, :3], pos_logits=posl[:, :G])
             else:
-                sd = seed["vec"]
+                sd = seed["vec"].expand(B, D)
                 for i in range(L_s):
                     if cfg.use_grid_token:
                         sd = SF.attn_1q_single_key(
-                            dec.occ2sa_attn_layers[i], sd, fast["v_occ"][i],
-                            sf_dt)
+                            dec.occ2sa_attn_layers[i], sd,
+                            fast["v_occ"][:, i], sf_dt)
                     sd = SF.attn_1q(dec.pt2sa_attn_layers[i], sd, K_pt[i],
                                     V_pt[i], pl_mask, cfg.num_heads, sf_dt)
                     sd = SF.attn_1q(dec.a2sa_attn_layers[i], sd,
-                                    fast["K_a"][i], fast["V_a"][i],
+                                    fast["K_a"][:, i], fast["V_a"][:, i],
                                     fast["a2sa_mask"], cfg.num_heads, sf_dt,
                                     bipartite=False)
                 heads = dec.seed_heads(sd)
 
             heads = {k: v.to(f32) for k, v in heads.items()}
-            enter_prob = torch.softmax(heads["state_logits"], -1)[1]
+            enter_prob = torch.softmax(heads["state_logits"], -1)[:, 1]
             if force_insert:
-                want_enter = torch.ones((), dtype=torch.bool, device=device)
+                want_enter = torch.ones(B, dtype=torch.bool, device=device)
             else:
                 want_enter = _argmax_first(heads["state_logits"]) == 1
             type_idx = _argmax_first(heads["type_logits"]).to(i32)
@@ -570,35 +639,41 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                 topk_p, topk_idx = topk_stable(pos_probs,
                                                cfg.insert_beam_size)
                 if cfg.insert_beam_size == 1:
-                    choices = torch.zeros(n_cand, dtype=torch.long,
+                    choices = torch.zeros((B, n_cand), dtype=torch.long,
                                           device=device)
                 else:
-                    choices = torch.multinomial(
-                        torch.clamp(topk_p, min=1e-30), n_cand,
-                        replacement=True, generator=carry.rng)
-                g_cands = topk_idx[choices]                      # [limit]
+                    # each lane draws from its own generator, and only
+                    # while it runs, as its single rollout draws
+                    choices = _stack_lanes([
+                        torch.multinomial(torch.clamp(p, min=1e-30), n_cand,
+                                          replacement=True, generator=g)
+                        if live is None or live[b] else
+                        torch.zeros(n_cand, dtype=torch.long, device=device)
+                        for b, (p, g) in enumerate(zip(topk_p, carry.rng))])
+                g_cands = torch.gather(topk_idx, 1, choices)    # [B, limit]
                 remaining = limit - p_used
-                in_budget = torch.arange(n_cand, device=device) < remaining
-                free_ok = ~occ_vec[g_cands] & in_budget
-                any_free = free_ok.any()
+                in_budget = arange_on(n_cand, device)[None] \
+                    < remaining[:, None]
+                free_ok = ~torch.gather(occ_vec, 1, g_cands) & in_budget
+                any_free = free_ok.any(-1)
                 first = _argmax_first(free_ok)
-                g_idx = _at(g_cands, first).to(i32)
+                g_idx = _rows(g_cands, first).to(i32)
                 occupied = ~any_free
                 n_draws = torch.where(any_free, first + 1,
                                       torch.clamp(remaining, min=1)).to(i32)
                 next_pos = _decode_pos(g_idx, ego_pos, ego_head)
             else:
-                g_idx = torch.full((), -1, dtype=i32, device=device)
+                g_idx = torch.full((B,), -1, dtype=i32, device=device)
                 next_pos = heads["pos_xy"] * cfg.pl2seed_radius + ego_pos
-                occupied = torch.zeros((), dtype=torch.bool, device=device)
-                n_draws = torch.ones((), dtype=i32, device=device)
+                occupied = torch.zeros(B, dtype=torch.bool, device=device)
+                n_draws = torch.ones(B, dtype=i32, device=device)
             # stop when the head declines or no free slot remains
-            stop = ~want_enter | slim["active"].all()
+            stop = ~want_enter | slim["active"].all(-1)
             return dict(enter_prob=enter_prob, type_idx=type_idx,
                         shape=shape_pred, g_idx=g_idx, next_pos=next_pos,
                         occupied=occupied, n_draws=n_draws, stop=stop)
 
-        def iter_body(loop):
+        def iter_body(loop, run=None, live=None):
             """Insert the current (free-cell) proposal, then evaluate the
             next one. A step whose first evaluation declines pays one seed
             evaluation and no insert/refine pass."""
@@ -613,32 +688,31 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
             # ---- patch the inserted row into the fast-eval state ----
             rel = ins_pos - ego_pos
-            d_row = torch.linalg.norm(rel)
+            d_row = torch.linalg.norm(rel, dim=-1)
             r_row_emb = dec.embed_a2sa_r(torch.stack([
                 d_row, angle_between_2d_vectors(ego_hv, rel),
-                wrap_angle(ins_head - ego_head)])[None])
+                wrap_angle(ins_head - ego_head)], -1)[:, None])
             fast = dict(fast)
             if use_sknf:
                 # the full kernel recomputes chains and K/V from the raw
                 # inputs: only the raw row and its geometry embedding change
                 fast["agent_col"] = _put(fast["agent_col"], slot, new_feat,
                                          do_insert)
-                fast["r_sa"] = _put(fast["r_sa"], slot, r_row_emb[0],
+                fast["r_sa"] = _put(fast["r_sa"], slot, r_row_emb[:, 0],
                                     do_insert)
             else:
-                row_chain = dec.seed_key_chain(new_feat[None, :])[:, 0]
+                row_chain = dec.seed_key_chain(new_feat[:, None, :])
                 K_rows, V_rows = [], []
                 for i in range(L_s):
                     layer = dec.a2sa_attn_layers[i]
-                    ka, va = SF.precompute_src_kv(layer, row_chain[i][None],
-                                                  sf_dt)
+                    ka, va = SF.precompute_src_kv(layer, row_chain[i], sf_dt)
                     kar, var_ = SF.r_contrib(layer, r_row_emb, sf_dt)
-                    K_rows.append((ka + kar)[0])
-                    V_rows.append((va + var_)[0])
-                fast["K_a"] = _put(fast["K_a"], slot, torch.stack(K_rows),
-                                   do_insert, dim=1)
-                fast["V_a"] = _put(fast["V_a"], slot, torch.stack(V_rows),
-                                   do_insert, dim=1)
+                    K_rows.append((ka + kar)[:, 0])
+                    V_rows.append((va + var_)[:, 0])
+                fast["K_a"] = _put(fast["K_a"], slot,
+                                   torch.stack(K_rows, 1), do_insert, dim=2)
+                fast["V_a"] = _put(fast["V_a"], slot,
+                                   torch.stack(V_rows, 1), do_insert, dim=2)
             fast["a2sa_mask"] = _put(fast["a2sa_mask"], slot,
                                      d_row <= cfg.pl2seed_radius, do_insert)
             if cfg.use_grid_token:
@@ -651,7 +725,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             # after a successful insert
             probs = _put(probs, n_new + 1, prop["enter_prob"], do_insert)
             n_new = n_new + do_insert.to(i32)
-            prop = eval_seed(slim, fast, p)
+            prop = eval_seed(slim, fast, p, run, live)
             return slim, prop, n_new, probs, p + prop["n_draws"], fast, recs
 
         # The loop exits as soon as the seed head says stop, the budget runs
@@ -660,7 +734,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         # every seed-stack evaluation (rejection retries included) does in
         # the reference.
         K_rec = max(limit, 1)
-        zeros = lambda *s, dtype=f32: torch.zeros(s, dtype=dtype,
+        zeros = lambda *s, dtype=f32: torch.zeros((B, *s), dtype=dtype,
                                                   device=device)
         recs0 = dict(ok=zeros(K_rec, dtype=torch.bool),
                      slot=zeros(K_rec, dtype=i32), pos_pre=zeros(K_rec, 2),
@@ -679,31 +753,39 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                     & ~loop[1]["occupied"])
 
         if cfg.insertion_fixed_trip:
-            # exactly insert_limit iterations, a stopped state frozen by a
+            # exactly insert_limit iterations, a stopped lane frozen by a
             # full-state select: no host read
             for _ in range(limit):
                 run = running(loop)
                 loop = _tree_where(run, iter_body(loop), loop)
         else:
+            # while any lane runs: one host read of the lanes' flags per
+            # iteration; the stopped lanes' new state is discarded
             while True:
                 rollout.host_reads += 1
-                if not bool(running(loop)):
+                run = running(loop)
+                live = run.tolist()
+                if not any(live):
                     break
-                loop = iter_body(loop)
+                if all(live):
+                    loop = iter_body(loop)
+                else:
+                    loop = _tree_where(run, iter_body(loop, run, live), loop)
         slim, _, n_new, probs, _, _, recs = loop
         carry = _apply_inserts(carry, slim, recs, n_new, c, ego_head)
         return carry, n_new, probs
 
     def _occ_values(occ_vec):
-        """[L_s, D] occ2sa values (the single key's value projection) of
-        an occupancy vector."""
+        """[B, L_s, D] occ2sa values (the single key's value projection) of
+        each lane's occupancy vector."""
         occ_emb = dec.embed_occ(occ_vec)
         return torch.stack([SF.occ_value(dec.occ2sa_attn_layers[i], occ_emb,
-                                         sf_dt) for i in range(L_s)])
+                                         sf_dt) for i in range(L_s)], 1)
 
     def _decode_pos(g_idx, ego_pos, ego_head):
-        centered = _at(grid_xy, g_idx)
-        return centered @ rot_mat_2d(ego_head - math.pi / 2) + ego_pos
+        centered = grid_xy[g_idx.long()]
+        return _vecmat(centered, rot_mat_2d(ego_head - math.pi / 2)) \
+            + ego_pos
 
     def _decode_heading(idx):
         return (idx * cfg.angle_interval - 180.0) / 360.0 * (2 * math.pi)
@@ -718,29 +800,30 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             tables["grid_table"][G // 2][None])[0]
 
     def _insert_col_feat(tables, head_slot, g_idx, type_idx, shape_pred):
-        """Fused feature of the inserted agent at its enter column only
-        (pre-bos columns are masked by the temporal bos clamp, later ones
-        refreshed by each motion step): motion = MOTION_GAP, bos token
-        embedding, enter state."""
-        return _fuse(tables, tables["bos_token"][None],
-                     torch.full((1, 2), E.MOTION_GAP, device=device),
-                     hv_of(head_slot)[None], type_idx.reshape(1),
-                     shape_pred[None], vec(ENTER_STATE, dtype=i32),
-                     g_idx.reshape(1))[0]
+        """Fused feature [B, D] of each lane's inserted agent at its enter
+        column only (pre-bos columns are masked by the temporal bos clamp,
+        later ones refreshed by each motion step): motion = MOTION_GAP, bos
+        token embedding, enter state."""
+        B = head_slot.shape[0]
+        return _fuse(tables, tables["bos_token"].expand(B, D),
+                     torch.full((B, 2), E.MOTION_GAP, device=device),
+                     hv_of(head_slot), type_idx, shape_pred,
+                     torch.full((B,), ENTER_STATE, dtype=i32, device=device),
+                     g_idx)
 
     def _do_insert(slim, recs, n_new, slot, do_insert, next_pos, g_idx,
                    type_idx, shape_pred, ego_pos, ego_head, cand, tables,
                    seed):
-        """Refine + record one insertion against the column-c loop state;
-        every write is masked by `do_insert`. Full-carry row writes are
-        deferred to `_apply_inserts` after the loop."""
-        onehot = torch.arange(A, device=device) == slot
-        m1 = onehot & do_insert
+        """Refine + record one insertion per lane against the column-c loop
+        state; every write is masked by `do_insert`. Full-carry row writes
+        are deferred to `_apply_inserts` after the loop."""
+        onehot = torch.arange(A, device=device) == slot[:, None]   # [B, A]
+        m1 = onehot & do_insert[:, None]
 
         # column-slice activation at the pre-refine pose
         active = slim["active"] | m1
-        pos_c = torch.where(m1[:, None], next_pos, slim["pos_c"])
-        head_c = torch.where(m1, ego_head, slim["head_c"])
+        pos_c = torch.where(m1[..., None], next_pos[:, None], slim["pos_c"])
+        head_c = torch.where(m1, ego_head[:, None], slim["head_c"])
         inter_c = slim["inter_c"] | m1
 
         # ---- heading/offset refine on the inserted agent's SUBGRAPH: only
@@ -748,48 +831,52 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         # cannot influence it, so the pass runs on [1 + K] gathered rows
         col_feat = _insert_col_feat(tables, ego_head, g_idx, type_idx,
                                     shape_pred)
-        slot_pos, slot_head = _at(pos_c, slot), _at(head_c, slot)
+        slot_pos, slot_head = _rows(pos_c, slot), _rows(head_c, slot)
         slot_hv = hv_of(slot_head)
         key_ok = inter_c & active & ~onehot
-        idx_a, val_a = topk_neighbors(slot_pos[None], pos_c, REFINE_A2SA_K,
-                                      cfg.a2sa_radius, key_mask=key_ok)
-        idx_a, val_a = idx_a[0], val_a[0]
-        rel = pos_c[idx_a] - slot_pos[None]
+        idx_a, val_a = topk_neighbors(slot_pos[:, None], pos_c,
+                                      REFINE_A2SA_K, cfg.a2sa_radius,
+                                      key_mask=key_ok)
+        idx_a, val_a = idx_a[:, 0], val_a[:, 0]
+        rel = _rows(pos_c, idx_a) - slot_pos[:, None]
         r_aa = stack3(torch.linalg.norm(rel, dim=-1),
-                      angle_between_2d_vectors(slot_hv[None], rel),
-                      wrap_angle(head_c[idx_a] - slot_head))
-        idx_p, val_p = topk_neighbors(slot_pos[None], cand["pos"],
+                      angle_between_2d_vectors(slot_hv[:, None], rel),
+                      wrap_angle(_rows(head_c, idx_a) - slot_head[:, None]))
+        idx_p, val_p = topk_neighbors(slot_pos[:, None], cand["pos"],
                                       REFINE_PL2SA_K, cfg.pl2sa_radius,
                                       key_mask=cand["ok"])
-        idx_p, val_p = idx_p[0], val_p[0]
-        rel_p = cand["pos"][idx_p] - slot_pos[None]
+        idx_p, val_p = idx_p[:, 0], val_p[:, 0]
+        rel_p = _rows(cand["pos"], idx_p) - slot_pos[:, None]
         r_pp = stack3(torch.linalg.norm(rel_p, dim=-1),
-                      angle_between_2d_vectors(slot_hv[None], rel_p),
-                      wrap_angle(cand["orient"][idx_p] - slot_head))
+                      angle_between_2d_vectors(slot_hv[:, None], rel_p),
+                      wrap_angle(_rows(cand["orient"], idx_p)
+                                 - slot_head[:, None]))
 
-        x_sub = torch.cat([col_feat[None], slim["rawf_c"][idx_a]], 0)
+        x_sub = torch.cat([col_feat[:, None], _rows(slim["rawf_c"], idx_a)],
+                          1)
+        pl_x = _rows(cand["x"], idx_p)
         if use_refk:
-            # the whole refine pass in one kernel on a padded 32-row
-            # neighbourhood: row 0 the insert, rows 1..24 its agent keys
-            # (their relations there, zero rows past them, all masked but
-            # the real ones); map key k and its relation in row k
-            R_, Ka = REFINE_PL2SA_K, idx_a.shape[0]
+            # the whole refine pass in one kernel (one lane) on a padded
+            # 32-row neighbourhood: row 0 the insert, rows 1..24 its agent
+            # keys (their relations there, zero rows past them, all masked
+            # but the real ones); map key k and its relation in row k
+            R_, Ka = REFINE_PL2SA_K, idx_a.shape[1]
             rdt = seed["refine_pack"].dtype
             x_pad = torch.zeros((R_, D), device=device)
-            x_pad[:1 + Ka] = x_sub
+            x_pad[:1 + Ka] = x_sub[0]
             raa_pad = torch.zeros((R_, D), dtype=rdt, device=device)
-            raa_pad[1:1 + Ka] = dec.embed_a2a_r(r_aa)
+            raa_pad[1:1 + Ka] = dec.embed_a2a_r(r_aa[0])
             ma_pad = torch.zeros(R_, dtype=torch.bool, device=device)
-            ma_pad[1:1 + Ka] = val_a
+            ma_pad[1:1 + Ka] = val_a[0]
             head_logits, off = RFK.refine_kernel(
-                seed["refine_pack"], x_pad, cand["x"][idx_p],
-                dec.embed_pl2a_r(r_pp), val_p, raa_pad, ma_pad,
+                seed["refine_pack"], x_pad, pl_x[0],
+                dec.embed_pl2a_r(r_pp[0]), val_p[0], raa_pad, ma_pad,
                 cfg.num_heads, cfg.head_dim)
-            heads = dict(head_logits=head_logits,
-                         offset_xy=torch.tanh(off) * 2.0)
+            heads = dict(head_logits=head_logits[None],
+                         offset_xy=torch.tanh(off)[None] * 2.0)
         else:
-            refined = dec.refine_column_sub(x_sub, cand["x"][idx_p], r_pp,
-                                            val_p, r_aa, val_a)
+            refined = dec.refine_column_sub(x_sub, pl_x, r_pp, val_p, r_aa,
+                                            val_a)
             heads = {k: v.to(f32)
                      for k, v in dec.refine_heads(refined).items()}
         if cfg.use_head_token:
@@ -802,15 +889,16 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
         # refined pose into the column state (the next iterations' refine
         # neighbours see it)
-        pos_c = torch.where(m1[:, None], new_pos, pos_c)
-        head_c = torch.where(m1, new_head, head_c)
+        pos_c = torch.where(m1[..., None], new_pos[:, None], pos_c)
+        head_c = torch.where(m1, new_head[:, None], head_c)
 
         # final feature with the refined pose at the enter column only
         final_feat = _insert_col_feat(tables, new_head, g_idx, type_idx,
                                       shape_pred)
-        new_row_c = torch.where(do_insert, final_feat,
-                                _at(slim["rawf_c"], slot))
-        rawf_c = torch.where(onehot[:, None], new_row_c, slim["rawf_c"])
+        new_row_c = torch.where(do_insert[:, None], final_feat,
+                                _rows(slim["rawf_c"], slot))
+        rawf_c = torch.where(onehot[..., None], new_row_c[:, None],
+                             slim["rawf_c"])
         slim = dict(slim, active=active, pos_c=pos_c, head_c=head_c,
                     inter_c=inter_c, rawf_c=rawf_c)
 
@@ -827,34 +915,38 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         return slim, recs, new_row_c, new_pos, new_head
 
     def _apply_inserts(carry, slim, recs, n_new, c, ego_head):
-        """Write the <= insert_limit accepted insertions of one step into
-        the full carry in one vectorised pass (in place), plus the
+        """Write each lane's <= insert_limit accepted insertions of one step
+        into the full carry in one vectorised pass (in place), plus the
         prediction placeholders of the elapsed segment. Each accepted
         record owns a distinct free slot."""
-        hits = recs["ok"][:, None] & (
-            recs["slot"][:, None].long()
-            == torch.arange(A, device=device)[None])            # [K, A]
-        hit = hits.any(0)                                       # [A]
-        sel = _argmax_first(hits, 0)                            # [A]
-        h1, h2 = hit[:, None], hit[:, None, None]
-        colr = torch.arange(Ti, device=device)[None]
-        carry.pos[:, c] = torch.where(h1, recs["pos"][sel], carry.pos[:, c])
-        carry.head[:, c] = torch.where(hit, recs["head"][sel],
-                                       carry.head[:, c])
-        carry.state[:, c] = torch.where(hit, ENTER_STATE, carry.state[:, c])
+        hits = recs["ok"][..., None] & (
+            recs["slot"][..., None].long()
+            == torch.arange(A, device=device))                # [B, K, A]
+        hit = hits.any(1)                                     # [B, A]
+        sel = _argmax_first(hits, 1)                          # [B, A]
+        pick = lambda x: _rows(x, sel)
+        h1, h2 = hit[..., None], hit[..., None, None]
+        colr = torch.arange(Ti, device=device)[None, None]
+        carry.pos[:, :, c] = torch.where(h1, pick(recs["pos"]),
+                                         carry.pos[:, :, c])
+        carry.head[:, :, c] = torch.where(hit, pick(recs["head"]),
+                                          carry.head[:, :, c])
+        carry.state[:, :, c] = torch.where(hit, ENTER_STATE,
+                                           carry.state[:, :, c])
         # -2 at the enter column = bos sentinel (token emb -> bos row); the
         # rest of the row is already -1 (inactive-slot init)
-        carry.token[:, c] = torch.where(hit, -2, carry.token[:, c])
-        carry.grid[:, c] = torch.where(hit, recs["g"][sel], carry.grid[:, c])
-        carry.raw_feat[:, c] = torch.where(h1, recs["feat"][sel],
-                                           carry.raw_feat[:, c])
+        carry.token[:, :, c] = torch.where(hit, -2, carry.token[:, :, c])
+        carry.grid[:, :, c] = torch.where(hit, pick(recs["g"]),
+                                          carry.grid[:, :, c])
+        carry.raw_feat[:, :, c] = torch.where(h1, pick(recs["feat"]),
+                                              carry.raw_feat[:, :, c])
         carry = carry._replace(
             valid=torch.where(h1, colr > c, carry.valid),
             interact=torch.where(h1, colr >= c, carry.interact),
             temporal=carry.temporal | h1,
             slot_active=slim["active"],
-            type_=torch.where(hit, recs["type"][sel], carry.type_),
-            shape=torch.where(h1, recs["shape"][sel], carry.shape),
+            type_=torch.where(hit, pick(recs["type"]), carry.type_),
+            shape=torch.where(h1, pick(recs["shape"]), carry.shape),
             n_inserted=carry.n_inserted + n_new)
 
         # pred placeholders for the elapsed segment: pre-refine pose, ego
@@ -863,12 +955,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         if t_step > 0:
             seg = min(max((t_step - 1) * SHIFT, 0), R - SHIFT)
             cols = slice(seg, seg + SHIFT)
-            carry.pred_traj[:, cols] = torch.where(
-                h2, recs["pos_pre"][sel][:, None], carry.pred_traj[:, cols])
-            carry.pred_head[:, cols] = torch.where(h1, ego_head,
-                                                   carry.pred_head[:, cols])
-            carry.pred_state[:, cols] = torch.where(
-                h1, float(ENTER_STATE), carry.pred_state[:, cols])
+            carry.pred_traj[:, :, cols] = torch.where(
+                h2, pick(recs["pos_pre"])[:, :, None],
+                carry.pred_traj[:, :, cols])
+            carry.pred_head[:, :, cols] = torch.where(
+                h1, ego_head[:, None, None], carry.pred_head[:, :, cols])
+            carry.pred_state[:, :, cols] = torch.where(
+                h1, float(ENTER_STATE), carry.pred_state[:, :, cols])
         return carry
 
     # ---------------------------------------------------------------- #
@@ -877,11 +970,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
     def _step(carry, t, pt, tables, av, init_active, seed, trunk_pack):
         c = t + 1  # current column
+        B = carry.pos.shape[0]
+        lane = arange_on(B, device)
 
         # 1. insertion (skipped at t=0)
         if cfg.disable_insertion or t == 0:
-            n_new = torch.zeros((), dtype=i32, device=device)
-            seed_probs = torch.zeros(limit + 1, device=device)
+            n_new = torch.zeros(B, dtype=i32, device=device)
+            seed_probs = torch.zeros((B, limit + 1), device=device)
         else:
             with record_function("rollout.insertion"):
                 carry, n_new, seed_probs = _insertion(carry, c, pt, tables,
@@ -897,7 +992,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
         next_state = _argmax_first(state_logits, -1).to(i32)
         next_state = torch.where(next_state == 2, EXIT_STATE, next_state)
-        next_state[av] = VALID_STATE
+        next_state[lane, av] = VALID_STATE
         if not cfg.use_state_token:
             next_state = torch.where(next_state == EXIT_STATE, VALID_STATE,
                                      next_state)
@@ -907,35 +1002,36 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                                  INVALID_STATE).to(i32)
 
         # 3. de-tokenize: contour trajectory in the world frame
-        pos_c, head_c = carry.pos[:, c], carry.head[:, c]
+        pos_c, head_c = carry.pos[:, :, c], carry.head[:, :, c]
         # direct (type, token) gather
         tokc = token_traj_all[torch.clamp(carry.type_, 0, 2).long(),
                               torch.clamp(next_token, min=0).long()]
-        world = torch.einsum("asci,aij->ascj", tokc, rot_mat_2d(head_c)) \
-            + pos_c[:, None, None, :]
-        seg_traj = world[:, 1:].mean(dim=2)                     # [A, 5, 2]
-        seg_head = heading_from_contour(world[:, 1:])           # [A, 5]
+        world = torch.einsum("basci,baij->bascj", tokc, rot_mat_2d(head_c)) \
+            + pos_c[:, :, None, None, :]
+        seg_traj = world[:, :, 1:].mean(dim=3)                  # [B, A, 5, 2]
+        seg_head = heading_from_contour(world[:, :, 1:])        # [B, A, 5]
 
         is_invalid = next_state == INVALID_STATE
-        new_pos = torch.where(is_invalid[:, None], 0.0,
-                              world[:, -1].mean(dim=1))
+        new_pos = torch.where(is_invalid[..., None], 0.0,
+                              world[:, :, -1].mean(dim=2))
         new_head = torch.where(is_invalid, 0.0,
-                               heading_from_contour(world[:, -1]))
+                               heading_from_contour(world[:, :, -1]))
 
         # ego-relative grid for the new column
-        g_new, _ = attr.encode_pos(new_pos, new_pos[av][None], new_head[av])
+        g_new, _ = attr.encode_pos(new_pos, _rows(new_pos, av)[:, None],
+                                   _rows(new_head, av)[:, None])
         g_new = torch.where(is_invalid | ~carry.slot_active, -1,
                             g_new).to(i32)
         tok_new = torch.where(is_invalid, -1, next_token).to(i32)
 
         c1 = c + 1
-        carry.pos[:, c1] = new_pos
-        carry.head[:, c1] = new_head
-        carry.state[:, c1] = next_state
-        carry.token[:, c1] = tok_new
-        carry.grid[:, c1] = g_new
-        carry.valid[:, c1] &= ~is_invalid
-        carry.interact[:, c1] &= ~is_invalid
+        carry.pos[:, :, c1] = new_pos
+        carry.head[:, :, c1] = new_head
+        carry.state[:, :, c1] = next_state
+        carry.token[:, :, c1] = tok_new
+        carry.grid[:, :, c1] = g_new
+        carry.valid[:, :, c1] &= ~is_invalid
+        carry.interact[:, :, c1] &= ~is_invalid
 
         # token / categorical embeddings at c+1
         t_idx = map_token_index(tok_new, cfg.token_size).long()
@@ -949,18 +1045,18 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         as_seed = is_invalid | init_active if cfg.ref_rollout_quirks \
             else is_invalid
         te_new = dec.type_a_emb(torch.where(as_seed, SEED_TYPE, carry.type_))
-        se_new = dec.shape_emb(torch.where(as_seed[:, None],
+        se_new = dec.shape_emb(torch.where(as_seed[..., None],
                                            INVALID_SHAPE_VALUE, carry.shape))
 
         # 4. refresh fused features at c+1 (incremental)
-        motion_new = carry.pos[:, c1] - carry.pos[:, c]
+        motion_new = carry.pos[:, :, c1] - carry.pos[:, :, c]
         inv_new = is_invalid
-        motion_new = torch.where(inv_new[:, None], E.INVALID_MOTION_VALUE,
+        motion_new = torch.where(inv_new[..., None], E.INVALID_MOTION_VALUE,
                                  motion_new)
-        prev_inv = carry.state[:, c] == INVALID_STATE
-        motion_new = torch.where((prev_inv & ~inv_new)[:, None],
+        prev_inv = carry.state[:, :, c] == INVALID_STATE
+        motion_new = torch.where((prev_inv & ~inv_new)[..., None],
                                  E.MOTION_GAP, motion_new)
-        motion_new = torch.where((~prev_inv & inv_new)[:, None],
+        motion_new = torch.where((~prev_inv & inv_new)[..., None],
                                  -E.MOTION_GAP, motion_new)
         hv_new = hv_of(new_head)
         feat = torch.stack([torch.linalg.norm(motion_new, dim=-1),
@@ -972,13 +1068,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             parts.append(tables["grid_table"][
                 torch.where(g_new >= 0, g_new, G).long()])
         feat_new = dec.fusion_emb(torch.cat(parts, dim=-1))
-        carry.raw_feat[:, c1] = feat_new
+        carry.raw_feat[:, :, c1] = feat_new
 
         # 5. write 10 Hz predictions for this segment
         seg = slice(t * SHIFT, (t + 1) * SHIFT)
-        carry.pred_traj[:, seg] = seg_traj
-        carry.pred_head[:, seg] = seg_head
-        carry.pred_state[:, seg] = next_state[:, None].to(f32)
+        carry.pred_traj[:, :, seg] = seg_traj
+        carry.pred_head[:, :, seg] = seg_head
+        carry.pred_state[:, :, seg] = next_state[..., None].to(f32)
 
         return carry, dict(n_inserted=n_new, seed_probs=seed_probs)
 
@@ -986,32 +1082,36 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     # outputs
     # ---------------------------------------------------------------- #
 
-    def _finalize(carry, outs, scenario, inputs, init_active, av):
+    def _finalize(carry, outs, scenario, inputs, init_active):
         Hs = cfg.num_historical_steps
+        B = carry.pos.shape[0]
         tok = inputs.tokens
-        zeros = lambda *s: torch.zeros(s, device=device)
-        pred_traj = torch.cat([zeros(A, Hs, 2), carry.pred_traj], 1)
-        pred_head = torch.cat([zeros(A, Hs), carry.pred_head], 1)
-        pred_state = torch.cat([zeros(A, Hs), carry.pred_state], 1)
+        zeros = lambda *s: torch.zeros((B, A, *s), device=device)
+        pred_traj = torch.cat([zeros(Hs, 2), carry.pred_traj], 2)
+        pred_head = torch.cat([zeros(Hs), carry.pred_head], 2)
+        pred_state = torch.cat([zeros(Hs), carry.pred_state], 2)
 
         # stitch history from tokens
-        hist_tok = torch.clamp(tok.token_idx[:, :H], min=0).long()
-        htraj = token_traj_all[torch.clamp(carry.type_, 0, 2).long()[:, None],
-                               hist_tok]                   # [A, H, 6, 4, 2]
-        rot = rot_mat_2d(tok.token_heading[:, 0])
-        htraj = torch.einsum("ahsci,aij->ahscj", htraj, rot) \
-            + tok.token_pos[:, 0][:, None, None, None, :]
-        hist_xy = htraj[:, :, 1:].mean(dim=3).reshape(A, H * SHIFT, 2)
-        hist_hd = heading_from_contour(htraj[:, :, 1:]).reshape(A, H * SHIFT)
+        hist_tok = torch.clamp(tok.token_idx[:, :, :H], min=0).long()
+        htraj = token_traj_all[torch.clamp(carry.type_, 0, 2).long()[
+            ..., None], hist_tok]                       # [B, A, H, 6, 4, 2]
+        rot = rot_mat_2d(tok.token_heading[:, :, 0])
+        htraj = torch.einsum("bahsci,baij->bahscj", htraj, rot) \
+            + tok.token_pos[:, :, 0][:, :, None, None, None, :]
+        hist_xy = htraj[:, :, :, 1:].mean(dim=4).reshape(B, A, H * SHIFT, 2)
+        hist_hd = heading_from_contour(htraj[:, :, :, 1:]).reshape(
+            B, A, H * SHIFT)
         ia = init_active
-        pred_traj[:, 1:Hs] = torch.where(ia[:, None, None], hist_xy, 0.0)
-        pred_head[:, 1:Hs] = torch.where(ia[:, None], hist_hd, 0.0)
-        pred_traj[:, 0] = torch.where(
-            ia[:, None], scenario.agents.position[:, 0, :2], 0.0)
-        pred_head[:, 0] = torch.where(ia, scenario.agents.heading[:, 0], 0.0)
-        hist_state = torch.repeat_interleave(tok.state_idx[:, :H], SHIFT, 1)
-        pred_state[:, 1:Hs] = torch.where(ia[:, None], hist_state.to(f32),
-                                          0.0)
+        pred_traj[:, :, 1:Hs] = torch.where(ia[..., None, None], hist_xy, 0.0)
+        pred_head[:, :, 1:Hs] = torch.where(ia[..., None], hist_hd, 0.0)
+        pred_traj[:, :, 0] = torch.where(
+            ia[..., None], scenario.agents.position[:, :, 0, :2], 0.0)
+        pred_head[:, :, 0] = torch.where(ia, scenario.agents.heading[:, :, 0],
+                                         0.0)
+        hist_state = torch.repeat_interleave(tok.state_idx[:, :, :H], SHIFT,
+                                             2)
+        pred_state[:, :, 1:Hs] = torch.where(ia[..., None],
+                                             hist_state.to(f32), 0.0)
         pred_valid = (pred_state != INVALID_STATE) & \
             (pred_state != ENTER_STATE)
 
@@ -1038,7 +1138,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             # map it to -1 (the reference pads inserted rows with -1)
             next_token_idx=torch.where(
                 (carry.token == -2)
-                & (torch.arange(Ti, device=device)[None] >= H),
+                & (torch.arange(Ti, device=device)[None, None] >= H),
                 -1, carry.token).to(i32),
             next_state_idx=carry.state.to(i32),
             grid_index=carry.grid,

@@ -1,11 +1,14 @@
 """Where a rollout's time goes on the card: one profiled flagship rollout.
 
     python -m infgen_torch.trace_rollout [--config configs/ours_long_term.yaml]
-        [--fused-block] [--pallas-attention]
+        [--fused-block] [--pallas-attention] [--batch B]
 
 (`--config configs/ours_long_term_latency.yaml` traces the latency preset,
 with its three kernels; `--fused-block` and `--pallas-attention` the
-flagship's two variants, as the command line's rollout takes them.)
+flagship's two variants, as the command line's rollout takes them;
+`--batch B` serves B synthetic scenarios through the command line's
+batched rollout, RolloutServer.rollout_batch with at most B lanes, and
+reports per batched token step.)
 
 Builds the model from the config's seed, runs one short warm-up rollout,
 times one full rollout without the profiler (host clock around work that
@@ -37,7 +40,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from infgen_torch.cli import (add_variant_flags, apply_variant_flags,
-                              build_model, build_tokenizers, run_rollouts)
+                              build_model, build_tokenizers, run_batched,
+                              run_rollouts)
 from infgen_torch.config import SHIFT, load_config
 from infgen_torch.utils.device import resolve_device
 
@@ -123,6 +127,9 @@ def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch.trace_rollout")
     p.add_argument("--config", default="configs/ours_long_term.yaml")
     add_variant_flags(p)
+    p.add_argument("--batch", type=int, default=None,
+                   help="trace B synthetic scenarios served in batches of "
+                        "at most B lanes")
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = apply_variant_flags(load_config(args.config), args)
@@ -131,11 +138,20 @@ def main(argv=None):
     n_steps = cfg.num_recurrent_steps_val // SHIFT
 
     def once(frames=None):
+        if args.batch:
+            s = run_batched(cfg, dev, args.batch, args.batch, model=model,
+                            tokenizers=tokenizers,
+                            num_recurrent_steps=frames)[1]
+            s["ms_per_token_step"] = [s["ms_per_batched_token_step"]]
+            return s
         return run_rollouts(cfg, dev, 1, model=model, tokenizers=tokenizers,
                             num_recurrent_steps=frames)[1]
 
     once(frames=5 * SHIFT)                                  # warm-up
     plain = once()
+    if args.batch:
+        # kernels per batched token step: the steps of every batch
+        n_steps *= len(plain["batches"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize(dev)
@@ -147,9 +163,12 @@ def main(argv=None):
         device=torch.cuda.get_device_name(dev), config=args.config,
         fused_block=cfg.use_fused_block,
         pallas_attention=cfg.use_pallas_attention,
+        batch=args.batch, batches=plain.get("batches"),
+        agent_steps_per_s=plain.get("agent_steps_per_s"),
         token_steps=n_steps,
         wall_ms_per_step=plain["ms_per_token_step"][0],
-        agents_inserted=plain["agents_inserted"][0],
+        agents_inserted=(plain["agents_inserted"] if args.batch
+                         else plain["agents_inserted"][0]),
         kernel_launches=traced["kernel_launches"],
         host_reads=traced["host_reads"],
         **summarize(prof, n_steps, wall_ms))), flush=True)

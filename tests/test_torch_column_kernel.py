@@ -30,7 +30,7 @@ from infgen_torch.convert import load_flax_params
 from infgen_torch.model.layers import DenseAttention, MLPLayer
 from infgen_torch.ops import column_kernel as CK
 
-from test_torch_layers import fill_tree
+from test_torch_layers import fill_tree, one_torch_thread  # noqa: F401
 
 A, D, H, Hd, L, W, K = 16, 32, 2, 16, 3, 12, 5
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}

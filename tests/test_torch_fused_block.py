@@ -33,7 +33,7 @@ from infgen_torch.model.layers import DenseAttention
 from infgen_torch.ops import fused_block as FB
 
 from test_torch_column_kernel import D, H, Hd, attention_tree
-from test_torch_layers import fill_tree
+from test_torch_layers import fill_tree, one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 CASES = {"square": (37, 37), "shared_keys": (37, 53), "per_query": (37, 12),

@@ -31,6 +31,8 @@ from infgen_torch.ops import pallas_attention as PA
 from infgen_torch.ops import refine_kernel as RK
 from infgen_torch.ops import seed_kernel as SK
 
+from test_torch_layers import one_torch_thread  # noqa: F401 (autouse)
+
 ATOL = 1e-5
 KEY_TILE = 32                 # the kernel's keys per pass
 WIDTHS = {"flagship": (128, 8), "narrow": (32, 2),

@@ -42,6 +42,19 @@ SMALL = dict(max_agents=16, max_map_tokens=64, num_agent_layers=2,
              head_dim=16, num_freq_bands=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for each port test module: its ops are small, and
+    the suite's parallel workers otherwise keep each other's threads
+    spinning (on an 8-core CPU the port's files took 4.9 minutes of wall
+    and 37 of CPU on 4 workers with torch's default threads, 0.9 and 3
+    with one). Other modules in the worker get the count back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_flax_params(jcfg, seed: int = 0) -> dict:
     """A complete flax params tree of the JAX InfGenModel for `jcfg`, its
     structure from jax.eval_shape (no init runs), its leaves from a numpy

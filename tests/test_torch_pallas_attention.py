@@ -39,7 +39,7 @@ from infgen_torch.model.map_encoder import MapEncoder
 from infgen_torch.ops import pallas_attention as PA
 from infgen_torch.tokenizers.vocab import load_map_vocab
 
-from test_torch_layers import fill_tree
+from test_torch_layers import fill_tree, one_torch_thread  # noqa: F401
 
 ATOL = 5e-5
 KH, Kd, KDr = 4, 16, 32          # kernel cases: heads, head dim, r width

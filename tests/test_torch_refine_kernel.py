@@ -26,6 +26,8 @@ from infgen_torch.ops import refine_kernel as RK
 from test_torch_column_kernel import (D, H, Hd, Layers, attention_tree,
                                       mlp_tree)
 
+from test_torch_layers import one_torch_thread  # noqa: F401 (autouse)
+
 L, R, KA, AH = 3, 32, 24, 120
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 _HEADS = {"seed_heading_rel_token_predict_head": AH,

@@ -7,6 +7,15 @@ streams need aligning. The JAX side runs its seed kernel in Pallas interpret
 mode, as its own tests do; the port's wrapper takes the plain version for
 CPU tensors. Token ids, state ids, slot activity and insertion counts must be
 bitwise equal; poses agree within 1e-3 (fp32 reduction order only).
+
+The horizon, 70 frames, gives 14 token steps: Ti = 16 columns, past the
+temporal window of W = 12, so the window evicts columns and inserted agents'
+bos columns leave it while they live (tests/test_rollout_parity_long.py's
+forced-insertion regime). There, as in that test, a token id may differ
+only as a certified near-tie argmax flip (PARITY.md): the JAX logits of the
+two candidates within 5e-3 of each other and the top two, in at most 1% of
+cells; states, insertion counts and attributes stay bitwise. The JAX
+logits come from a debug compile made only when a token differs.
 """
 
 import filecmp
@@ -35,19 +44,22 @@ from infgen_torch.data.scenario import to_device
 from infgen_torch.data.synthetic import make_synthetic_scenario
 from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.rollout.closed_loop import make_rollout_fn
+from infgen_torch.rollout.serving import RolloutServer
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
 from infgen_torch.utils.device import resolve_device
 
-from test_torch_layers import random_flax_params
+from test_torch_layers import (  # noqa: F401 (one_torch_thread: autouse)
+    random_flax_params, one_torch_thread)
 
 CFG = dict(max_agents=16, max_map_tokens=128, num_agent_layers=3,
            num_seed_layers=3, num_map_layers=1, hidden_dim=32, num_heads=2,
-           head_dim=16, num_freq_bands=8, num_recurrent_steps_val=30,
+           head_dim=16, num_freq_bands=8, num_recurrent_steps_val=70,
            use_seed_kernel=True, compute_dtype="float32",
            motion_beam_size=1, insert_beam_size=1)
 POSE_TOL = 1e-3
+NEAR_TIE = 5e-3          # PARITY.md's certified flip: logit gap below this
 EXACT = ("next_token_idx", "next_state_idx", "slot_active", "n_inserted",
          "per_step_inserted", "grid_index", "pred_type", "valid_mask")
 CLOSE = ("pos_a", "head_a", "pred_traj", "pred_head", "pred_state",
@@ -86,36 +98,114 @@ def both():
     load_flax_params(model, params)
     model.eval()
 
-    runs = {}
+    runs, logits = {}, {}
     for mode, over, force in (("insert", {}, True),
                               ("motion", {"disable_insertion": True}, False)):
         jc, c = jcfg.replace(**over), cfg.replace(**over)
-        jfn = j_rollout_fn(JModel(jc, jattr.grid, jattr.grid_size,
-                                  jattr.angle_size), jc, jattr, jmt, jmv,
-                           jit=True, force_insert=force)
+        jmodel = JModel(jc, jattr.grid, jattr.grid_size, jattr.angle_size)
+        jfn = j_rollout_fn(jmodel, jc, jattr, jmt, jmv, jit=True,
+                           force_insert=force)
         jout = jax.device_get(jfn(params, jscen, jinputs,
                                   jax.random.PRNGKey(7)))
         fn = make_rollout_fn(model, c, attr, mt, mv, force_insert=force)
         out = fn(scen, inputs, torch.Generator().manual_seed(7))
         runs[mode] = (jout, {k: _np(v) for k, v in out.items()})
+        logits[mode] = _debug_logits(jmodel, jc, (jattr, jmt, jmv), force,
+                                     (params, jscen, jinputs))
     return dict(jscen=jscen, jinputs=jinputs, scen=scen, inputs=inputs,
-                runs=runs, model=model, cfg=cfg, tok=(attr, mt, mv))
+                runs=runs, logits=logits, model=model, cfg=cfg,
+                tok=(attr, mt, mv))
+
+
+def _debug_logits(jmodel, jcfg, jtok, force, args):
+    """The JAX rollout's per-step token logits [step, A, V], from a second
+    compile with debug=True, made only when called: only a token flip
+    needs them."""
+    def get():
+        jfn = j_rollout_fn(jmodel, jcfg, *jtok, jit=True,
+                           force_insert=force, debug=True)
+        out = jfn(*args, jax.random.PRNGKey(7))
+        return np.asarray(out["debug_token_logits"], np.float64)
+    return get
+
+
+def certified_flips(port_tok, jax_tok, logits, H=2):
+    """Rows whose token ids differ from JAX's, each difference certified as
+    a near-tie argmax flip as tests/test_rollout_parity_long.py certifies
+    them: at most 1% of cells, and at each the two tokens are the top two
+    of the JAX logits (`logits()` [step, A, V]; step s predicts column
+    s + H) with a gap below NEAR_TIE."""
+    diff = np.argwhere(port_tok != jax_tok)
+    assert len(diff) <= max(1, port_tok.size // 100), \
+        f"{len(diff)} token flips of {port_tok.size} cells"
+    if len(diff):
+        logits = logits()
+    for r, c in diff:
+        lg = logits[c - H, r]
+        gap = abs(lg[port_tok[r, c]] - lg[jax_tok[r, c]])
+        assert gap < NEAR_TIE, (f"row {r} col {c}: port {port_tok[r, c]} vs"
+                                f" jax {jax_tok[r, c]}, logit gap {gap:.2e}")
+        assert set(np.argsort(lg)[::-1][:2]) == {port_tok[r, c],
+                                                 jax_tok[r, c]}
+    return sorted({int(r) for r, _ in diff})
+
+
+def assert_matches_jax(out, jout, logits):
+    """EXACT bitwise (token ids up to certified flips) and CLOSE within
+    POSE_TOL on the rows without a flip."""
+    flipped = certified_flips(out["next_token_idx"],
+                              np.asarray(jout["next_token_idx"]), logits)
+    for k in EXACT:
+        if k != "next_token_idx":
+            np.testing.assert_array_equal(out[k], np.asarray(jout[k]),
+                                          err_msg=k)
+    keep = np.setdiff1d(np.arange(out["pos_a"].shape[0]), flipped)
+    for k in CLOSE:
+        a, b = out[k], np.asarray(jout[k])
+        if k != "seed_probs":
+            a, b = a[keep], b[keep]
+        np.testing.assert_allclose(a, b, atol=POSE_TOL, rtol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("mode", ["insert", "motion"])
 def test_rollout_matches_jax(both, mode):
     jout, out = both["runs"][mode]
     assert set(out) == set(jout)
+    # the horizon crosses the temporal window
+    assert out["next_token_idx"].shape[1] > both["cfg"].time_span // 5
+    if mode == "insert":
+        assert_matches_jax(out, jout, both["logits"][mode])
+        # forced insertion really inserted agents and ran the seed path
+        assert int(out["n_inserted"]) > 0
+        return
+    # motion mode: bitwise through every window roll, no flip allowed
     for k in EXACT:
         np.testing.assert_array_equal(out[k], np.asarray(jout[k]), err_msg=k)
     for k in CLOSE:
         np.testing.assert_allclose(out[k], np.asarray(jout[k]),
                                    atol=POSE_TOL, rtol=0, err_msg=k)
-    if mode == "insert":
-        # forced insertion really inserted agents and ran the seed path
-        assert int(out["n_inserted"]) > 0
-    else:
-        assert int(out["n_inserted"]) == 0
+    assert int(out["n_inserted"]) == 0
+
+
+def test_rollout_batch_lane_matches_jax(both):
+    """The fixture's scenario as lane 0 of a two-lane batch through
+    RolloutServer.rollout_batch, beside another scenario: lane 0 equals the
+    JAX package's rollout of it as the single rollout does. No new JAX
+    compile: the fixture's insert-mode output."""
+    attr, mt, mv = both["tok"]
+    cfg = both["cfg"]
+    srv = RolloutServer(cfg, attr, mt, mv, agent_buckets=(cfg.max_agents,),
+                        agent_headroom=0, force_insert=True)
+    scens = [make_synthetic_scenario(cfg, seed=2, num_agents=10),
+             make_synthetic_scenario(cfg, seed=3, num_agents=7)]
+    outs = srv.rollout_batch(both["model"], scens, [7, 8])
+    assert srv.last_dispatch["batches"] == [(cfg.max_agents,
+                                             cfg.max_map_tokens, 2, 2)]
+    jout, single = both["runs"]["insert"]
+    lane0 = {k: _np(v) for k, v in outs[0].items()}
+    assert_matches_jax(lane0, jout, both["logits"]["insert"])
+    assert int(lane0["n_inserted"]) == int(single["n_inserted"]) > 0
+    assert int(outs[1]["n_inserted"]) > 0
 
 
 def test_model_inputs_match_jax(both):
@@ -154,7 +244,7 @@ def test_fixed_trip_matches_early_exit(both):
                          attr, mt, mv, force_insert=True)
     out = {k: _np(v) for k, v in fn(both["scen"], both["inputs"],
                                      torch.Generator().manual_seed(7)).items()}
-    assert fn.host_reads == 1                 # the ego index only
+    assert fn.host_reads == 0      # the ego index is gathered on the device
     ref = both["runs"]["insert"][1]
     for k in EXACT:
         np.testing.assert_array_equal(out[k], ref[k], err_msg=k)

@@ -31,7 +31,8 @@ from infgen_torch.config import Config
 from infgen_torch.ops import seed_fast as SF
 from infgen_torch.ops import seed_kernel as SK
 
-from test_torch_layers import random_flax_params, torch_model
+from test_torch_layers import (  # noqa: F401 (one_torch_thread: autouse)
+    random_flax_params, torch_model, one_torch_thread)
 
 CFG = dict(max_agents=12, max_map_tokens=32, hidden_dim=32, num_heads=2,
            head_dim=16, num_freq_bands=8, num_agent_layers=2,

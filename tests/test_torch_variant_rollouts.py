@@ -39,7 +39,8 @@ from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
 
-from test_torch_layers import random_flax_params
+from test_torch_layers import (  # noqa: F401 (one_torch_thread: autouse)
+    random_flax_params, one_torch_thread)
 from test_torch_rollout import CFG, CLOSE, EXACT, POSE_TOL, _np
 
 VARIANTS = {"fused_block": dict(use_fused_block=True),
