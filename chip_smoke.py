@@ -38,6 +38,20 @@ before the last line):
            128), in batches of up to 8 lanes and one scenario at a time,
            unforced and forced: ms per batched token step, agent-steps/s,
            launches, host reads and peak memory
+  trainable_grad  r_biased_attention_trainable (the kernel's forward, the
+           plain recompute backward) at the training forward's three
+           shapes in fp32, without and with dropout: forward and six
+           gradients against autograd through the plain version, a fully
+           masked query's output and dq 0; kernel ms beside its bound, the
+           backward's ms
+  train    the training main path: the flagship with use_pallas_attention
+           (cli train --pallas-attention) at full width, bf16, dropout,
+           remat, batch 2 (synthetic seeds 0 and 1), 8 steps of
+           Trainer.train_step: finite losses, the last below the first,
+           ms per step, peak memory, and per step exactly the kernel
+           launches and backward calls of 15 eligible sublayers per
+           scenario forward (remat recompute included); then one fp32 step
+           without dropout with the kernel path against the plain one
   rollout  the flagship rollout (configs/ours_long_term.yaml), its two
            variants (use_fused_block, use_pallas_attention: the command
            line's --fused-block / --pallas-attention) and the latency
@@ -1467,7 +1481,7 @@ def check_r_biased_attention(cfg, attr, dev):
             case = f"{name}{'/drop' if drop else ''}"
             errs[case], means[case] = _err(got, ref,
                                            f"r_biased_attention {case}")
-            require(float(got[0, 3].abs().max()) == 0.0,
+            require(float(got.detach()[0, 3].abs().max()) == 0.0,
                     f"r_biased_attention {case}: a fully masked query is "
                     "not 0")
     args = rba_inputs(np.random.default_rng(59), 1, A, A, D, D, H, False,
@@ -1484,6 +1498,206 @@ def check_r_biased_attention(cfg, attr, dev):
                         plain_ms, nbytes, 0, macs_f32=least,
                         bound_ms_direct=bound_of(nbytes, 0, macs, F32)[0],
                         operations_direct=2 * macs)}
+
+
+# --------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------- #
+
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SEEDS = 8, 2, (0, 1)
+# one step's forward against backward with use_pallas_attention on and off
+# (fp32, no dropout): both the port's paths, the same math in another order
+TRAIN_PARITY_TOL = 1e-4
+# gradients of the trainable function against autograd through the plain
+# version: its backward is that recompute, so only the cotangent's path
+# differs (none): held to fp32 summation order relative to each max |g|
+GRAD_TOL = 1e-4
+
+
+def train_eligible(cfg):
+    """Sublayers of one scenario's training forward that reach
+    r_biased_attention_trainable: per agent layer the temporal and the
+    agent-agent one, per seed layer the a2sa one (the JAX package's
+    eligibility rule; pt2a, pt2sa, occ2sa, the refine pass's and the map
+    encoder's calls are 4-D, share r or have one query). 15 at the
+    flagship's 6 agent and 3 seed layers."""
+    return 2 * cfg.num_agent_layers + cfg.num_seed_layers
+
+
+def train_shapes(cfg):
+    """(B, Q, K) of the training forward's calls of
+    r_biased_attention_trainable: the temporal sublayers ([N, T, D], B = N
+    = A + S, Q = K = T), the agent-agent ones ([T, N, D], B = T, Q = K = N)
+    and the seed stack's a2sa ones (B = T, Q = S, K = A). The flagship's:
+    (138, 18, 18), (18, 138, 138), (18, 10, 128), with Dr = HD = 128 and 8
+    heads."""
+    A, S, T = cfg.max_agents, cfg.num_seed_feature, cfg.num_token_steps
+    return {"temporal": (A + S, T, T), "agent_agent": (T, A + S, A + S),
+            "a2sa": (T, S, A)}
+
+
+def check_trainable_grad(cfg, dev):
+    """r_biased_attention_trainable at each training shape in fp32, without
+    and with a dropout multiplier (numpy-seeded inputs, rba_inputs: a
+    fully masked query row included): its forward (the kernel) against
+    r_biased_attention_reference, its six gradients against autograd
+    through r_biased_attention_reference on the card, a fully masked
+    query's output and dq exactly 0. Times per shape (without dropout): the
+    kernel's forward beside its bound (rba_cost_least), the plain forward,
+    and the backward (the recompute), each a median of CUDA-event times.
+    Returns {shape: readings}."""
+    from infgen_torch.ops import pallas_attention as PA
+
+    D, H = cfg.hidden_dim, cfg.num_heads
+    out = {}
+    for name, (B, Q, K) in train_shapes(cfg).items():
+        errs, grad_errs = {}, {}
+        for drop in (False, True):
+            args = rba_inputs(np.random.default_rng(71 + Q + drop), B, Q, K,
+                              D, D, H, drop, dev)
+            leaves = [a.clone().requires_grad_() for a in args[:6]]
+            got = PA.r_biased_attention_trainable(*leaves, args[6], H,
+                                                  args[7])
+            g = torch.randn(got.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(Q))
+            grads = torch.autograd.grad(got, leaves, g)
+            ref_leaves = [a.clone().requires_grad_() for a in args[:6]]
+            ref = PA.r_biased_attention_reference(*ref_leaves, args[6], H,
+                                                  args[7])
+            ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+            torch.cuda.synchronize()
+            case = f"{name}{'/drop' if drop else ''}"
+            errs[case] = _err(got.detach(), ref.detach(),
+                              f"trainable {case}")[0]
+            grad_errs[case] = max(
+                float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(grads, ref_grads))
+            require(float(got.detach()[0, 3].abs().max()) == 0.0
+                    and float(grads[0][0, 3].abs().max()) == 0.0,
+                    f"trainable {case}: a fully masked query's output or dq "
+                    "is not 0")
+        args = rba_inputs(np.random.default_rng(79 + Q), B, Q, K, D, D, H,
+                          False, dev)
+        with torch.no_grad():
+            ms = median_ms(lambda: PA.r_biased_attention(*args[:7], H),
+                           KERNEL_LAUNCHES)
+            plain_ms = median_ms(
+                lambda: PA.r_biased_attention_reference(*args[:7], H),
+                PLAIN_CALLS)
+        leaves = [a.clone().requires_grad_() for a in args[:6]]
+        got = PA.r_biased_attention_trainable(*leaves, args[6], H)
+        g = torch.ones_like(got)
+        bwd_ms = median_ms(lambda: torch.autograd.grad(
+            got, leaves, g, retain_graph=True), PLAIN_CALLS)
+        nbytes, macs = rba_cost_least(args, H)
+        bound_ms, bound_by = bound_of(nbytes, 0, macs, F32)
+        out[name] = dict(B=B, Q=Q, K=K, max_abs_err=max(errs.values()),
+                         errors=errs, grad_rel_errors=grad_errs, ms=ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         plain_ms=plain_ms, backward_ms=bwd_ms)
+    emit("trainable_grad", shapes=out, tolerance=TOL["r_biased_attention"][
+        F32], grad_tolerance=GRAD_TOL, backward="plain recompute, as "
+         "_rba_bwd")
+    for name, r in out.items():
+        require(r["max_abs_err"] <= TOL["r_biased_attention"][F32]
+                and max(r["grad_rel_errors"].values()) <= GRAD_TOL,
+                f"trainable at {name}: forward {r['errors']} or gradients "
+                f"{r['grad_rel_errors']} off")
+    return out
+
+
+def check_train(dev, path=FLAGSHIP):
+    """The training main path: the config at `path` (the flagship) with
+    use_pallas_attention (the command line's train --pallas-attention), at
+    full width, bf16 policy, dropout on, remat on, weights from
+    init_params with cfg.seed, TRAIN_STEPS steps of Trainer.train_step on
+    one batch of the synthetic scenarios TRAIN_SEEDS, a seeded generator.
+    Every count is set to 0 just before the steps and read after each:
+    per step r_biased_attention launches its kernel for each eligible
+    sublayer of each scenario's forward and again in the remat recompute,
+    and r_biased_attention_trainable's backward runs once per eligible
+    call. Then, in fp32 without dropout on the same weights and batch, one
+    step with use_pallas_attention against one without: loss and gradient
+    norm within TRAIN_PARITY_TOL relative. Returns the readings."""
+    from infgen_torch.cli import KERNELS
+    from infgen_torch.config import load_config
+    from infgen_torch.data.scenario import stack_scenarios, to_device
+    from infgen_torch.ops import pallas_attention as PA
+    from infgen_torch.train.loop import SyntheticDataset
+    from infgen_torch.train.train_step import Trainer
+
+    cfg = load_config(path).replace(use_pallas_attention=True)
+    data = SyntheticDataset(cfg, size=len(TRAIN_SEEDS))
+    batch = to_device(stack_scenarios([data[s] for s in TRAIN_SEEDS]), dev)
+    per_fwd = train_eligible(cfg)
+    launches_per_step = len(TRAIN_SEEDS) * per_fwd * (
+        2 if cfg.remat_attention else 1)
+    backward_per_step = len(TRAIN_SEEDS) * per_fwd
+
+    trainer = Trainer(cfg, dev)
+    trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    PA.r_biased_attention_trainable.backward_calls = 0
+    losses, ms, launches, backward = [], [], [], []
+    rba = KERNELS["r_biased_attention"]
+    for _ in range(TRAIN_STEPS):
+        n0 = rba.launches
+        b0 = PA.r_biased_attention_trainable.backward_calls
+        t0 = time.perf_counter()
+        logs = trainer.train_step(batch, gen)
+        losses.append(float(logs["loss"]))       # waits for the step
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(rba.launches - n0)
+        backward.append(PA.r_biased_attention_trainable.backward_calls - b0)
+    total_launches = {k: fn.launches for k, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # fp32, no dropout: the kernel path against the plain one, one step
+    parity = {}
+    for pallas in (True, False):
+        c = cfg.replace(compute_dtype="float32", dropout=0.0,
+                        use_pallas_attention=pallas)
+        tr = Trainer(c, dev)
+        tr.init_state(torch.Generator().manual_seed(cfg.seed))
+        lg = tr.train_step(batch, torch.Generator(device=dev).manual_seed(3))
+        parity[pallas] = (float(lg["loss"]), float(lg["grad_norm"]))
+        del tr
+    gap = {k: abs(parity[True][i] - parity[False][i])
+           / max(abs(parity[False][i]), 1e-30)
+           for i, k in enumerate(("loss", "grad_norm"))}
+    res = dict(
+        config=os.path.relpath(path, ROOT), use_pallas_attention=True,
+        width=dict(D=cfg.hidden_dim, agent_layers=cfg.num_agent_layers,
+                   seed_layers=cfg.num_seed_layers, map_layers=cfg.num_map_layers,
+                   A=cfg.max_agents, P=cfg.max_map_tokens, S=cfg.num_seed_feature),
+        compute_dtype=cfg.compute_dtype, dropout=cfg.dropout,
+        remat_attention=cfg.remat_attention, batch=len(TRAIN_SEEDS),
+        steps=TRAIN_STEPS, losses=losses, ms_per_step=ms,
+        ms_per_step_median=float(np.median(ms[TRAIN_WARMUP:])),
+        max_memory_allocated=peak, eligible_per_forward=per_fwd,
+        launches_per_step=launches, expected_launches_per_step=(
+            launches_per_step), backward_calls_per_step=backward,
+        expected_backward_calls_per_step=backward_per_step,
+        launches=total_launches,
+        fp32_parity=dict(pallas=parity[True], plain=parity[False],
+                         relative_gap=gap, tolerance=TRAIN_PARITY_TOL))
+    emit("train", **res)
+    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"train: the loss did not fall {losses}")
+    require(all(n == launches_per_step for n in launches),
+            f"train: r_biased_attention launched {launches} times per step, "
+            f"not {launches_per_step}")
+    require(all(n == backward_per_step for n in backward),
+            f"train: {backward} backward calls per step, not "
+            f"{backward_per_step}")
+    require(max(gap.values()) <= TRAIN_PARITY_TOL,
+            f"train: the kernel path and the plain path differ by {gap}")
+    return res
 
 
 # --------------------------------------------------------------------- #
@@ -1871,6 +2085,8 @@ def main():
         cfg.replace(max_agents=A, max_map_tokens=P), attr, dev, n)
         for A, P, n in served]
     require(served_lanes, "serving dispatched no batch of lanes")
+    trainable = check_trainable_grad(cfg, dev)
+    train = check_train(dev)
     missing = [k for k in checks if launches[k] == 0]
     require(not missing, f"kernels never launched on a main path: {missing}")
 
@@ -1893,6 +2109,15 @@ def main():
         lanes_bound_ms=lane["bound_ms"], lanes_bound_by=lane["bound_by"],
         lanes_max_abs_err=lane["raw_max_abs_err"],
         lanes_launches=lanes_launches)
+    rba = next(e for e in line if e["name"] == "r_biased_attention")
+    rba.update(
+        train_launches=train["launches"]["r_biased_attention"],
+        train_shapes_ms={k: r["ms"] for k, r in trainable.items()},
+        train_shapes_bound_ms={k: r["bound_ms"] for k, r in
+                               trainable.items()},
+        train_backward_ms={k: r["backward_ms"] for k, r in
+                           trainable.items()},
+        backward="plain recompute, as _rba_bwd")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Command line of the PyTorch port: the `rollout` sub-command.
+"""Command line of the PyTorch port: the `rollout` and `train` sub-commands.
 
   python -m infgen_torch.cli rollout --config configs/ours_long_term.yaml \
       --synthetic [--device cuda|cpu] [--force-insert] [--num-scenarios N] \
@@ -16,8 +16,18 @@ batch, ms per batched token step and agent-steps/s (active agents x token
 steps / wall time). `--fused-block` and `--pallas-attention` turn on
 `use_fused_block` / `use_pallas_attention` on the loaded config (the JAX
 package's `scripts/profile_rollout.py --fused` and bench.py's
-INFGEN_BENCH_FUSED / INFGEN_BENCH_PALLAS). Training, WOSAC scoring and the
-Waymo loader belong to later slices of the port.
+INFGEN_BENCH_FUSED / INFGEN_BENCH_PALLAS).
+
+  python -m infgen_torch.cli train --synthetic [--config ...] \
+      [--pallas-attention] [--steps N] [--batch B] [--device cuda|cpu] \
+      [--save-dir D]
+
+trains from weights drawn from `cfg.seed` on synthetic scenarios (seeds 0,
+1, ...; B per step, default the config's train_batch_size) for N steps
+(train/loop.train: one JSON line of logs per step, a checkpoint in
+D/ckpt with --save-dir), then prints a summary line: steps, the last loss,
+ms per step (median after two warm-up steps) and each kernel's launches.
+WOSAC scoring and the Waymo loader belong to later slices of the port.
 """
 
 import argparse
@@ -225,9 +235,41 @@ def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
     return outputs, summary
 
 
+def run_train(cfg: Config, device=None, steps: int = 8,
+              batch: Optional[int] = None, save_dir: Optional[str] = None,
+              log_fn=print):
+    """`steps` training steps on synthetic scenarios (train/loop.train),
+    `batch` scenarios per step. Returns (trainer, summary)."""
+    from infgen_torch.train.loop import SyntheticDataset, train
+
+    device = resolve_device(device)
+    if batch:
+        cfg = cfg.replace(train_batch_size=batch)
+    B = max(cfg.train_batch_size, 1)
+    launches0 = kernel_launches()
+    backward0 = PA.r_biased_attention_trainable.backward_calls
+    trainer, history = train(cfg, SyntheticDataset(cfg, size=B * steps),
+                             save_dir, max_steps=steps, device=device,
+                             log_fn=log_fn)
+    ms = sorted(h["ms"] for h in history[2:] or history)
+    summary = dict(
+        device=str(device),
+        device_name=(torch.cuda.get_device_name(device)
+                     if device.type == "cuda" else "cpu"),
+        compute_dtype=cfg.compute_dtype,
+        use_pallas_attention=cfg.use_pallas_attention,
+        steps=len(history), batch=B,
+        first_loss=history[0]["loss"], last_loss=history[-1]["loss"],
+        ms_per_step=ms[len(ms) // 2],
+        **_launch_counts(launches0),
+        rba_backward_calls=(PA.r_biased_attention_trainable.backward_calls
+                            - backward0))
+    return trainer, summary
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch")
-    p.add_argument("mode", choices=["rollout"])
+    p.add_argument("mode", choices=["rollout", "train"])
     p.add_argument("--config", default="configs/ours_long_term.yaml",
                    help="YAML config path")
     p.add_argument("--synthetic", action="store_true",
@@ -239,8 +281,13 @@ def main(argv=None):
                    help="every insertion iteration proposes an agent")
     p.add_argument("--num-scenarios", type=int, default=1)
     p.add_argument("--batch", type=int, default=None,
-                   help="serve the scenarios through RolloutServer."
-                        "rollout_batch, at most this many lanes per batch")
+                   help="rollout: serve the scenarios through RolloutServer."
+                        "rollout_batch, at most this many lanes per batch; "
+                        "train: scenarios per step")
+    p.add_argument("--steps", type=int, default=8,
+                   help="train: optimizer steps")
+    p.add_argument("--save-dir", default=None,
+                   help="train: checkpoint directory (resumes from it)")
     p.add_argument("--num-recurrent-steps", type=int, default=None,
                    help="10 Hz frames to roll out (default from the config)")
     p.add_argument("--params", default=None,
@@ -250,7 +297,10 @@ def main(argv=None):
     if not args.synthetic:
         p.error("only --synthetic scenarios are ported so far")
     cfg = apply_variant_flags(load_config(args.config), args)
-    if args.batch:
+    if args.mode == "train":
+        _, summary = run_train(cfg, args.device, args.steps, args.batch,
+                               args.save_dir)
+    elif args.batch:
         _, summary = run_batched(
             cfg, args.device, args.num_scenarios, args.batch,
             args.force_insert, args.params, args.num_recurrent_steps)

@@ -9,6 +9,12 @@ becomes `weight`; Embed `embedding` becomes `weight`; `w_kr`, `w_vr`,
 target and every torch parameter must be written, so a tree from any slice
 of the JAX package fills the port without a new format.
 
+`to_flax_tree(model)` is the inverse: every parameter (or, with
+`grads=True`, its `.grad`, zeros where it has none) back into a flax-shaped
+nested dict of numpy arrays, kernels transposed, so that a test compares
+the port's gradients and updated weights with the JAX package's leaf by
+leaf.
+
 `save_npz` / `load_npz` store such a tree flat ("a/b/c" keys), so a machine
 without JAX can take converted weights (`cli.py rollout --params x.npz`).
 """
@@ -59,6 +65,32 @@ def load_flax_params(model: nn.Module, tree) -> None:
     missing = sorted(set(params) - written)
     if missing:
         raise KeyError(f"torch parameters not in the flax tree: {missing}")
+
+
+def to_flax_tree(model: nn.Module, grads: bool = False) -> dict:
+    """Every parameter of `model` (its gradient with `grads`) as a flax
+    params tree of float32 numpy arrays: Dense `weight` -> `kernel`
+    transposed, LayerNorm `weight` -> `scale`, Embed `weight` ->
+    `embedding`; the rest keep name and layout."""
+    from infgen_torch.model.layers import Dense, Embed, LayerNorm
+
+    leaf_of = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding"}
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        owner = model.get_submodule(".".join(path)) if path else model
+        val = p.grad if grads else p
+        val = torch.zeros_like(p) if val is None else val
+        arr = val.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf = leaf_of[type(owner)]
+            if leaf == "kernel":
+                arr = arr.T
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
 
 
 def save_npz(tree, path: str) -> None:

@@ -1,24 +1,34 @@
-"""Agent decoder: the rollout methods (port of
+"""Agent decoder: the training forward and the rollout methods (port of
 infgen_tpu/model/agent_decoder.py).
 
 Every parameter of the flax module has its counterpart here, by the same
-name, including the training-only heads (occupancy, grid-index). The
-training forward (`__call__`, `run_trunk`, `run_seed_stack`, `run_refine`,
-`embed_agents`, `embed_seeds`) belongs to the training slice; this module
-carries what the closed-loop rollout calls.
+name, including the grid-index head (its parameters exist for checkpoint
+transplants; neither forward reads it). The training forward (`forward`,
+the flax module's `__call__`) runs
+  trunk   num_agent_layers x [temporal -> map2agent -> agent2agent]
+  seeds   num_seed_layers x [occ2sa -> pt2sa -> a2sa]
+  refine  num_seed_layers x [pt2a -> a2a] (the trunk's first layers)
+over the padded node set (agents + seed rows). The rollout methods
+(`motion_column`, `prefill_column`, `seed_key_chain`, `refine_column_sub`,
+the heads) serve rollout/closed_loop.py. `seed_column`,
+`seed_column_cached` and `refine_column` (the full-node-set forms the JAX
+tests hold the rollout's forms against) are not ported.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from infgen_torch.config import Config
+from infgen_torch.config import Config, ENTER_STATE, INVALID_STATE
+from infgen_torch.model import edges as E
 from infgen_torch.model.layers import (DenseAttention, Embed,
                                        FourierEmbedding, MLPEmbedding,
                                        MLPLayer)
 from infgen_torch.ops import column_kernel as CK
 from infgen_torch.ops import fused_block as FB
+from infgen_torch.ops.neighbors import topk_neighbors
 from infgen_torch.ops.precision import compute_dtype_of
-from infgen_torch.utils.geometry import angle_between_2d_vectors
+from infgen_torch.utils.geometry import angle_between_2d_vectors, wrap_angle
 
 SEED_TYPE = 3  # AGENT_TYPE.index('seed')
 INVALID_SHAPE_VALUE = 0.1
@@ -72,7 +82,8 @@ class AgentDecoder(nn.Module):
                 layer = DenseAttention(
                     D, cfg.num_heads, cfg.head_dim, bipartite=bip,
                     has_pos_emb=pos, use_pallas=cfg.use_pallas_attention,
-                    dtype=dt)
+                    dtype=dt, dropout=cfg.dropout,
+                    remat=cfg.remat_attention)
                 setattr(self, f"{name}_{i}", layer)
                 layers.append(layer)
             return layers
@@ -165,6 +176,302 @@ class AgentDecoder(nn.Module):
         if self.cfg.use_grid_token:
             parts.append(grid_emb)
         return self.fusion_emb(torch.cat(parts, dim=-1))
+
+    def embed_agents(self, inputs, agent_vocab):
+        """Fused features of the real agents [A, T, D] and their heading
+        vectors [A, T, 2]."""
+        cfg = self.cfg
+        tok = inputs.tokens
+        tables = self.token_emb_tables(agent_vocab)              # [3, V+2, D]
+        t_idx = map_token_index(tok.token_idx, cfg.token_size).long()
+        token_emb = tables[inputs.agent_type.clamp(0, 2).long()[:, None],
+                           t_idx]
+        g_idx = torch.where(inputs.grid_token_idx >= 0,
+                            inputs.grid_token_idx, self.grid_size).long()
+        grid_emb = self.grid_emb_table()[g_idx]
+        motion, head_vec = E.build_motion_vectors(
+            tok.token_pos, tok.token_heading, tok.state_idx)
+        is_invalid = tok.state_idx == INVALID_STATE
+        type_t = torch.where(is_invalid, SEED_TYPE,
+                             inputs.agent_type[:, None])
+        shape_t = torch.where(is_invalid[..., None], INVALID_SHAPE_VALUE,
+                              inputs.agent_shape[:, None, :])
+        feat = self.fuse_features(token_emb, motion, head_vec, type_t,
+                                  shape_t, tok.state_idx, grid_emb)
+        return feat, head_vec
+
+    def embed_seeds(self, num_seed: int, T: int):
+        """Seed-slot features [S, T, D]: invalid-state agents at the
+        origin."""
+        S, D = num_seed, self.cfg.hidden_dim
+        dev = self.grid_xy.device
+        zero = torch.zeros(1, dtype=torch.long, device=dev)
+        token_emb = self.no_token_emb(zero)[0].expand(S, T, D)
+        grid_emb = self.grid_emb_table()[self.grid_size // 2].expand(S, T, D)
+        pos = torch.zeros(S, T, 2, device=dev)
+        head = torch.zeros(S, T, device=dev)
+        state = torch.full((S, T), INVALID_STATE, dtype=torch.long,
+                           device=dev)
+        motion, head_vec = E.build_motion_vectors(pos, head, state)
+        type_t = torch.full((S, T), SEED_TYPE, dtype=torch.long, device=dev)
+        shape_t = torch.full((S, T, 3), INVALID_SHAPE_VALUE, device=dev)
+        return self.fuse_features(token_emb, motion, head_vec, type_t,
+                                  shape_t, state, grid_emb)
+
+    # ------------------------------------------------------------------ #
+    # training forward
+    # ------------------------------------------------------------------ #
+
+    def _zero_agg(self, layer, x, generator=None):
+        """Rows with no incident edges through `layer` (aggregate 0). In
+        eval mode the closed form (DenseAttention.zero_agg); in train mode
+        the module against one masked dummy key, so that its FFN dropout
+        applies, as the JAX package does for deterministic=False."""
+        if not self.training:
+            return layer.zero_agg(x)
+        dummy = torch.zeros(*x.shape[:-1], 1, x.shape[-1], dtype=x.dtype,
+                            device=x.device)
+        mask = torch.zeros(*x.shape[:-1], 1, 1, dtype=torch.bool,
+                           device=x.device)
+        return layer(x[..., None, :], dummy, None, mask,
+                     generator)[..., 0, :]
+
+    def run_trunk(self, feat, temporal, a2a, pl2a, x_pt, generator=None):
+        """num_agent_layers x [temporal -> pt2a -> a2a] over the padded
+        node set: feat [N, T, D]; temporal: TemporalEdges over N; a2a:
+        StepEdges [T, N, N]; pl2a: GatherEdges [N, T, k]."""
+        r_t = self.r_t_emb(temporal.r_raw)
+        r_a2a = self.r_a2a_emb(a2a.r_raw)
+        r_pl2a = self.r_pt2a_emb(pl2a.r_raw)
+        for i in range(self.cfg.num_agent_layers):
+            feat = self.t_attn_layers[i](feat, None, r_t, temporal.mask,
+                                         generator)
+            keys = x_pt[pl2a.idx]                               # [N, T, k, D]
+            feat = self.pt2a_attn_layers[i](
+                feat[:, :, None, :], keys, r_pl2a[:, :, None, :, :],
+                pl2a.mask[:, :, None, :], generator)[:, :, 0, :]
+            ft = self.a2a_attn_layers[i](feat.transpose(0, 1), None, r_a2a,
+                                         a2a.mask, generator)
+            feat = ft.transpose(0, 1)
+        return feat
+
+    def run_seed_stack(self, feat, num_seed: int, occ_emb, pl2sa_mask,
+                       r_pl2sa_raw, a2sa, x_pt, generator=None):
+        """num_seed_layers x [occ2sa -> pt2sa -> a2sa]. feat [N, T, D], its
+        last `num_seed` rows the seeds; agent rows take the zero-aggregate
+        path in every sublayer. occ_emb [S, T, D] or None; pl2sa_mask
+        [T, P]; r_pl2sa_raw [T, P, 3]; a2sa: StepEdges [T, S, A]."""
+        S = num_seed
+        A = feat.shape[0] - S
+        r_pl2sa = self.r_pt2sa_emb(r_pl2sa_raw)                 # [T, P, D]
+        r_a2sa = self.r_a2sa_emb(a2sa.r_raw)                    # [T, S, A, D]
+        for i in range(self.cfg.num_seed_layers):
+            ag, sd = feat[:A], feat[A:]
+            if self.cfg.use_grid_token and occ_emb is not None:
+                ones = torch.ones(S, sd.shape[1], 1, 1, dtype=torch.bool,
+                                  device=sd.device)
+                sd = self.occ2sa_attn_layers[i](
+                    sd[:, :, None, :], occ_emb[:, :, None, :], None, ones,
+                    generator)[:, :, 0, :]
+                ag = self._zero_agg(self.occ2sa_attn_layers[i], ag,
+                                    generator)
+            sd_t = sd.transpose(0, 1)                            # [T, S, D]
+            T = sd_t.shape[0]
+            keys = x_pt[None].expand(T, *x_pt.shape)
+            sd_t = self.pt2sa_attn_layers[i](
+                sd_t, keys, r_pl2sa,
+                pl2sa_mask[:, None, :].expand(T, S, pl2sa_mask.shape[1]),
+                generator)
+            ag = self._zero_agg(self.pt2sa_attn_layers[i], ag, generator)
+            sd_t = self.a2sa_attn_layers[i](sd_t, ag.transpose(0, 1),
+                                            r_a2sa, a2sa.mask, generator)
+            ag = self._zero_agg(self.a2sa_attn_layers[i], ag, generator)
+            feat = torch.cat([ag, sd_t.transpose(0, 1)], 0)
+        return feat
+
+    def run_refine(self, feat, pl2sa, a2sa_idx, a2sa_mask, a2sa_r_raw, x_pt,
+                   generator=None):
+        """num_seed_layers x [pt2a -> a2a] on the trunk's layers 0.. :
+        feat [A, T, D]; pl2sa: map keys per (a, t); a2sa_*: agent keys per
+        (a, t), gathered from the evolving features."""
+        r_pl = self.r_pt2a_emb(pl2sa.r_raw)
+        r_aa = self.r_a2a_emb(a2sa_r_raw)
+        T = feat.shape[1]
+        t_ix = torch.arange(T, device=feat.device)[None, :, None]
+        for i in range(self.cfg.num_seed_layers):
+            feat = self.pt2a_attn_layers[i](
+                feat[:, :, None, :], x_pt[pl2sa.idx], r_pl[:, :, None, :, :],
+                pl2sa.mask[:, :, None, :], generator)[:, :, 0, :]
+            feat = self.a2a_attn_layers[i](
+                feat[:, :, None, :], feat[a2sa_idx, t_ix],
+                r_aa[:, :, None, :, :], a2sa_mask[:, :, None, :],
+                generator)[:, :, 0, :]
+        return feat
+
+    def forward(self, inputs, x_pt, agent_vocab, pt_pos, pt_orient, pt_mask,
+                generator=None, hist_drop=None, sa_uniform=None):
+        """The training forward of one scenario (the flax module's
+        `__call__`): inputs, ModelInputs of [A, T] tensors; x_pt [P, D] the
+        map features. Returns the dict of predictions, ground truths and
+        masks that train/losses.compute_losses reads.
+
+        Random draws: in train mode the temporal key drop
+        (training_hist_mask: `hist_drop` [A, 10] step indices, else from
+        `generator`) and the dropout masks (from `generator`); in both
+        modes the refine pass's pseudo-seed scores (`sa_uniform` [A, T] in
+        [0, 1), else from `generator`). Eval mode drops nothing, as
+        deterministic=True does in JAX."""
+        cfg = self.cfg
+        tok = inputs.tokens
+        A, T = tok.token_idx.shape
+        S = cfg.num_seed_feature
+        dev = x_pt.device
+        train = self.training
+        if generator is None and (sa_uniform is None or (train and (
+                hist_drop is None or cfg.dropout > 0.0))):
+            raise ValueError("AgentDecoder.forward: draws without a "
+                             "torch.Generator")
+        gen = generator if train else None       # the layers' dropout
+
+        feat_a, head_vec = self.embed_agents(inputs, agent_vocab)
+        feat_seed = self.embed_seeds(S, T)
+        pos, head, state = tok.token_pos, tok.token_heading, tok.state_idx
+        slot = inputs.slot_mask
+        ego_pos, ego_head = inputs.ego_pos, inputs.ego_head
+        ego_hv = torch.stack([torch.cos(ego_head), torch.sin(ego_head)], -1)
+
+        # ---- masks ----
+        hist = E.training_hist_mask(tok.raw_token_valid, state,
+                                    gen, hist_drop if train else None)
+        hist = hist & slot[:, None]
+        interact = (tok.raw_token_valid | (state == ENTER_STATE)) \
+            & slot[:, None]
+
+        # padded node set: agents + seeds (seeds sit on ego)
+        no = torch.zeros(S, T, dtype=torch.bool, device=dev)
+        pos_p = torch.cat([pos, ego_pos.expand(S, T, 2)], 0)
+        head_p = torch.cat([head, ego_head.expand(S, T)], 0)
+        state_p = torch.cat([state, torch.full((S, T), INVALID_STATE,
+                                               dtype=state.dtype,
+                                               device=dev)], 0)
+        hv_p = torch.cat([head_vec, ego_hv.expand(S, T, 2)], 0)
+        temporal = E.build_temporal_edges(
+            pos_p, head_p, state_p, hv_p, torch.cat([hist, no], 0),
+            cfg.time_span // cfg.shift)
+        interact_p = torch.cat([interact, no], 0)
+        a2a = E.build_a2a_edges(pos_p, head_p, state_p, hv_p, interact_p,
+                                cfg.a2a_radius)
+        pl2a = E.build_pl2a_edges(pos_p, head_p, state_p, hv_p, interact_p,
+                                  pt_pos, pt_orient, pt_mask,
+                                  cfg.pl2a_radius, cfg.pl2a_num_neighbors)
+
+        # ---- trunk ----
+        feat = self.run_trunk(torch.cat([feat_a, feat_seed], 0), temporal,
+                              a2a, pl2a, x_pt, gen)
+        trunk_feat = feat[:A]
+        out = dict(next_token_logits=self.token_predict_head(trunk_feat),
+                   next_state_logits=self.state_predict_head(trunk_feat))
+
+        # ---- seed stack (insertion prediction) ----
+        seq_mask = E.build_seq_mask(inputs.sort_indices, inputs.av_index, S,
+                                    A)
+        a2sa = E.build_a2sa_edges(
+            pos, head, state, head_vec, interact, ego_pos.expand(S, T, 2),
+            ego_head.expand(S, T), ego_hv.expand(S, T, 2),
+            cfg.pl2seed_radius, seq_mask=seq_mask)
+        pl2sa_mask, r_pl2sa_raw = E.build_pl2sa_edges(
+            ego_pos, ego_head, ego_hv, pt_pos, pt_orient, pt_mask,
+            cfg.pl2seed_radius)
+
+        # occupancy ground truth: the occ2sa input and the occ targets
+        G = self.grid_size
+        gidx = inputs.grid_token_idx
+        grid_oh = F.one_hot(torch.where(gidx >= 0, gidx, 0).long(),
+                            G).float() * (gidx >= 0)[..., None]
+        occ_agent_gt = (torch.einsum("tsa,atg->stg", a2sa.mask.float(),
+                                     grid_oh) > 0).float()     # [S, T, G]
+        pidx = inputs.pt_grid_token_idx                          # [T, P]
+        occ_pt = torch.zeros(T, G + 1, device=dev).scatter_(
+            1, torch.where(pidx >= 0, pidx, G).long(), 1.0)[:, :G]
+        occ_emb = self.seed_agent_occ_embed(occ_agent_gt) \
+            if cfg.use_grid_token else None
+
+        feat_sa = self.run_seed_stack(torch.cat([feat_a, feat_seed], 0), S,
+                                      occ_emb, pl2sa_mask, r_pl2sa_raw, a2sa,
+                                      x_pt, gen)
+        seed_feat = feat_sa[A:]
+        heads = self.seed_heads(seed_feat)
+        out.update(seed_state_logits=heads["state_logits"],
+                   seed_type_logits=heads["type_logits"],
+                   seed_shape=heads["shape"],
+                   seed_pos_logits=heads.get("pos_logits"),
+                   seed_pos_xy=heads.get("pos_xy"),
+                   occ_agent_logits=None, occ_pt_logits=None,
+                   occ_agent_gt=occ_agent_gt,
+                   occ_pt_gt=occ_pt[None].expand(S, T, G))
+        if cfg.predict_occ:
+            out.update(occ_agent_logits=self.grid_agent_occ_head(seed_feat),
+                       occ_pt_logits=self.grid_pt_occ_head(seed_feat))
+
+        # ---- refine stage: pseudo-seed rows, up to 10 random eligible
+        # in-grid rows per step plus every enter row; never step 0 nor the
+        # AV ----
+        eligible = (state != INVALID_STATE) & (gidx != -1) & slot[:, None]
+        if sa_uniform is None:
+            sa_uniform = torch.rand(A, T, generator=generator,
+                                    device=generator.device)
+        scores = torch.where(eligible, sa_uniform.to(dev), -torch.inf)
+        kth = torch.sort(scores, dim=0).values[-10][None]      # 10 per step
+        mask_sa = (eligible & (scores >= kth)) | (state == ENTER_STATE)
+        mask_sa[:, 0] = False
+        mask_sa[inputs.av_index.long()] = False
+
+        state_sa = torch.where(mask_sa, ENTER_STATE, INVALID_STATE)
+        head_sa = torch.where(mask_sa, ego_head[None], head)
+        motion_sa, hv_sa = E.build_motion_vectors(pos, head_sa, state_sa)
+        motion_sa = torch.where(mask_sa[..., None], E.MOTION_GAP, motion_sa)
+        g_idx = torch.where(gidx >= 0, gidx, G).long()
+        zero = torch.zeros(1, dtype=torch.long, device=dev)
+        refine_token_emb = torch.where(mask_sa[..., None],
+                                       self.bos_token_emb(zero)[0],
+                                       self.no_token_emb(zero)[0])
+        refine_feat = self.fuse_features(
+            refine_token_emb, motion_sa, hv_sa,
+            inputs.agent_type[:, None].expand(A, T),
+            inputs.agent_shape[:, None].expand(A, T, 3), state_sa,
+            self.grid_emb_table()[g_idx])
+        refine_feat = torch.where(mask_sa[..., None], refine_feat, feat_a)
+
+        # refine edges: agents within a2sa_radius (k = 8) per step, map
+        # tokens within pl2sa_radius (k = 32)
+        pos_t = pos.transpose(0, 1)
+        idx8, val8 = topk_neighbors(
+            pos_t, pos_t, 8, cfg.a2sa_radius,
+            key_mask=(interact & ~mask_sa).transpose(0, 1),
+            exclude_self=True)
+        idx8 = idx8.transpose(0, 1)                              # [A, T, 8]
+        val8 = val8.transpose(0, 1) & mask_sa[..., None]
+        t_ix = torch.arange(T, device=dev)[None, :, None]
+        rel_pos8 = pos[idx8, t_ix] - pos[:, :, None]
+        r8 = torch.stack([
+            torch.linalg.norm(rel_pos8, dim=-1),
+            angle_between_2d_vectors(hv_sa[:, :, None], rel_pos8),
+            wrap_angle(head[idx8, t_ix] - head_sa[:, :, None]),
+        ], dim=-1)
+        pl_refine = E.build_pl2a_edges(pos, head_sa, state_sa, hv_sa,
+                                       mask_sa, pt_pos, pt_orient, pt_mask,
+                                       cfg.pl2sa_radius, 32)
+        # drop sampled rows with no neighbours at all
+        mask_sa = mask_sa & (val8.any(-1) | pl_refine.mask.any(-1))
+
+        refine_out = self.run_refine(refine_feat, pl_refine, idx8, val8, r8,
+                                     x_pt, gen)
+        rh = self.refine_heads(refine_out)
+        out.update(head_logits=rh.get("head_logits"),
+                   head_theta=rh.get("head_theta"),
+                   offset_xy=rh.get("offset_xy"),
+                   mask_sa=mask_sa, trunk_feat=trunk_feat)
+        return out
 
     # ------------------------------------------------------------------ #
     # incremental (rollout) column methods

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
 
@@ -194,19 +195,33 @@ class DenseAttention(nn.Module):
     residual, then the pre-LN FFN.
 
     use_pallas: eligible calls (`pallas_eligible`) take the attention core
-    from ops/pallas_attention.r_biased_attention (a CUDA kernel on the card)
+    from ops/pallas_attention.r_biased_attention_trainable (the CUDA kernel
+    r_biased_attention forward on the card, the plain recompute backward)
     with the JAX package's precision recipe for that branch.
+
+    Training: in train mode, with `dropout` > 0 and a `generator` given to
+    the call, the softmax weights (per head) and the FFN's hidden units are
+    dropped as flax's nn.Dropout drops them (kept values scaled by
+    1 / (1 - dropout)); without a generator the call is deterministic, as
+    the JAX module is by default. `remat` wraps the call in
+    torch.utils.checkpoint (non-reentrant) while grad is enabled: only the
+    inputs are kept, the layer runs again in the backward. The dropout
+    masks are drawn before the checkpointed region and passed in, because
+    checkpoint restores the global RNG state, not an explicit generator's,
+    and a recompute that drew anew would take other masks.
     """
 
     def __init__(self, hidden_dim: int, num_heads: int, head_dim: int,
                  bipartite: bool = False, has_pos_emb: bool = True,
-                 use_pallas: bool = False, dtype=None):
+                 use_pallas: bool = False, dtype=None, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         D, HD = hidden_dim, num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
         self.bipartite, self.has_pos_emb, self.dtype = (bipartite,
                                                         has_pos_emb, dtype)
         self.use_pallas = use_pallas
+        self.dropout, self.remat = dropout, remat
         self.prenorm_src = LayerNorm(D, dtype)
         if bipartite:
             self.prenorm_dst = LayerNorm(D, dtype)
@@ -230,7 +245,36 @@ class DenseAttention(nn.Module):
     def _cast(self, w):
         return w.to(self.dtype) if self.dtype is not None else w
 
-    def forward(self, x_dst, x_src=None, r=None, mask=None):
+    def forward(self, x_dst, x_src=None, r=None, mask=None, generator=None):
+        keep = (None, None)
+        if generator is not None and self.training and self.dropout > 0.0:
+            keep = self.draw_dropout(x_dst, x_src, mask, generator)
+        if self.remat and torch.is_grad_enabled():
+            # the region draws nothing: no RNG state to stash
+            return checkpoint(self._forward, x_dst, x_src, r, mask, *keep,
+                              use_reentrant=False, preserve_rng_state=False)
+        return self._forward(x_dst, x_src, r, mask, *keep)
+
+    def draw_dropout(self, x_dst, x_src, mask, generator):
+        """Keep masks (bool) of the softmax weights [..., Q, K, H] and of
+        the FFN's hidden units [..., Q, 4D], from torch.bernoulli."""
+        src = x_dst if x_src is None else x_src
+        lead = torch.broadcast_shapes(
+            x_dst.shape[:-2], src.shape[:-2],
+            mask.shape[:-2] if mask is not None else ())
+        Q, K, D = x_dst.shape[-2], src.shape[-2], x_dst.shape[-1]
+        p = torch.full((), 1.0 - self.dropout, device=generator.device)
+        draw = lambda *shape: torch.bernoulli(
+            p.expand(shape), generator=generator).bool().to(x_dst.device)
+        return draw(*lead, Q, K, self.num_heads), draw(*lead, Q, 4 * D)
+
+    def _drop(self, x, keep):
+        """flax nn.Dropout: kept values / (1 - rate), dropped ones 0."""
+        if keep is None:
+            return x
+        return torch.where(keep, x / (1.0 - self.dropout), 0.0)
+
+    def _forward(self, x_dst, x_src, r, mask, attn_keep, ff_keep):
         H, Hd = self.num_heads, self.head_dim
         same = x_src is None
         if same:
@@ -249,8 +293,8 @@ class DenseAttention(nn.Module):
         v = v.reshape(*v.shape[:-1], H, Hd)
         r_per_pair = r is not None and r.dim() == x_src.dim() + 1
         if self.pallas_eligible(x_dst, x_src, r_per_pair, mask):
-            agg = self._kernel_agg(x_dst, q, k, v, r, mask)
-            return self._epilogue(x_dst, dst_n, agg)
+            agg = self._kernel_agg(x_dst, q, k, v, r, mask, attn_keep)
+            return self._epilogue(x_dst, dst_n, agg, ff_keep)
 
         # scores accumulate in fp32 under any compute dtype
         f32 = torch.float32
@@ -273,14 +317,14 @@ class DenseAttention(nn.Module):
             any_valid = mask.any(dim=-1)
             attn = torch.where(any_valid[..., None, None], attn, 0.0)
             attn = torch.where(mask[..., None], attn, 0.0)
-        attn = attn.to(v.dtype)
+        attn = self._drop(attn, attn_keep).to(v.dtype)
         agg = torch.einsum("...qkh,...khd->...qhd", attn, v)
         if self.has_pos_emb and r is not None:
             eq = "...qkh,...qkhd->...qhd" if r_per_pair else \
                 "...qkh,...khd->...qhd"
             agg = agg + torch.einsum(eq, attn, v_r)
         agg = agg.reshape(*agg.shape[:-2], H * Hd)
-        return self._epilogue(x_dst, dst_n, agg)
+        return self._epilogue(x_dst, dst_n, agg, ff_keep)
 
     def pallas_eligible(self, x_dst, x_src, r_per_pair, mask) -> bool:
         """The JAX package's rule for the fused attention kernel: per-pair
@@ -291,13 +335,15 @@ class DenseAttention(nn.Module):
                 and mask is not None and (x_dst.dim() == 3 or unbatched)
                 and x_dst.shape[-2] >= 8)
 
-    def _kernel_agg(self, x_dst, q, k, v, r, mask):
-        """The attention aggregate through r_biased_attention, in fp32 with
-        the JAX branch's casts: prenorm_r without the compute dtype, q and
-        k the compute-dtype projections cast up, b_vr added to v in the
-        compute dtype, w_kr / w_vr rounded to it, and the aggregate cast
-        back to x_dst's dtype."""
-        from infgen_torch.ops.pallas_attention import r_biased_attention
+    def _kernel_agg(self, x_dst, q, k, v, r, mask, attn_keep=None):
+        """The attention aggregate through r_biased_attention_trainable, in
+        fp32 with the JAX branch's casts: prenorm_r without the compute
+        dtype, q and k the compute-dtype projections cast up, b_vr added to
+        v in the compute dtype, w_kr / w_vr rounded to it, the dropout keep
+        mask as a per-head multiplier, and the aggregate cast back to
+        x_dst's dtype."""
+        from infgen_torch.ops.pallas_attention import \
+            r_biased_attention_trainable
 
         H, Hd = self.num_heads, self.head_dim
         f32 = torch.float32
@@ -306,22 +352,26 @@ class DenseAttention(nn.Module):
         k2 = k.reshape(*k.shape[:-2], H * Hd).to(f32)
         v2 = (v.reshape(*v.shape[:-2], H * Hd)
               + self._cast(self.b_vr)).to(f32)
+        drop = None
+        if attn_keep is not None:
+            drop = attn_keep.to(f32) / (1.0 - self.dropout)
         unbatched = x_dst.dim() == 2
         if unbatched:
             q2, k2, v2, r_n, mask = (t[None] for t in (q2, k2, v2, r_n,
                                                        mask))
-        agg = r_biased_attention(
+            drop = None if drop is None else drop[None]
+        agg = r_biased_attention_trainable(
             q2.contiguous(), k2.contiguous(), v2.contiguous(),
             r_n.contiguous(), self._cast(self.w_kr).to(f32).contiguous(),
             self._cast(self.w_vr).to(f32).contiguous(), mask.contiguous(),
-            H).to(x_dst.dtype)
+            H, None if drop is None else drop.contiguous()).to(x_dst.dtype)
         return agg[0] if unbatched else agg
 
-    def _epilogue(self, x_dst, dst_n, agg):
+    def _epilogue(self, x_dst, dst_n, agg, ff_keep=None):
         g = sigmoid(self.to_g(torch.cat([agg, dst_n], -1)))
         agg = agg + g * (self.to_s(dst_n) - agg)
         x = x_dst + self.postnorm(self.to_out(agg))
-        h = F.relu(self.ff_0(self.ff_prenorm(x)))
+        h = self._drop(F.relu(self.ff_0(self.ff_prenorm(x))), ff_keep)
         return x + self.ff_postnorm(self.ff_1(h))
 
     def zero_agg(self, x):

@@ -2,8 +2,9 @@
 
 Map-vocab token embeddings plus categorical embeddings, then
 `num_map_layers` of neighbour attention over a fixed-k (k=32) radius table
-with relative-geometry bias. The masked next-map-token head is a training
-output; its parameters exist here so that a converted tree fills them.
+with relative-geometry bias. The masked next-map-token head
+(`next_token_logits`) is the training forward's; the rollout reads only
+the features.
 """
 
 import torch
@@ -37,14 +38,18 @@ class MapEncoder(nn.Module):
                     DenseAttention(D, cfg.num_heads, cfg.head_dim,
                                    bipartite=False, has_pos_emb=True,
                                    use_pallas=cfg.use_pallas_attention,
-                                   dtype=dt))
+                                   dtype=dt, dropout=cfg.dropout,
+                                   remat=cfg.remat_attention))
         self.token_predict_head = MLPLayer(D, D, cfg.map_token_size)
 
-    def forward(self, map_data, map_vocab_traj, pt_valid_mask=None):
+    def forward(self, map_data, map_vocab_traj, pt_valid_mask=None,
+                generator=None):
         """map_data: MapData of tensors (fields [..., P, ...]: leading dims
         are the rollout's lanes, one map each); map_vocab_traj
-        [V_map, 11, 2]. Returns x_pt [..., P, D] (the rollout needs only
-        the features, not the next-token logits)."""
+        [V_map, 11, 2]; pt_valid_mask: the tokens left visible by the
+        masked-token training (default map_data.mask); generator: the
+        dropout masks' in train mode (DenseAttention). Returns x_pt
+        [..., P, D]."""
         pos = map_data.position
         orient = map_data.orientation
         if pt_valid_mask is None:
@@ -76,5 +81,10 @@ class MapEncoder(nn.Module):
             x_src = gather_rows(x_pt, nbr_idx, nb)
             x_pt = getattr(self, f"pt2pt_{i}")(
                 x_pt[..., None, :], x_src, r[..., None, :, :],
-                nbr_valid[..., None, :])[..., 0, :]
+                nbr_valid[..., None, :], generator)[..., 0, :]
         return x_pt
+
+    def next_token_logits(self, x_pt):
+        """The masked next-map-token head [..., P, map_token_size] (fp32,
+        as the JAX head carries no compute dtype)."""
+        return self.token_predict_head(x_pt)

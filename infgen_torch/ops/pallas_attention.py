@@ -11,12 +11,16 @@ csrc/r_biased_attention.cu, whose header states its bound and design).
                                 tensors, takes the plain version for CPU
                                 tensors, raises otherwise
   kernel_accepts                the widths the kernel takes
+  r_biased_attention_trainable  the differentiable form (port of the JAX
+                                package's custom-VJP function): forward the
+                                wrapper above, backward a recompute through
+                                the plain version, as its _rba_bwd
+                                recomputes through the XLA reference
 
 out = softmax(q (k + r W_kr)^T / sqrt(d)) (v + r W_vr) per head, over the
 keys the mask allows; a query with no valid key gives 0. `drop` is an
 optional per-head multiplier of the softmax weights (attention dropout, the
-denominator left undropped); the caller draws it. Everything is fp32. The
-training slice wraps this forward with its backward kernel.
+denominator left undropped); the caller draws it. Everything is fp32.
 """
 
 import torch
@@ -130,3 +134,48 @@ def r_biased_attention(q, k, v, r, w_kr, w_vr, mask, num_heads: int,
 
 
 r_biased_attention.launches = 0
+
+
+class _RBATrainable(torch.autograd.Function):
+    """Forward: r_biased_attention (the kernel on CUDA tensors), keeping
+    only the raw inputs, as _rba_fwd does. Backward: autograd through
+    r_biased_attention_reference on those inputs, as _rba_bwd takes
+    jax.vjp of the XLA reference; the mask and the dropout multiplier get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, r, w_kr, w_vr, mask, num_heads, drop):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, r, w_kr, w_vr, mask, drop)
+        return r_biased_attention(q, k, v, r, w_kr, w_vr, mask, num_heads,
+                                  drop)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, r, w_kr, w_vr, mask, drop = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in
+                      (q, k, v, r, w_kr, w_vr)]
+            out = r_biased_attention_reference(*leaves, mask, ctx.num_heads,
+                                               drop)
+            grads = torch.autograd.grad(out, leaves, g)
+        r_biased_attention_trainable.backward_calls += 1
+        return (*grads, None, None, None)
+
+
+def r_biased_attention_trainable(q, k, v, r, w_kr, w_vr, mask,
+                                 num_heads: int, drop=None) -> torch.Tensor:
+    """r_biased_attention with gradients for q, k, v, r, w_kr and w_vr.
+
+    The JAX package has no backward kernel for this function: its VJP is
+    XLA code outside any Pallas kernel. The backward here is its
+    counterpart, a recompute through the plain version under autograd
+    (counted in `r_biased_attention_trainable.backward_calls`); it holds
+    the [B, Q, K, HD] relation projections for the length of one backward
+    call. The forward launches the kernel, counted in
+    `r_biased_attention.launches`."""
+    return _RBATrainable.apply(q, k, v, r, w_kr, w_vr, mask, num_heads,
+                               drop)
+
+
+r_biased_attention_trainable.backward_calls = 0

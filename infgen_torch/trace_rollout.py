@@ -78,14 +78,15 @@ def _span_of(ranges):
     return find
 
 
-def summarize(prof, n_steps, wall_ms):
-    """The JSON summary of one profiled rollout (times in ms). A device
-    kernel is attributed to the span in which it starts: with the device
-    mostly idle, a kernel starts within microseconds of its launch."""
+def summarize(prof, n_steps, wall_ms, spans=SPANS):
+    """The JSON summary of one profiled rollout (times in ms; `spans`: the
+    record_function names to break it down by). A device kernel is
+    attributed to the span in which it starts: with the device mostly
+    idle, a kernel starts within microseconds of its launch."""
     events = prof.events()
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.is_user_annotation and e.name not in SPANS]
+           and not e.is_user_annotation and e.name not in spans]
     by_name = {}
     for e in dev:
         t = by_name.setdefault(e.name, [0, 0.0])
@@ -96,7 +97,7 @@ def summarize(prof, n_steps, wall_ms):
                 if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                               "cudaLaunchKernelExC")]
     span_rows = {}
-    for s in SPANS:
+    for s in spans:
         rs = sorted((e.time_range for e in cpu if e.name == s),
                     key=lambda r: r.start)
         find = _span_of(rs)

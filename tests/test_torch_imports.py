@@ -22,7 +22,25 @@ def _imported(path):
 
 def test_port_imports_no_jax():
     assert len(FILES) > 30
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"infgen_torch/train/{m}.py" for m in (
+        "targets", "losses", "train_step", "loop", "checkpoint")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(
         {m for m in _imported(p) if m.split(".")[0] in FORBIDDEN})
         for p in FILES}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_train_modules_import_without_jax():
+    """The training modules and the command line import in a process where
+    JAX, flax, optax and the JAX package cannot be imported."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+            "import infgen_torch.train.loop, infgen_torch.cli\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

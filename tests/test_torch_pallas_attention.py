@@ -19,6 +19,16 @@ rounding downstream; such flips are sparse. Mean abs error 1e-3 (read: 0):
 each wrong cast of the branch's recipe (prenorm_r in bf16, b_vr added to
 the relation term, w_kr / w_vr unrounded, the aggregate rounded to bf16)
 reads 4e-3 or more on these inputs; max abs 0.1 for gross faults.
+
+The trainable form (`r_biased_attention_trainable`: the forward above, the
+backward a recompute through the plain twin under autograd) against the
+JAX package's custom-VJP function (its Pallas forward in interpret mode,
+its VJP through the XLA reference) via jax.vjp, at two tiny shapes with
+and without a dropout multiplier, fully masked queries included: the six
+gradients within 1e-4 of each one's max |g| (fp32, summation order).
+And the training layer: a `torch.utils.checkpoint`-wrapped DenseAttention
+(remat) with dropout masks drawn before the region gives the unwrapped
+layer's output and gradients exactly.
 """
 
 import jax
@@ -29,6 +39,8 @@ import torch
 
 from infgen_tpu.model.layers import DenseAttention as JDenseAttention
 from infgen_tpu.ops.pallas_attention import r_biased_attention as j_rba
+from infgen_tpu.ops.pallas_attention import \
+    r_biased_attention_trainable as j_rba_trainable
 
 from infgen_torch.config import Config
 from infgen_torch.convert import load_flax_params
@@ -172,3 +184,65 @@ def test_ineligible_calls_never_reach_the_kernel(monkeypatch):
         x_pt = enc(to_device(scen.map, "cpu"), traj)
     assert torch.isfinite(x_pt).all()
     assert calls == [1]
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["nodrop", "dropout"])
+@pytest.mark.parametrize("B,Q,K", [(2, 21, 21), (3, 10, 30)],
+                         ids=["square", "bipartite"])
+def test_trainable_gradients_match_jax_vjp(B, Q, K, drop):
+    """dq, dk, dv, dr, dW_kr, dW_vr of r_biased_attention_trainable against
+    jax.vjp of the JAX package's r_biased_attention_trainable (interpret
+    mode) on the same cotangent; a fully masked query's dq is 0."""
+    x = _kernel_inputs(Q * 11 + K + drop, B, Q, K, drop)
+    names = ("q", "k", "v", "r", "w_kr", "w_vr")
+    g = np.random.default_rng(B + Q).normal(
+        size=(B, Q, KH * Kd)).astype(np.float32)
+    d = jnp.asarray(x["drop"]) if drop else None
+    _, vjp = jax.vjp(lambda *a: j_rba_trainable(
+        *a, jnp.asarray(x["mask"]), KH, d, True),
+        *(jnp.asarray(x[n]) for n in names))
+    ref = vjp(jnp.asarray(g))
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in names]
+    calls = PA.r_biased_attention_trainable.backward_calls
+    out = PA.r_biased_attention_trainable(
+        *leaves, torch.as_tensor(x["mask"]), KH,
+        torch.as_tensor(x["drop"]) if drop else None)
+    out.backward(torch.as_tensor(g))
+    assert PA.r_biased_attention_trainable.backward_calls == calls + 1
+    for n, t, r in zip(names, leaves, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(t.grad.numpy(), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=n)
+    assert np.abs(leaves[0].grad[0, min(3, Q - 1)].numpy()).max() == 0.0
+
+
+def test_remat_with_predrawn_dropout_matches_plain():
+    """DenseAttention(remat=True) in train mode, checkpointed while grad is
+    enabled, against the same layer unwrapped: the same generator seed
+    draws the same masks before the region, and the recompute reuses them,
+    so outputs and every gradient are equal bit for bit (the kernel branch
+    and the module branch)."""
+    rng = np.random.default_rng(9)
+    t = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+    x, r = t(3, 12, D), t(3, 12, 12, D)
+    mask = torch.as_tensor(rng.uniform(size=(3, 12, 12)) < 0.6)
+    mask[0, 2] = False
+    for use_pallas in (False, True):
+        base = DenseAttention(D, H, Hd, use_pallas=use_pallas)
+        for p in base.parameters():
+            p.data = torch.as_tensor(rng.normal(0, 0.2, p.shape),
+                                     dtype=torch.float32)
+        grads = []
+        for remat in (False, True):
+            mod = DenseAttention(D, H, Hd, use_pallas=use_pallas,
+                                 dropout=0.3, remat=remat).train()
+            mod.load_state_dict(base.state_dict())
+            xx = x.clone().requires_grad_()
+            out = mod(xx, None, r, mask, torch.Generator().manual_seed(5))
+            out.square().sum().backward()
+            grads.append([out.detach(), xx.grad] + [p.grad for p in
+                                                    mod.parameters()])
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+        with torch.no_grad():       # dropout acted
+            assert not torch.equal(grads[0][0], base(x, None, r, mask))
