@@ -52,6 +52,17 @@ before the last line):
            launches and backward calls of 15 eligible sublayers per
            scenario forward (remat recompute included); then one fp32 step
            without dropout with the kernel path against the plain one
+  scoring  the scored closed loop (cli.run_validate): the flagship at full
+           width and depth, production beams (motion 5, insertion 10),
+           bf16, seed_eval, over 4 synthetic scenarios (seeds 0-3):
+           rollouts, WOSAC features, log histograms and likelihoods on the
+           card; the card's outputs then go through the same port code on
+           the CPU, and features, booleans, histogram bins, likelihoods and
+           the metametric must agree (limits at SCORING_SCENARIOS); ms per
+           scenario of the rollout, the features and the scoring, the
+           scoring's peak memory, the metametric and its buckets; then one
+           scenario as two rollouts (n_rollout_close_val = 2, two lanes):
+           [2A, ...] features and a finite score
   rollout  the flagship rollout (configs/ours_long_term.yaml), its two
            variants (use_fused_block, use_pallas_attention: the command
            line's --fused-block / --pallas-attention) and the latency
@@ -2035,6 +2046,217 @@ def run_preset(path, dev, **flags):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# scoring
+# --------------------------------------------------------------------- #
+
+SCORING_SCENARIOS = 4    # synthetic scenarios (seeds 0..3) of `scoring`
+# the card's features and scores against the same port code on the CPU,
+# on the card's rollout outputs: floats within FEATURE_ATOL or FEATURE_RTOL
+# relative, whichever is larger (the card's compiler may contract to FMA
+# where the CPU does not; sin / cos differ in their last bits); a boolean
+# may differ only where its distance lies within NEAR_THRESHOLD of the
+# threshold; a histogram bin only where a value lies within EDGE_REL
+# (relative, at least absolute) of an edge (wosac.bin_flips); likelihoods,
+# curves and the metametric within SCORE_TOL
+FEATURE_ATOL, FEATURE_RTOL = 1e-4, 1e-5
+NEAR_THRESHOLD = 1e-5
+EDGE_REL = 1e-5
+SCORE_TOL = 1e-4
+
+
+def _to(tree, device):
+    from infgen_torch.data.scenario import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def compare_features(card, cpu, what):
+    """Hold the card's MetricFeatures against the CPU's; returns the max
+    abs error of each float field and the certified boolean flips."""
+    errs, flips = {}, {}
+    for name in card._fields:
+        g, r = getattr(card, name).cpu(), getattr(cpu, name)
+        require(g.shape == r.shape and g.dtype == r.dtype,
+                f"scoring {what}: {name} {tuple(g.shape)} {g.dtype} against "
+                f"{tuple(r.shape)} {r.dtype}")
+        if g.dtype == torch.bool:
+            dist = {"collision_per_step": cpu.distance_to_nearest_object,
+                    "offroad_per_step": cpu.distance_to_road_edge}.get(name)
+            flip = g != r
+            near = torch.zeros_like(flip) if dist is None \
+                else dist.abs() < NEAR_THRESHOLD
+            require(not (flip & ~near).any(),
+                    f"scoring {what}: {name} differs off its threshold")
+            flips[name] = int(flip.sum())
+        elif not g.dtype.is_floating_point:
+            require(torch.equal(g, r), f"scoring {what}: {name} differs")
+        else:
+            nan = torch.isnan(r)
+            require(torch.equal(torch.isnan(g), nan),
+                    f"scoring {what}: {name} NaN positions differ")
+            err = (g - r).abs().masked_fill(nan, 0.0)
+            tol = torch.clamp(FEATURE_RTOL * r.abs().masked_fill(nan, 0.0),
+                              min=FEATURE_ATOL)
+            require(bool((err <= tol).all()),
+                    f"scoring {what}: {name} off by {float(err.max())}")
+            errs[name] = float(err.max())
+    return errs, flips
+
+
+def _score_gap(a, b):
+    """Max abs difference over two per-scenario metric dicts."""
+    return max(float(np.max(np.abs(np.asarray(a[k], np.float64)
+                                   - np.asarray(b[k], np.float64))))
+               for k in a if k not in ("scenario", "n_inserted"))
+
+
+def check_scoring(dev):
+    """This slice's main path: the flagship (configs/ours_long_term.yaml:
+    full width and depth, production beams, bf16, seed_eval) closed-loop
+    validation of SCORING_SCENARIOS synthetic scenarios through
+    cli.run_validate on the card: rollouts, WOSAC features, the logged
+    histograms and each scenario's likelihoods on the device. Every kernel
+    count is set to 0 just before and read just after. Then every
+    scenario's rollout outputs (and the scenarios' tensors and inputs) go
+    to the CPU and through the same port code there: features, bins,
+    histograms, likelihoods and the aggregated metametric held to the
+    limits above. Last, one scenario with n_rollout_close_val = 2 (two
+    lanes): features of [2A, ...] and a finite score."""
+    import tempfile
+
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches, run_validate)
+    from infgen_torch.config import load_config
+    from infgen_torch.metrics import wosac as W
+    from infgen_torch.metrics.features import concat_features
+    from infgen_torch.metrics.offline import log_features, rollout_features
+
+    cfg = load_config(FLAGSHIP)
+    tok = build_tokenizers(cfg)
+    model = build_model(cfg, tok[0], dev)
+    lines = []
+    with tempfile.TemporaryDirectory() as save:
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        summary, scorer = run_validate(cfg, dev, SCORING_SCENARIOS, save,
+                                       model=model, tokenizers=tok,
+                                       keep=True, log_fn=lines.append)
+        seconds = time.perf_counter() - t0
+        launches = kernel_launches()
+        printed = lines[-3:]
+        with open(os.path.join(save, "rollout_metrics.json")) as f:
+            written = json.load(f)
+    require(launches["seed_eval"] > 0, "scoring: seed_eval never launched")
+    require(list(written) == ["wosac", "val_metrics", "scenarios"],
+            f"scoring: rollout_metrics.json keys {list(written)}")
+
+    # the same port code on the CPU, on the card's outputs
+    cpu = torch.device("cpu")
+    wcfg = W.WosacConfig()
+    t0 = time.perf_counter()
+    log_cpu = concat_features([
+        log_features(_to(k["scenario"], cpu), _to(k["inputs"], cpu))
+        for k in scorer.kept])
+    log_err, log_flips = compare_features(scorer.log_feats, log_cpu, "log")
+    ld_cpu = W.make_log_distributions(wcfg, log_cpu)
+    hist_gap = max(float((getattr(scorer.log_dist, f).cpu()
+                          - getattr(ld_cpu, f)).abs().max())
+                   for f in ld_cpu._fields)
+    require(hist_gap <= SCORE_TOL, f"scoring: log histograms {hist_gap}")
+    per_scenario, rows_cpu = [], []
+    for kept, row in zip(scorer.kept, scorer.rows):
+        outs = [{k: v.cpu() for k, v in o.items()} for o in kept["outputs"]]
+        edges = [None if t is None else t.cpu()
+                 for t in (kept["road_edges"], kept["road_cyclic"])]
+        sim_cpu = concat_features([rollout_features(o, *edges)
+                                   for o in outs])
+        card = _to(kept["features"], cpu)
+        errs, flips = compare_features(kept["features"], sim_cpu,
+                                       f"scenario {kept['index']}")
+        bins = W.bin_flips(wcfg, card, sim_cpu, EDGE_REL)
+        require(not any(u for _, u in bins.values()),
+                f"scoring: uncertified bin flips {bins}")
+        n_flips = sum(n for n, _ in bins.values())
+        m_cpu = W.metrics_to_host(
+            W.compute_scenario_metrics(wcfg, ld_cpu, sim_cpu))
+        m_cpu.update(scenario=row["scenario"], n_inserted=row["n_inserted"])
+        rows_cpu.append(m_cpu)
+        gap = _score_gap(m_cpu, row)
+        # the scorer alone: the card's features scored on the CPU
+        m_same = W.metrics_to_host(W.compute_scenario_metrics(
+            wcfg, _to(scorer.log_dist, cpu), card))
+        same_gap = _score_gap(m_same, row)
+        require(same_gap <= SCORE_TOL,
+                f"scoring: the CPU scores the card's features {same_gap} off")
+        require(gap <= SCORE_TOL or n_flips,
+                f"scoring: likelihoods {gap} off with no bin flip")
+        per_scenario.append(dict(
+            scenario=row["scenario"], inserted=row["n_inserted"],
+            metametric=row["metametric"],
+            metametric_cpu=m_cpu["metametric"], max_likelihood_gap=gap,
+            same_features_gap=same_gap, certified_bin_flips=n_flips,
+            bool_flips={k: n for k, n in flips.items() if n},
+            max_feature_err=max(errs.values())))
+    wosac_cpu = W.aggregate_scenario_metrics(wcfg, rows_cpu)
+    meta_gap = abs(wosac_cpu["wosac/realism_meta_metric"]
+                   - summary["realism_meta_metric"])
+    require(meta_gap <= SCORE_TOL, f"scoring: metametric {meta_gap} off")
+    cpu_seconds = time.perf_counter() - t0
+
+    # two rollouts of one scenario, as two lanes
+    for fn in KERNELS.values():
+        fn.launches = 0
+    two, two_scorer = run_validate(
+        cfg.replace(n_rollout_close_val=2), dev, 1, None, model=model,
+        tokenizers=tok, keep=True, log_fn=lines.append)
+    two_launches = kernel_launches()
+    feats = two_scorer.kept[0]["features"]
+    A = cfg.max_agents
+    require(tuple(feats.valid.shape[:1]) == (2 * A,)
+            and feats.num_placement.shape[0] == 2,
+            f"scoring: two rollouts gave {tuple(feats.valid.shape)}")
+    require(np.isfinite(two["realism_meta_metric"])
+            and 0 < two["realism_meta_metric"] <= 1,
+            f"scoring: two rollouts scored {two['realism_meta_metric']}")
+    require(two_launches["seed_eval"] > 0,
+            "scoring: seed_eval never launched for two lanes")
+
+    res = dict(
+        config=os.path.relpath(FLAGSHIP, ROOT), scenarios=SCORING_SCENARIOS,
+        width=dict(D=cfg.hidden_dim, agent_layers=cfg.num_agent_layers,
+                   seed_layers=cfg.num_seed_layers, A=cfg.max_agents,
+                   P=cfg.max_map_tokens, frames=cfg.num_recurrent_steps_val,
+                   motion_beam=cfg.motion_beam_size,
+                   insert_beam=cfg.insert_beam_size),
+        compute_dtype=cfg.compute_dtype,
+        ms_rollout=summary["ms_rollout"], ms_features=summary["ms_features"],
+        ms_scoring=summary["ms_scoring"],
+        scoring_peak_bytes=summary["scoring_peak_bytes"],
+        realism_meta_metric=summary["realism_meta_metric"],
+        realism_meta_metric_cpu=wosac_cpu["wosac/realism_meta_metric"],
+        buckets=summary["buckets"], val_metrics=summary["val_metrics"],
+        agents_inserted=summary["agents_inserted"], launches=launches,
+        seconds=seconds, cpu_check_seconds=cpu_seconds,
+        log_features_max_err=max(log_err.values()),
+        log_bool_flips={k: n for k, n in log_flips.items() if n},
+        log_histogram_gap=hist_gap, metametric_gap=meta_gap,
+        per_scenario=per_scenario,
+        tolerances=dict(feature_atol=FEATURE_ATOL, feature_rtol=FEATURE_RTOL,
+                        near_threshold=NEAR_THRESHOLD, edge_rel=EDGE_REL,
+                        score=SCORE_TOL),
+        two_rollouts=dict(features_rows=int(feats.valid.shape[0]),
+                          realism_meta_metric=two["realism_meta_metric"],
+                          ms_rollout=two["ms_rollout"],
+                          ms_features=two["ms_features"],
+                          ms_scoring=two["ms_scoring"],
+                          scoring_peak_bytes=two["scoring_peak_bytes"],
+                          launches=two_launches),
+        printed=printed)
+    emit("scoring", **res)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -2087,6 +2309,7 @@ def main():
     require(served_lanes, "serving dispatched no batch of lanes")
     trainable = check_trainable_grad(cfg, dev)
     train = check_train(dev)
+    scoring = check_scoring(dev)
     missing = [k for k in checks if launches[k] == 0]
     require(not missing, f"kernels never launched on a main path: {missing}")
 
@@ -2108,7 +2331,8 @@ def main():
         lanes_ms_per_lane=lane["ms_per_lane"],
         lanes_bound_ms=lane["bound_ms"], lanes_bound_by=lane["bound_by"],
         lanes_max_abs_err=lane["raw_max_abs_err"],
-        lanes_launches=lanes_launches)
+        lanes_launches=lanes_launches,
+        scoring_launches=scoring["launches"]["seed_eval"])
     rba = next(e for e in line if e["name"] == "r_biased_attention")
     rba.update(
         train_launches=train["launches"]["r_biased_attention"],

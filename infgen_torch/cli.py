@@ -27,21 +27,53 @@ trains from weights drawn from `cfg.seed` on synthetic scenarios (seeds 0,
 (train/loop.train: one JSON line of logs per step, a checkpoint in
 D/ckpt with --save-dir), then prints a summary line: steps, the last loss,
 ms per step (median after two warm-up steps) and each kernel's launches.
-WOSAC scoring and the Waymo loader belong to later slices of the port.
+
+  python -m infgen_torch.cli validate --synthetic [--config ...] \
+      [--num-scenarios N] [--device cuda|cpu] [--save-dir D] \
+      [--log-features total_features.npz] [--dump-rollouts] [--params ...]
+
+rolls out N synthetic scenarios (n_rollout_close_val rollouts each, as
+lanes of one batched rollout) and scores them with the WOSAC metrics
+(`run_validate`): the logged features of the scenario set (or of
+--log-features) make the histograms, each rollout's features are scored
+against them on the device, and the aggregated realism metametric, its
+buckets and the validation metrics go to D/rollout_metrics.json and three
+printed lines. `rollout --save-dir D` scores its rollouts the same way
+after its timed window and adds the metametric to its summary line. The
+Waymo loader belongs to a later slice of the port.
 """
 
 import argparse
 import json
+import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from infgen_torch.config import INVALID_STATE, SHIFT, Config, load_config
 from infgen_torch.convert import load_flax_params, load_npz
 from infgen_torch.data.features import build_model_inputs
-from infgen_torch.data.scenario import to_device
+from infgen_torch.data.scenario import stack_scenarios, to_device
 from infgen_torch.data.synthetic import make_synthetic_scenario
+from infgen_torch.metrics import train_metrics as TM
+from infgen_torch.metrics.features import concat_features
+from infgen_torch.metrics.map_distance import packed_road_edges
+from infgen_torch.metrics.offline import (
+    _device_tensor,
+    _load_features,
+    log_features,
+    rollout_features,
+    save_rollout_dump,
+)
+from infgen_torch.metrics.wosac import (
+    WosacConfig,
+    aggregate_scenario_metrics,
+    compute_scenario_metrics,
+    make_log_distributions,
+    metrics_to_host,
+)
 from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.model.layers import init_params
 from infgen_torch.ops import column_kernel as CK
@@ -267,9 +299,283 @@ def run_train(cfg: Config, device=None, steps: int = 8,
     return trainer, summary
 
 
+def _seed(*key) -> int:
+    """A 63-bit generator seed from a key of non-negative integers."""
+    return int(np.random.SeedSequence(list(key)).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def _val_metrics(cfg: Config, grid_size: int, scen, inputs, out):
+    """The validation metric set of one rollout against its log: minADE /
+    minFDE over the logged future window, state accuracy, grid overlap and
+    insertion-count error, as (sum, count) tensors on the device."""
+    Hs = cfg.num_historical_steps
+    ag = scen.agents
+    eval_mask = out["slot_active"] & ag.valid[:, Hs - 1]
+    To = min(ag.position.shape[1] - Hs, out["pred_traj"].shape[1] - Hs)
+    gt = ag.position[:, Hs:Hs + To, :2]
+    pred = out["pred_traj"][:, Hs:Hs + To]
+    vm = ag.valid[:, Hs:Hs + To] & eval_mask[:, None]
+    sa = TM.state_accuracy(out["next_state_idx"])
+    go = TM.grid_overlap_rate(out["next_state_idx"], out["grid_index"],
+                              grid_size, cfg.num_seed_feature)
+    Tg = min(inputs.tokens.state_idx.shape[1],
+             out["next_state_idx"].shape[1])
+    return {
+        "min_ade": TM.min_ade(pred, gt, vm),
+        "min_fde": TM.min_fde(pred, gt, vm),
+        "state_acc_valid": (sa["valid_sum"], sa["valid_count"]),
+        "state_acc_invalid": (sa["invalid_sum"], sa["invalid_count"]),
+        "grid_overlap": (go["num_overlap_t"].sum(),
+                         go["num_insert_agent_t"].sum()),
+        "num_insert_err": TM.num_insert_accuracy(
+            out["next_state_idx"][:, :Tg], inputs.tokens.state_idx[:, :Tg]),
+    }
+
+
+def _multi_metrics(cfg: Config, scen, outs):
+    """minADE / minFDE over a scenario's several rollouts."""
+    Hs = cfg.num_historical_steps
+    ag = scen.agents
+    pred_k = torch.stack([o["pred_traj"] for o in outs], 1)  # [A, K, T, 2]
+    eval_mask = ag.slot_mask & ag.valid[:, Hs - 1]
+    To = min(ag.position.shape[1] - Hs, pred_k.shape[2] - Hs)
+    gt = ag.position[:, Hs:Hs + To, :2]
+    pk = pred_k[:, :, Hs:Hs + To]
+    vm = ag.valid[:, Hs:Hs + To] & eval_mask[:, None]
+    return {"min_multi_ade": TM.min_multi_ade(pk, gt, vm),
+            "min_multi_fde": TM.min_multi_fde(pk, gt, vm)}
+
+
+class Scorer:
+    """WOSAC scoring of a scenario set's rollouts on one device.
+
+    `log_feats` (MetricFeatures of the whole set, on the device) make the
+    logged histograms once. `score` extracts one scenario's rollout
+    features (several rollouts concatenated along the agent axis), scores
+    them and adds its validation metrics, all on the device; only the
+    per-scenario scalars and curves are read back. `finish` aggregates them
+    and writes rollout_metrics.json. `keep=True` keeps each scenario's
+    device features and metrics in `.kept` (the smoke's card-against-CPU
+    check reads them)."""
+
+    def __init__(self, cfg: Config, grid_size: int, log_feats,
+                 log_fn=print, keep: bool = False):
+        self.cfg, self.grid_size, self.log_fn = cfg, grid_size, log_fn
+        self.wcfg = WosacConfig()
+        self.log_feats = log_feats
+        self.log_dist = make_log_distributions(self.wcfg, log_feats)
+        self.rows, self.kept, self.keep = [], [], keep
+        self.val_totals = {}
+        self.ms_features, self.ms_scoring, self.peak_bytes = [], [], []
+
+    def _acc(self, m):
+        for k, (s, n) in m.items():
+            ts, tn = self.val_totals.get(k, (0.0, 0.0))
+            self.val_totals[k] = (ts + s.double(), tn + n.double())
+
+    def score(self, i: int, scen, inputs, outs, road_edges=None,
+              road_cyclic=None) -> dict:
+        """Score scenario i's rollouts `outs` (one dict per rollout, tensors
+        on the device); `scen` / `inputs` are its tensors there."""
+        dev = outs[0]["pred_traj"].device
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        sim = concat_features([rollout_features(o, road_edges, road_cyclic)
+                               for o in outs])
+        _sync(dev)
+        t1 = time.perf_counter()
+        m_dev = compute_scenario_metrics(self.wcfg, self.log_dist, sim)
+        m = metrics_to_host(m_dev)
+        t2 = time.perf_counter()
+        self.ms_features.append((t1 - t0) * 1e3)
+        self.ms_scoring.append((t2 - t1) * 1e3)
+        if dev.type == "cuda":
+            self.peak_bytes.append(torch.cuda.max_memory_allocated(dev))
+        m["scenario"] = i
+        m["n_inserted"] = int(outs[0]["n_inserted"])
+        self._acc(_val_metrics(self.cfg, self.grid_size, scen, inputs,
+                               outs[0]))
+        if len(outs) > 1:
+            self._acc(_multi_metrics(self.cfg, scen, outs))
+        self.rows.append(m)
+        if self.keep:
+            self.kept.append(dict(index=i, features=sim, metrics=m_dev))
+        self.log_fn(f"scenario {i}: metametric={m['metametric']:.4f} "
+                    f"collision_rate={m['simulated_collision_rate']:.3f} "
+                    f"offroad_rate={m['simulated_offroad_rate']:.3f} "
+                    f"inserted={m['n_inserted']}")
+        return m
+
+    def finish(self, save_dir: Optional[str]):
+        """Aggregate, write save_dir/rollout_metrics.json (the JAX
+        package's schema: wosac, val_metrics, scenarios) and print the
+        summary lines. Returns (wosac, val_metrics)."""
+        keys = sorted(self.val_totals)
+        if keys:
+            host = torch.stack([torch.stack(self.val_totals[k])
+                                for k in keys]).cpu().numpy()
+        val = {k: (float(s / n) if n > 0 else 0.0)
+               for k, (s, n) in zip(keys, host if keys else [])}
+        wosac = aggregate_scenario_metrics(self.wcfg, self.rows)
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+            with open(os.path.join(save_dir, "rollout_metrics.json"),
+                      "w") as f:
+                json.dump({"wosac": wosac, "val_metrics": val,
+                           "scenarios": self.rows}, f, indent=2)
+        self.log_fn("val metrics: " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(val.items())))
+        self.log_fn("wosac buckets: " + " ".join(
+            f"{k.split('/')[1]}={wosac[k]:.4f}" for k in (
+                "wosac/realism_meta_metric", "wosac/kinematic_metrics",
+                "wosac/interactive_metrics", "wosac/map_based_metrics",
+                "wosac/placement_based_metrics")))
+        self.log_fn(f"realism metametric over {len(self.rows)} scenarios "
+                    f"(split-aggregated log features): "
+                    f"{wosac['wosac/realism_meta_metric']:.4f}")
+        return wosac, val
+
+
+def validation_inputs(cfg: Config, tokenizers, device, num_scenarios: int):
+    """The synthetic validation set (seeds 0, 1, ...): per scenario its
+    host arrays, its tensors on `device` and its model inputs (the map
+    mask's draw from its own generator)."""
+    from infgen_torch.train.loop import SyntheticDataset
+
+    attr, mt, _ = tokenizers
+    dataset = SyntheticDataset(cfg, size=num_scenarios)
+    items = []
+    for i in range(num_scenarios):
+        scen = dataset[i]
+        s = to_device(scen, device)
+        gen = torch.Generator(device=device).manual_seed(
+            _seed(cfg.seed + 1, 2 * i))
+        items.append((scen, s, build_model_inputs(cfg, mt, attr, s, gen)))
+    return items
+
+
+def split_log_features(items):
+    """The logged features of the whole validation set, concatenated along
+    the agent axis on the device (road edges left out, as the JAX package's
+    validation does)."""
+    return concat_features([log_features(s, inputs)
+                            for _, s, inputs in items])
+
+
+def _road_edges(scen, device):
+    """The scenario's packed road edges (host arrays, or Nones) and the
+    same as tensors on `device`."""
+    packed = packed_road_edges(scen.map)
+    return packed, [_device_tensor(x, device) for x in packed]
+
+
+def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
+                 save_dir: Optional[str] = "runs/default",
+                 params: Optional[str] = None,
+                 log_features_path: Optional[str] = None,
+                 dump_rollouts: bool = False,
+                 num_recurrent_steps: Optional[int] = None, model=None,
+                 tokenizers=None, keep: bool = False, log_fn=print):
+    """Closed-loop validation with WOSAC scoring (the JAX package's `cli
+    validate`), on the card unless `device` says cpu.
+
+    The logged features of the `num_scenarios` synthetic scenarios (or of
+    `log_features_path`, an aggregated .npz) make the histograms. Each
+    scenario is rolled out `cfg.n_rollout_close_val` times, as lanes of one
+    batched rollout with a generator each; the rollouts' features are
+    concatenated along the agent axis and scored, on the device. With
+    `dump_rollouts` each scenario's first rollout goes to
+    save_dir/rollout_{i:06d}.npz for offline scoring, and a scenario whose
+    dump exists is skipped (resume). Returns (summary, scorer): the summary
+    has ms per scenario of the rollout, of the feature extraction and of
+    the scoring, the peak memory of each scoring on a card, the
+    metametric, its buckets and every kernel's launches; the scorer holds
+    the rows, and with `keep` (in `.kept`) each scenario's tensors,
+    inputs, rollout outputs, road edges and device features and metrics.
+    """
+    device = resolve_device(device)
+    tokenizers = tokenizers or build_tokenizers(cfg)
+    attr, mt, mv = tokenizers
+    model = model or build_model(cfg, attr, device, params)
+    n_roll = max(cfg.n_rollout_close_val, 1)
+    rollout = make_rollout_fn(model, cfg, attr, mt, mv,
+                              num_recurrent_steps=num_recurrent_steps)
+    items = validation_inputs(cfg, tokenizers, device, num_scenarios)
+    if log_features_path:
+        log_feats = _load_features(log_features_path, device)
+        log_fn(f"loaded aggregated log features from {log_features_path}")
+    else:
+        log_feats = split_log_features(items)
+    scorer = Scorer(cfg, attr.grid_size, log_feats, log_fn, keep)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+    launches0 = kernel_launches()
+    ms_rollout = []
+    for i, (scen, s, inputs) in enumerate(items):
+        dump = os.path.join(save_dir or ".", f"rollout_{i:06d}.npz")
+        if dump_rollouts and os.path.exists(dump):
+            continue
+        gens = [torch.Generator(device=device).manual_seed(
+            _seed(cfg.seed + 1, 2 * i + 1, k)) for k in range(n_roll)]
+        _sync(device)
+        t0 = time.perf_counter()
+        if n_roll == 1:
+            outs = [rollout(s, inputs, gens[0])]
+        else:
+            # the scenario's rollouts as lanes of one batched rollout
+            out = rollout(stack_scenarios([s] * n_roll),
+                          stack_scenarios([inputs] * n_roll), gens)
+            outs = [{k: v[j] for k, v in out.items()} for j in range(n_roll)]
+        _sync(device)
+        ms_rollout.append((time.perf_counter() - t0) * 1e3)
+        packed, road = _road_edges(scen, device)
+        if dump_rollouts:
+            save_rollout_dump(dump, outs[0], *packed)
+        scorer.score(i, s, inputs, outs, *road)
+        if keep:
+            scorer.kept[-1].update(scenario=s, inputs=inputs, outputs=outs,
+                                   road_edges=road[0], road_cyclic=road[1])
+    wosac, val = scorer.finish(save_dir)
+    R = num_recurrent_steps or cfg.num_recurrent_steps_val
+    summary = dict(
+        _summary_head(cfg, device, num_scenarios, R // SHIFT, False),
+        n_rollouts=n_roll,
+        scored=len(scorer.rows),
+        ms_rollout=ms_rollout,
+        ms_features=scorer.ms_features,
+        ms_scoring=scorer.ms_scoring,
+        scoring_peak_bytes=scorer.peak_bytes,
+        realism_meta_metric=wosac["wosac/realism_meta_metric"],
+        buckets={k.split("/")[1]: wosac[k] for k in wosac
+                 if k.startswith("wosac/") and k.endswith("_metrics")},
+        val_metrics=val,
+        agents_inserted=[m["n_inserted"] for m in scorer.rows],
+        **_launch_counts(launches0))
+    return summary, scorer
+
+
+def score_rollouts(cfg: Config, outputs, save_dir: str, device=None,
+                   tokenizers=None, log_fn=print):
+    """Score the rollouts of synthetic scenarios 0, 1, ... (`outputs`, one
+    dict each, as run_rollouts returns them) against the set's
+    logged features; writes save_dir/rollout_metrics.json. Returns the
+    aggregated WOSAC dict."""
+    device = resolve_device(device)
+    tokenizers = tokenizers or build_tokenizers(cfg)
+    items = validation_inputs(cfg, tokenizers, device, len(outputs))
+    scorer = Scorer(cfg, tokenizers[0].grid_size, split_log_features(items),
+                    log_fn)
+    for i, ((scen, s, inputs), out) in enumerate(zip(items, outputs)):
+        scorer.score(i, s, inputs, [out], *_road_edges(scen, device)[1])
+    return scorer.finish(save_dir)[0]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch")
-    p.add_argument("mode", choices=["rollout", "train"])
+    p.add_argument("mode", choices=["rollout", "validate", "train"])
     p.add_argument("--config", default="configs/ours_long_term.yaml",
                    help="YAML config path")
     p.add_argument("--synthetic", action="store_true",
@@ -287,7 +593,17 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=8,
                    help="train: optimizer steps")
     p.add_argument("--save-dir", default=None,
-                   help="train: checkpoint directory (resumes from it)")
+                   help="train: checkpoint directory (resumes from it); "
+                        "validate: where rollout_metrics.json and the dumps "
+                        "go (default runs/default); rollout: score the "
+                        "rollouts and write rollout_metrics.json there")
+    p.add_argument("--log-features", default=None,
+                   help="validate: aggregated log features (.npz from "
+                        "metrics.offline --aggregate-log) instead of the "
+                        "scenario set's own")
+    p.add_argument("--dump-rollouts", action="store_true",
+                   help="validate: write each scenario's rollout for "
+                        "offline scoring (skips scenarios already dumped)")
     p.add_argument("--num-recurrent-steps", type=int, default=None,
                    help="10 Hz frames to roll out (default from the config)")
     p.add_argument("--params", default=None,
@@ -296,18 +612,31 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not args.synthetic:
         p.error("only --synthetic scenarios are ported so far")
+    if args.mode == "rollout" and args.batch and args.save_dir:
+        p.error("--save-dir scores one-lane rollouts: served rollouts come "
+                "back repadded to their bucket and compacted; drop --batch")
     cfg = apply_variant_flags(load_config(args.config), args)
+    if args.mode == "validate":
+        run_validate(cfg, args.device, args.num_scenarios,
+                     args.save_dir or "runs/default", args.params,
+                     args.log_features, args.dump_rollouts,
+                     args.num_recurrent_steps)
+        return
     if args.mode == "train":
         _, summary = run_train(cfg, args.device, args.steps, args.batch,
                                args.save_dir)
     elif args.batch:
-        _, summary = run_batched(
+        outputs, summary = run_batched(
             cfg, args.device, args.num_scenarios, args.batch,
             args.force_insert, args.params, args.num_recurrent_steps)
     else:
-        _, summary = run_rollouts(
+        outputs, summary = run_rollouts(
             cfg, args.device, args.num_scenarios, args.force_insert,
             args.params, args.num_recurrent_steps)
+    if args.mode == "rollout" and args.save_dir:
+        # after the timed window
+        wosac = score_rollouts(cfg, outputs, args.save_dir, args.device)
+        summary["realism_meta_metric"] = wosac["wosac/realism_meta_metric"]
     print(json.dumps(summary))
 
 

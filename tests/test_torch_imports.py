@@ -9,6 +9,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "infgen_tpu"}
 FILES = sorted((ROOT / "infgen_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+METRICS = ("features", "map_distance", "wosac", "train_metrics", "offline")
 
 
 def _imported(path):
@@ -25,6 +26,7 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {f"infgen_torch/train/{m}.py" for m in (
         "targets", "losses", "train_step", "loop", "checkpoint")} <= names
+    assert {f"infgen_torch/metrics/{m}.py" for m in METRICS} <= names
     bad = {str(p.relative_to(ROOT)): sorted(
         {m for m in _imported(p) if m.split(".")[0] in FORBIDDEN})
         for p in FILES}
@@ -44,3 +46,32 @@ def test_train_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_metrics_modules_import_without_jax():
+    """The WOSAC metric modules import, and score a small feature set, in a
+    process where JAX, flax, optax and the JAX package cannot be
+    imported."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+            + "".join(f"import infgen_torch.metrics.{m}\n" for m in METRICS)
+            + "import torch\n"
+            "from infgen_torch.metrics import features as F, wosac as W\n"
+            "A, T = 4, 101\n"
+            "xy = torch.cumsum(torch.ones(A, T, 2), 1)\n"
+            "f = F.compute_metric_features(\n"
+            "    xy, torch.zeros(A, T), torch.ones(A, T, dtype=torch.bool),\n"
+            "    torch.full((A,), 4.0), torch.full((A,), 2.0),\n"
+            "    torch.ones(A, dtype=torch.bool), 0, xy[:, ::5][:, :20],\n"
+            "    torch.ones(A, 20, dtype=torch.int32))\n"
+            "c = W.WosacConfig()\n"
+            "m = W.compute_scenario_metrics(c, W.make_log_distributions(c, f),"
+            " f)\n"
+            "print('ok', 0 < float(m['metametric']) <= 1)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok True", \
+        out.stderr
