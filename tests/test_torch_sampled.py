@@ -134,7 +134,7 @@ def params():
 def runs(request, params):
     """N JAX rollouts (one jitted vmap over N keys) and N port rollouts
     (one batched rollout of N lanes) of one scenario, same weights and
-    inputs; in motion mode also the perturbed port's N rollouts."""
+    inputs, and the perturbed port's N rollouts."""
     mode = request.param
     over, force, frames = MODES[mode]
     base = dict(CFG, num_recurrent_steps_val=frames, **over)
@@ -174,10 +174,8 @@ def runs(request, params):
         return {k: v.numpy() for k, v in fn(*lanes, gens).items()}
 
     vocab = cfg.token_size
-    res = dict(mode=mode, vocab=vocab, jax=jout, port=port_runs(params))
-    if mode == "motion":
-        res["bad"] = port_runs(_perturbed(params, vocab))
-    return res
+    return dict(mode=mode, vocab=vocab, jax=jout, port=port_runs(params),
+                bad=port_runs(_perturbed(params, vocab)))
 
 
 def _tokens(out, vocab):
@@ -201,10 +199,8 @@ def test_sampled_tokens_and_transitions(runs):
 
 
 def test_sampled_power(runs):
-    """The perturbed port's tokens are rejected against JAX's."""
-    if runs["mode"] != "motion":
-        assert "bad" not in runs          # motion mode carries the case
-        return
+    """The perturbed port's tokens are rejected against JAX's, in both
+    modes."""
     p = _chi2_two_sample(_tokens(runs["bad"], runs["vocab"]),
                          _tokens(runs["jax"], runs["vocab"]))
     assert p < REJECT_P, f"perturbed logits were NOT rejected (p={p:.2e})"
