@@ -273,17 +273,19 @@ def test_kinematic_features(inputs, jax_all):
 
 def test_box_geometry_helpers(inputs):
     """box_corners_2d, _downmost_edge_xy, _select_vertex,
-    _minkowski_sum_xy and _signed_distance_origin_xy on one pair set."""
+    _minkowski_sum_xy and _signed_distance_origin_xy on one pair set, each
+    JAX function jitted alone on the inputs the port's gets."""
     d = inputs
     x, y, h = d["xy"][:10, :, 0], d["xy"][:10, :, 1], d["heading"][:10]
     x, y, h = (np.nan_to_num(v) for v in (x, y, h))
     lw = [np.broadcast_to(d[k][:10, None], x.shape).astype(np.float32)
           for k in ("length", "width")]
-    jc = np.asarray(JF.box_corners_2d(x, y, *lw, h))
+    jc = np.asarray(jax.jit(JF.box_corners_2d)(x, y, *lw, h))
     tc = F.box_corners_2d(_t(x), _t(y), _t(lw[0]), _t(lw[1]), _t(h))
     assert_float(tc, jc, atol=DIST_TOL, what="corners")
     bx, by = jc[..., 0].swapaxes(-1, -2), jc[..., 1].swapaxes(-1, -2)
-    js = JF._downmost_edge_xy(bx, by)
+    edge = jax.jit(JF._downmost_edge_xy)
+    js = edge(bx, by)
     ts = F._downmost_edge_xy(_t(bx), _t(by))
     np.testing.assert_array_equal(_np(ts[0]), np.asarray(js[0]))
     for g, r in zip(ts[1:], js[1:]):
@@ -291,9 +293,10 @@ def test_box_geometry_helpers(inputs):
     order = np.random.default_rng(1).integers(0, 4, (10, 8, x.shape[1]))
     np.testing.assert_array_equal(
         _np(F._select_vertex(_t(bx), _t(order))),
-        np.asarray(JF._select_vertex(bx, order)))
-    js2 = JF._downmost_edge_xy(-bx, -by)
-    jp = JF._minkowski_sum_xy(bx[:, None], by[:, None], js[0][:, None],
+        np.asarray(jax.jit(JF._select_vertex)(bx, order)))
+    js2 = edge(-bx, -by)
+    jp = jax.jit(JF._minkowski_sum_xy)(bx[:, None], by[:, None],
+                                       js[0][:, None],
                               js[1][:, None], js[2][:, None], -bx[None],
                               -by[None], js2[0][None], js2[1][None],
                               js2[2][None])
@@ -301,11 +304,16 @@ def test_box_geometry_helpers(inputs):
         _t(bx)[:, None], _t(by)[:, None], _t(js[0])[:, None],
         _t(js[1])[:, None], _t(js[2])[:, None], -_t(bx)[None],
         -_t(by)[None], _t(js2[0])[None], _t(js2[1])[None], _t(js2[2])[None])
+    # within DIST_TOL, not bitwise: jitted, XLA contracts the edges' cross
+    # product into a fused multiply-add, so parallel edges (equal headings)
+    # may take the other order, which lists the same 8-gon's vertices as
+    # other float32 sums; a wrong order would be metres off
     for g, r in zip(tp, jp):
-        np.testing.assert_array_equal(_np(g), np.asarray(r))
+        assert_float(g, r, atol=DIST_TOL, rtol=0, what="minkowski")
     px, py = (np.asarray(v) for v in jp)
     assert_float(F._signed_distance_origin_xy(_t(px), _t(py)),
-                 JF._signed_distance_origin_xy(px, py), atol=DIST_TOL,
+                 jax.jit(JF._signed_distance_origin_xy)(px, py),
+                 atol=DIST_TOL,
                  rtol=0)
 
 
@@ -427,7 +435,8 @@ def test_signed_distance_to_polylines(inputs):
     pts = np.concatenate([
         np.c_[rng.uniform(-45, 45, (300, 2)), rng.uniform(0, 2, 300)],
         np.c_[poly[2, :12, :2] + 1e-3, np.zeros(12)]]).astype(np.float32)
-    ref = np.asarray(JMD.signed_distance_to_polylines(pts, poly, cyc, 3.0))
+    ref = np.asarray(jax.jit(JMD.signed_distance_to_polylines)(
+        pts, poly, cyc, 3.0))
     L, S = poly.shape[0], poly.shape[1] - 1
     for chunk in (MD.POINT_CHUNK_ELEMENTS, 7 * L * S):
         got = MD.signed_distance_to_polylines(_t(pts), _t(poly), _t(cyc),
@@ -507,11 +516,14 @@ def test_avg_valid_and_mean_finite():
     x[1, 1] = -np.inf
     m = rng.uniform(size=x.shape) > 0.3
     m[2, 2] = False
-    assert_float(W._avg_valid(_t(x), _t(m)), JW._avg_valid(x, m), what="avg")
-    y = np.asarray(JW._avg_valid(x, m))
-    for axis in (None, 0):
-        assert_float(W._mean_finite(_t(y), dim=axis),
-                     JW._mean_finite(y, axis=axis), what=f"mean {axis}")
+    y, means = jax.jit(lambda x, m: (
+        JW._avg_valid(x, m), [JW._mean_finite(JW._avg_valid(x, m), axis=a)
+                              for a in (None, 0)]))(x, m)
+    assert_float(W._avg_valid(_t(x), _t(m)), y, what="avg")
+    y = np.asarray(y)
+    for axis, ref in zip((None, 0), means):
+        assert_float(W._mean_finite(_t(y), dim=axis), ref,
+                     what=f"mean {axis}")
 
 
 def test_make_log_distributions(jax_all):
