@@ -63,6 +63,25 @@ before the last line):
            scoring's peak memory, the metametric and its buckets; then one
            scenario as two rollouts (n_rollout_close_val = 2, two lanes):
            [2A, ...] features and a finite score
+  parity_stream  parity_config's rollout as a stream of three 70-frame
+           segments on the card, through StreamingRollout.run (one bucket)
+           and through make_stream_fn, with the flagship's flags and the
+           latency preset's; each segment run again on the CPU from the
+           card's seam: decisions equal, headings within POSE_TOL,
+           positions within POSE_TOL scaled by the segment's distance
+           from the origin (check_parity_stream)
+  parity_latency_bf16  the latency preset at full width in bf16, beams 1,
+           forced insertion, 300 frames, on its three kernels against its
+           plain modules (both on the card): decisions compared step by
+           step up to the first difference, which must be certified from
+           the plain side's logits against limits taken from E2E_TOL
+  stream   the streaming main path at full width, bf16, production beams:
+           the flagship through cli.run_stream (900 frames in 300-frame
+           segments, re-bucketed), 8 scenarios as lanes through the chunked
+           runner (plan 128 / 64 / 64), the latency preset for two
+           segments: ms per segment and per token step, agent-steps/s,
+           agents ever alive, buckets, host reads, peak memory, launches;
+           the registries' invariants
   rollout  the flagship rollout (configs/ours_long_term.yaml), its two
            variants (use_fused_block, use_pallas_attention: the command
            line's --fused-block / --pallas-attention) and the latency
@@ -74,7 +93,7 @@ before the last line):
 
 then the summary line of every kernel ({"kernels": [...]}; seed_eval's
 entry also carries its lane form's time, bound and launches in the serving
-phase) and, last, the device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
+phase, each kernel that `stream` launched its `stream_launches`) and, last, the device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
 and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
 """
 
@@ -1555,8 +1574,8 @@ def check_trainable_grad(cfg, dev):
     through r_biased_attention_reference on the card, a fully masked
     query's output and dq exactly 0. Times per shape (without dropout): the
     kernel's forward beside its bound (rba_cost_least), the plain forward,
-    and the backward (the recompute), each a median of CUDA-event times.
-    Returns {shape: readings}."""
+    and the backward (the recompute) beside its bound (rba_backward_cost),
+    each a median of CUDA-event times. Returns {shape: readings}."""
     from infgen_torch.ops import pallas_attention as PA
 
     D, H = cfg.hidden_dim, cfg.num_heads
@@ -1602,10 +1621,16 @@ def check_trainable_grad(cfg, dev):
             got, leaves, g, retain_graph=True), PLAIN_CALLS)
         nbytes, macs = rba_cost_least(args, H)
         bound_ms, bound_by = bound_of(nbytes, 0, macs, F32)
+        bwd_bytes, bwd_macs = rba_backward_cost(args, H)
+        bwd_bound_ms, bwd_bound_by = bound_of(bwd_bytes, 0, bwd_macs, F32)
         out[name] = dict(B=B, Q=Q, K=K, max_abs_err=max(errs.values()),
                          errors=errs, grad_rel_errors=grad_errs, ms=ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         plain_ms=plain_ms, backward_ms=bwd_ms)
+                         plain_ms=plain_ms, backward_ms=bwd_ms,
+                         backward_bound_ms=bwd_bound_ms,
+                         backward_bound_by=bwd_bound_by,
+                         backward_bytes=bwd_bytes,
+                         backward_operations=2 * bwd_macs)
     emit("trainable_grad", shapes=out, tolerance=TOL["r_biased_attention"][
         F32], grad_tolerance=GRAD_TOL, backward="plain recompute, as "
          "_rba_bwd")
@@ -2257,6 +2282,511 @@ def check_scoring(dev):
     return res
 
 
+# --------------------------------------------------------------------- #
+# the latency preset's bf16 decisions: kernels against the plain modules
+# --------------------------------------------------------------------- #
+
+LATENCY_KERNEL_FLAGS = ("use_seed_kernel_full", "use_refine_kernel",
+                        "use_column_kernel")
+BF16_PARITY_SCENARIO = 0     # synthetic scenario (seed) of the bf16 parity
+
+
+def _decision_cells(k, p, t, H):
+    """The decisions of token step t on both sides (numpy outputs of a
+    one-lane rollout), in the order the step makes them: its insertions
+    (the count; then, on the rows that enter at column t + H - 1 on either
+    side, the state, grid cell, type and heading written there) and its
+    motion (the state, then the token, written at column t + H on every
+    row that does not enter there at step t + 1). Returns (kind, row, field) of
+    each differing cell, insertions first."""
+    from infgen_torch.config import ENTER_STATE as ENTER
+
+    c_in, c_mo = t + H - 1, t + H
+    diff = []
+    if k["per_step_inserted"][t] != p["per_step_inserted"][t]:
+        diff.append(("insertion", -1, "count"))
+    st_k, st_p = k["next_state_idx"], p["next_state_idx"]
+    enters = (st_k[:, c_in] == ENTER) | (st_p[:, c_in] == ENTER)
+    if t > 0:
+        for r in np.nonzero(enters)[0]:
+            for field, a, b in (
+                    ("state", st_k[r, c_in], st_p[r, c_in]),
+                    ("grid", k["grid_index"][r, c_in],
+                     p["grid_index"][r, c_in]),
+                    ("type", k["pred_type"][r], p["pred_type"][r]),
+                    ("heading", k["head_a"][r, c_in], p["head_a"][r, c_in])):
+                if a != b:
+                    diff.append(("insertion", int(r), field))
+    later = np.zeros_like(enters)
+    if c_mo < st_k.shape[1]:
+        later = (st_k[:, c_mo] == ENTER) | (st_p[:, c_mo] == ENTER)
+        for r in np.nonzero(~later)[0]:
+            # the state first: a row that leaves has no token
+            for field, key in (("state", "next_state_idx"),
+                               ("token", "next_token_idx")):
+                if k[key][r, c_mo] != p[key][r, c_mo]:
+                    diff.append(("motion", int(r), field))
+                    break
+    return diff
+
+
+def _motion_gap_limit(head, feat, a, b, eps):
+    """A first-order bound on how far a trunk output within eps (max abs) of
+    `feat` can move the gap between the head's logits a and b:
+    ||grad_f (l_a - l_b)||_1 x eps, the gradient at the plain side's
+    feature."""
+    f = feat.detach().float().clone().requires_grad_()
+    with torch.enable_grad():
+        lg = head(f).float()
+        g, = torch.autograd.grad(lg[a] - lg[b], f)
+    return float(g.abs().sum()) * eps
+
+
+def certify_difference(k, p, outs, plain_model, t, diff, limits, H):
+    """The first differing decision of check_parity_latency_bf16 (step t,
+    its cells `diff` from _decision_cells; k / p the two sides' numpy
+    outputs, `outs` their tensors) with the readings that certify it or
+    not (its docstring)."""
+    from infgen_torch.config import EXIT_STATE
+
+    kind, row, field = diff[0]
+    found = dict(step=t, kind=kind, row=row, field=field, cells=len(diff))
+    if kind == "motion":
+        key = "next_token_idx" if field == "token" else "next_state_idx"
+        a, b = int(k[key][row, t + H]), int(p[key][row, t + H])
+        if field == "state":
+            # the rollout maps the state head's class 2 to EXIT_STATE
+            a, b = (2 if x == EXIT_STATE else x for x in (a, b))
+        lg = p["debug_token_logits" if field == "token"
+               else "debug_state_logits"][t, row]
+        dec = plain_model.agent_decoder
+        head = dec.token_predict_head if field == "token" \
+            else dec.state_predict_head
+        feat_p = outs["plain"]["debug_layer_cols"][t, -1]
+        feat_k = outs["kernels"]["debug_layer_cols"][t, -1]
+        live = outs["plain"]["slot_active"]
+        feat_err = float((feat_k.float() - feat_p.float())[live].abs().max())
+        gap = abs(float(lg[a]) - float(lg[b]))
+        limit = _motion_gap_limit(head, feat_p[row], a, b,
+                                  limits["motion_feature"])
+        top2 = set(np.argsort(lg)[::-1][:2].tolist()) == {a, b}
+        found.update(kernel=a, plain=b, plain_gap=gap, gap_limit=limit,
+                     top_two=top2, feature_err=feat_err,
+                     certified=bool(top2 and gap <= limit
+                                    and feat_err <= limits["motion_feature"]))
+        return found
+    # an insertion: the step's decisions in the order it makes them, seed
+    # evaluation j (its heads' choices at once) then refine j (insert j's
+    # heading), from each side's own records. The first evaluation whose
+    # choices differ is the root; the rest of the step follows from it.
+    # The phase forces insertion: the seed state head decides nothing.
+    seed_heads = ["seed_type", "seed_grid"]
+    order = []
+    for j in range(k["debug_seed_type_top2"].shape[1]):
+        order.append((j, "seed", seed_heads, limits["seed_gap"]))
+        if j < k["debug_refine_head_top2"].shape[1]:
+            order.append((j, "refine", ["refine_head"], limits["refine_gap"]))
+    found.update(fields=sorted({f for kd, _, f in diff
+                                if kd == "insertion"}),
+                 certified=False, reason="no evaluation's choice differs")
+    for j, stage, hs, limit in order:
+        heads = {}
+        for h in hs:
+            a = int(k[f"debug_{h}_top2"][t, j, 0])
+            b = int(p[f"debug_{h}_top2"][t, j, 0])
+            if a == b:
+                continue
+            top2 = p[f"debug_{h}_top2"][t, j].tolist()
+            gap = float(p[f"debug_{h}_gap"][t, j])
+            ok = set(top2) == {a, b} and gap <= limit
+            heads[h] = dict(kernel=a, plain=b, plain_top2=top2,
+                            plain_gap=gap, top_two=set(top2) == {a, b},
+                            certified=ok)
+        if heads:
+            found.update(insert=j, decided_by=stage, heads=heads,
+                         gap_limit=limit, reason=None,
+                         certified=all(x["certified"] for x in
+                                       heads.values()))
+            break
+    return found
+
+
+def check_parity_latency_bf16(dev):
+    """The latency preset's decisions on its kernels against its plain
+    modules, on the card at full width in its bf16 policy: the config at
+    LATENCY, beams 1, forced insertion, 300 frames, random weights from its
+    seed, one synthetic scenario; once with its three kernel flags (and
+    seed_eval off), once with all of them off. Token, state, slot and
+    insertion decisions (the grid cell, type and heading of each insert)
+    are compared step by step up to the first difference, which is
+    certified from the plain side's debug outputs:
+      - a motion token or state: both choices must be the plain logits' top
+        two, and their plain gap within the first-order reach of the
+        column's whole-call limit E2E_TOL["motion_column"][bf16] through
+        the head (_motion_gap_limit); the trunk output at that step must
+        itself differ from the plain one by at most that limit;
+      - an insertion: its root is the step's first evaluation (seed
+        evaluation j, then refine pass j, j = 0, 1, ...) at which the two
+        sides' own debug records (make_rollout_fn's `debug_{head}_top2`)
+        chose differently. Every head that differs there is certified by
+        itself: both choices must be the plain logits' top two at that
+        evaluation, and the plain gap of that head within its limit: 2 x
+        E2E_TOL["seed_eval_full"][bf16] for the grid cell or the type (each
+        logit within the kernel's limit), 2 x E2E_TOL["refine"][bf16] for
+        the heading. A differing insertion with no differing evaluation is
+        not certified.
+    A difference that is not certified fails the phase."""
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches)
+    from infgen_torch.config import SHIFT, load_config
+    from infgen_torch.data.features import build_model_inputs
+    from infgen_torch.data.scenario import to_device
+    from infgen_torch.data.synthetic import make_synthetic_scenario
+    from infgen_torch.rollout.closed_loop import make_rollout_fn
+    from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
+
+    cfg = load_config(LATENCY).replace(motion_beam_size=1,
+                                       insert_beam_size=1)
+    plain_cfg = cfg.replace(use_seed_kernel=False,
+                            **{f: False for f in LATENCY_KERNEL_FLAGS})
+    attr, mt, mv = build_tokenizers(cfg)
+    scen = to_device(make_synthetic_scenario(
+        cfg, seed=BF16_PARITY_SCENARIO, map_tokenizer=MapTokenizer(mv)), dev)
+    uniform = np.random.default_rng(5).uniform(size=cfg.max_map_tokens)
+    inputs = build_model_inputs(
+        cfg, mt, attr, scen, pt_uniform=torch.as_tensor(
+            uniform, dtype=torch.float32, device=dev))
+    n_steps = cfg.num_recurrent_steps_val // SHIFT
+    outs, launches, seconds, models = {}, {}, {}, {}
+    for side, c in (("kernels", cfg), ("plain", plain_cfg)):
+        model = models[side] = build_model(c, attr, dev)
+        for fn in KERNELS.values():
+            fn.launches = 0
+        roll = make_rollout_fn(model, c, attr, mt, mv, force_insert=True,
+                               debug=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = roll(scen, inputs, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        seconds[side] = time.perf_counter() - t0
+        launches[side] = {k: n for k, n in kernel_launches().items() if n}
+        outs[side] = out
+    require(all(torch.equal(a, b) for a, b in zip(
+        models["kernels"].state_dict().values(),
+        models["plain"].state_dict().values())),
+        "parity_latency_bf16: the two sides' weights differ")
+    require(all(launches["kernels"].get(k, 0) > 0 for k in (
+        "seed_eval_full", "refine", "motion_column")),
+        f"parity_latency_bf16: a kernel never launched {launches}")
+    require(not launches["plain"],
+            f"parity_latency_bf16: the plain side launched {launches}")
+    k = {n: v.detach().float().cpu().numpy() if v.is_floating_point()
+         else v.detach().cpu().numpy() for n, v in outs["kernels"].items()}
+    p = {n: v.detach().float().cpu().numpy() if v.is_floating_point()
+         else v.detach().cpu().numpy() for n, v in outs["plain"].items()}
+    H = (cfg.num_historical_steps - 1) // SHIFT
+    first, diff = None, []
+    for t in range(n_steps):
+        diff = _decision_cells(k, p, t, H)
+        if diff:
+            first = t
+            break
+    limits = dict(
+        motion_feature=E2E_TOL["motion_column"][BF16],
+        seed_gap=2 * E2E_TOL["seed_eval_full"][BF16],
+        refine_gap=2 * E2E_TOL["refine"][BF16])
+    found = None if first is None else certify_difference(
+        k, p, outs, models["plain"], first, diff, limits, H)
+    emit("parity_latency_bf16", config=os.path.relpath(LATENCY, ROOT),
+         compute_dtype=cfg.compute_dtype, beams=1, force_insert=True,
+         frames=cfg.num_recurrent_steps_val, scenario=BF16_PARITY_SCENARIO,
+         steps_equal=n_steps if first is None else first,
+         token_steps=n_steps, first_difference=found, limits=limits,
+         inserted={s: int(outs[s]["n_inserted"]) for s in outs},
+         launches=launches, seconds=seconds)
+    require(found is None or found["certified"],
+            f"parity_latency_bf16: an uncertified difference {found}")
+    return found
+
+
+def rba_backward_cost(args, num_heads):
+    """(bytes, fp32 multiply-adds) of the recompute backward of one call
+    (r_biased_attention_trainable's `_rba_bwd`) at this run's mask: it
+    reads what the forward reads (rba_cost_least's bytes, the output write
+    there standing for the cotangent's read here) and writes the gradient
+    of each of the six differentiable inputs (q, k, v, r, w_kr, w_vr, each
+    as large as its input); it recomputes the forward (rba_cost_least's
+    work) and forms each product's gradient against both its operands
+    (twice that work)."""
+    nbytes, macs = rba_cost_least(args, num_heads)
+    return nbytes + _nbytes(*args[:6]), 3 * macs
+
+
+# --------------------------------------------------------------------- #
+# streaming
+# --------------------------------------------------------------------- #
+
+STREAM_PARITY_SEGMENTS = 3
+STREAM_POS_KEYS = ("pos_a", "pred_traj")     # parity_stream's positions
+STREAM_FRAMES = 900          # (a): cli stream's default horizon
+STREAM_FLEET = 8             # (b): synthetic scenarios (seeds 0..7)
+STREAM_PLAN = ((128, 1), (64, 1), (64, 1))   # the JAX bench's fleet plan
+STREAM_LATENCY_SEGMENTS = 2  # (c)
+
+
+def check_parity_stream(dev):
+    """parity_config's small rollout (70-frame segments) as a three-segment
+    stream on the card (kernels in fp32): through StreamingRollout.run over
+    a RolloutServer of one bucket, and through make_stream_fn; with the
+    flagship's flags and with the latency preset's three kernel flags.
+    Every segment the card ran is run again on the CPU (plain versions)
+    from the same start: the scenario the card's segment started from (its
+    seam, handed over by `on_segment`) and the same seed, through a
+    RolloutServer like the card's. As in the parity* phases, its decisions
+    (PARITY_EXACT) must be equal, and its headings, states, shapes and
+    seed probabilities within POSE_TOL. Positions (STREAM_POS_KEYS) are
+    held to POSE_TOL scaled by how far from the origin the segment runs:
+    segment i's limit is POSE_TOL x max(1, X_i / X_0), X the largest
+    |coordinate| the CPU side's segment holds. Segment 0 is the parity
+    phases' rollout, held to POSE_TOL itself. The reason, measured on the
+    H100 with every kernel off as well: the ego of this random-weight
+    scenario moves about 20 m per token step and is 230-390 m out in
+    segment 2, where a float32 ulp is 3e-5 m; the plain modules' headings
+    there differ between CPU and card by up to 1.3e-5 rad, and the position
+    error grows by about 1e-4 m per token step to 1.15e-3 m. Each segment's
+    readings name the key, row and frame of its largest position error.
+    The card's stitched registry must hold stream_invariants, and each
+    kernel of the flags must have launched (the CPU runs launch none)."""
+    from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
+                                  kernel_launches)
+    from infgen_torch.data.synthetic import make_synthetic_scenario
+    from infgen_torch.rollout import streaming as ST
+    from infgen_torch.rollout.serving import RolloutServer
+
+    S, R = STREAM_PARITY_SEGMENTS, PARITY_FRAMES
+    runs, faults = {}, []
+    for name in ("parity", "parity_latency"):
+        flags = PARITY_FLAGS[name]
+        cfg = parity_config(**flags)
+        tok = build_tokenizers(cfg)
+        scen = make_synthetic_scenario(cfg, seed=2, num_agents=10)
+
+        def server():
+            return RolloutServer(cfg, *tok, agent_buckets=(cfg.max_agents,),
+                                 agent_headroom=0, force_insert=True,
+                                 num_recurrent_steps=R)
+
+        cpu_model, cpu_srv = build_model(cfg, tok[0], "cpu"), server()
+        segs = {"host": [], "fused": []}
+
+        def replay(path):
+            def on_segment(seg, start, seed, out):
+                ref = cpu_srv.rollout(cpu_model, ST.to_host(start), seed,
+                                      input_seed=seed)
+                g, c = ({k: v.detach().cpu().numpy() for k, v in o.items()}
+                        for o in (out, ref))
+                err = {k: np.abs(c[k] - g[k]) for k in PARITY_CLOSE}
+                worst = max(STREAM_POS_KEYS, key=lambda k: err[k].max())
+                at = np.unravel_index(np.argmax(err[worst]), err[worst].shape)
+                segs[path].append(dict(
+                    mismatched=[k for k in PARITY_EXACT
+                                if not np.array_equal(c[k], g[k])],
+                    pos_err=float(err[worst].max()),
+                    pos_err_at=dict(key=worst, row=int(at[0]),
+                                    index=int(at[1])),
+                    other_err=max(float(e.max()) for k, e in err.items()
+                                  if k not in STREAM_POS_KEYS),
+                    extent=max(float(np.abs(c[k]).max())
+                               for k in STREAM_POS_KEYS),
+                    inserted=int(g["n_inserted"])))
+            return on_segment
+
+        model = build_model(cfg, tok[0], dev)
+        for fn in KERNELS.values():
+            fn.launches = 0
+        res = ST.StreamingRollout(server(), R).run(
+            model, scen, 0, S * R, on_segment=replay("host"))
+        ST.make_stream_fn(model, cfg, *tok, segment_steps=R, n_segments=S,
+                          force_insert=True)(scen, 0,
+                                             on_segment=replay("fused"))
+        used = {k: n for k, n in kernel_launches().items() if n}
+        stream_invariants(res, f"parity_stream {name}")
+        runs[name] = dict(flags=flags, launches=used,
+                          segments=res["segments"],
+                          agents_ever_alive=int(res["state"].shape[0]),
+                          per_segment=segs)
+        for path, rows in segs.items():
+            for i, r in enumerate(rows):
+                r["pos_limit"] = POSE_TOL * max(
+                    1.0, r["extent"] / rows[0]["extent"])
+                if r["mismatched"] or r["pos_err"] > r["pos_limit"] \
+                        or r["other_err"] > POSE_TOL:
+                    faults.append(f"{name} {path} segment {i}: {r}")
+            if len(rows) != S or not sum(r["inserted"] for r in rows):
+                faults.append(f"{name} {path}: {len(rows)} segments, "
+                              "or no agent inserted")
+        want = ("seed_eval_full", "refine", "motion_column") if flags \
+            else ("seed_eval",)
+        if not all(used.get(k, 0) > 0 for k in want):
+            faults.append(f"{name}: a kernel never launched: {used}")
+    emit("parity_stream", config=PARITY_DESC.replace(
+        f"{PARITY_FRAMES} frames", f"{S} segments of {PARITY_FRAMES} "
+        "frames"), tolerance=POSE_TOL, runs=runs)
+    require(not faults, f"parity_stream: {faults}")
+
+
+def stream_invariants(res, what):
+    """The stitched registry of one stream: finite poses, the ego alive in
+    every frame after the first two, no gid alive again after it died at a
+    segment's last frame, and the frame count that frames_per_segment
+    gives."""
+    from infgen_torch.config import EXIT_STATE, INVALID_STATE
+
+    G, F = res["state"].shape
+    require(F == sum(res["frames_per_segment"]),
+            f"{what}: {F} frames, segments say {res['frames_per_segment']}")
+    require(res["traj"].shape == (G, F, 2)
+            and np.isfinite(res["traj"]).all()
+            and np.isfinite(res["head"]).all(), f"{what}: poses not finite")
+    require((res["state"][res["av_gid"], 2:] != INVALID_STATE).all(),
+            f"{what}: the ego is not alive in every frame")
+    bounds = np.cumsum(res["frames_per_segment"])[:-1]
+    dead = res["state"] == INVALID_STATE
+    for fb in bounds:
+        gone = (np.isin(res["state"][:, fb - 1], (INVALID_STATE, EXIT_STATE))
+                & (~dead[:, :fb]).any(1))
+        require(dead[gone, fb:].all(),
+                f"{what}: a gid came back after it died at frame {fb}")
+
+
+def _stream_run(dev, drive):
+    """Counts set to 0, peak memory reset, `drive()` timed on the host
+    clock to a synchronise; returns (its result, seconds, launches, peak
+    bytes)."""
+    from infgen_torch.cli import KERNELS, kernel_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = drive()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, kernel_launches(), \
+        torch.cuda.max_memory_allocated(dev)
+
+
+def check_stream(dev):
+    """This slice's main path at full width, bf16, random weights from each
+    config's seed, production beams (the configs' own), unforced:
+      (a) the flagship through cli.run_stream (the path of `cli stream`):
+          one synthetic scenario, STREAM_FRAMES frames in segments of
+          num_recurrent_steps_val (300), the host loop re-bucketing over
+          agent buckets 32 / 64 / 128;
+      (b) the fleet: STREAM_FLEET synthetic scenarios through
+          make_chunked_stream_runner with the JAX bench's plan STREAM_PLAN,
+          each chunk one segment of all the scenarios as lanes (seed_eval's
+          lane form);
+      (c) the latency preset through StreamingRollout.run (cli.run_stream):
+          one scenario, STREAM_LATENCY_SEGMENTS segments.
+    Each: ms per segment and per token step, agent-steps/s (non-invalid
+    10 Hz states after the history over wall time, as the JAX bench counts
+    a stream's), agents ever alive, buckets, host reads, peak memory and
+    each kernel's launches (counts set to 0 just before, read just after);
+    the registry's invariants (stream_invariants) and a launch of every
+    kernel the configuration runs. Returns {kernel: launches in the
+    phase}."""
+    from infgen_torch.cli import build_model, build_tokenizers, run_stream
+    from infgen_torch.config import INVALID_STATE, SHIFT, load_config
+    from infgen_torch.rollout import streaming as ST
+    from infgen_torch.train.loop import SyntheticDataset
+
+    runs, total = {}, {}
+
+    def keep(name, summary, seconds, launches, peak, results):
+        for r in results:
+            stream_invariants(r, f"stream {name}")
+        used = {k: n for k, n in launches.items() if n}
+        for k, n in used.items():
+            total[k] = total.get(k, 0) + n
+        runs[name] = dict(summary, seconds=seconds, launches=used,
+                          max_memory_allocated=peak)
+
+    # (a) the flagship, cli stream's path
+    cfg = load_config(FLAGSHIP)
+    tok = build_tokenizers(cfg)
+    model = build_model(cfg, tok[0], dev)
+    (results, summary), seconds, launches, peak = _stream_run(
+        dev, lambda: run_stream(
+            cfg, dev, 1, STREAM_FRAMES, model=model, tokenizers=tok))
+    keep("flagship", {k: summary[k] for k in (
+        "segments", "segment_steps", "frames", "ms_per_segment",
+        "ms_per_token_step", "agents_ever_alive", "buckets",
+        "alive_per_segment", "inserted_per_segment", "agent_steps",
+        "agent_steps_per_s", "host_reads")}, seconds, launches, peak,
+        results)
+    require(launches["seed_eval"] > 0, "stream flagship: seed_eval never "
+            "launched")
+
+    # (b) the fleet through the chunked runner, over lanes
+    R, Hs = cfg.num_recurrent_steps_val, cfg.num_historical_steps
+    data = SyntheticDataset(cfg, size=STREAM_FLEET)
+    scens = [data[i] for i in range(STREAM_FLEET)]
+    runner = ST.make_chunked_stream_runner(cfg, *tok, segment_steps=R)
+    (outs, used), seconds, launches, peak = _stream_run(
+        dev, lambda: runner(model, scens, STREAM_PLAN, cfg.seed))
+    host = [{k: v.detach().cpu().numpy() for k, v in o.items()}
+            for o in outs]
+    steps = float(sum((o["pred_state"][..., Hs:] != INVALID_STATE).sum()
+                      for o in host))
+    results = [ST.stitch_stream_outputs({k: v[i] for k, v in o.items()}, Hs)
+               for o in host for i in range(STREAM_FLEET)]
+    per_chunk = np.array([r["state"].shape[0] for r in results]).reshape(
+        len(host), STREAM_FLEET)
+    n_seg = sum(n for _, n in STREAM_PLAN)
+    keep("fleet", dict(
+        scenarios=STREAM_FLEET, plan=[list(x) for x in STREAM_PLAN],
+        buckets=used, segments=n_seg, segment_steps=R,
+        ms_per_segment=seconds * 1e3 / n_seg,
+        ms_per_token_step=seconds * 1e3 / (n_seg * R // SHIFT),
+        agents_ever_alive=runner.agents_ever_alive,
+        agents_per_chunk=per_chunk.tolist(),
+        agent_steps=steps, agent_steps_per_s=steps / seconds,
+        host_reads=runner.host_reads), seconds, launches, peak, results)
+    require(all(a in (plan_a, cfg.max_agents)
+                for a, (plan_a, _) in zip(used, STREAM_PLAN)),
+            f"stream fleet: buckets {used} for the plan {STREAM_PLAN}")
+    require(launches["seed_eval"] > 0, "stream fleet: seed_eval never "
+            "launched")
+
+    # (c) the latency preset through StreamingRollout.run
+    lat = load_config(LATENCY)
+    ltok = build_tokenizers(lat)
+    lmodel = build_model(lat, ltok[0], dev)
+    (results, summary), seconds, launches, peak = _stream_run(
+        dev, lambda: run_stream(
+            lat, dev, 1, STREAM_LATENCY_SEGMENTS * lat.num_recurrent_steps_val,
+            model=lmodel, tokenizers=ltok))
+    keep("latency", {k: summary[k] for k in (
+        "segments", "segment_steps", "frames", "ms_per_segment",
+        "ms_per_token_step", "agents_ever_alive", "buckets",
+        "alive_per_segment", "inserted_per_segment", "agent_steps",
+        "agent_steps_per_s", "host_reads")}, seconds, launches, peak,
+        results)
+    require(all(launches[k] > 0 for k in ("seed_eval_full", "refine",
+                                          "motion_column"))
+            and launches["seed_eval"] == 0,
+            f"stream latency: launches {launches}")
+    emit("stream", configs={"flagship": os.path.relpath(FLAGSHIP, ROOT),
+                            "latency": os.path.relpath(LATENCY, ROOT)},
+         compute_dtype=cfg.compute_dtype,
+         beams=dict(motion=cfg.motion_beam_size, insert=cfg.insert_beam_size),
+         agent_steps_unit="agents x 10 Hz frames", runs=runs,
+         launches=total)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -2296,6 +2826,8 @@ def main():
     for phase in PARITY_FLAGS:
         check_parity(dev, phase)
     check_parity_serving(dev)
+    check_parity_stream(dev)
+    check_parity_latency_bf16(dev)
     # each kernel's launches on the main path that runs it
     launches = {}
     for path, flags, kernels in MAIN_PATHS:
@@ -2310,6 +2842,7 @@ def main():
     trainable = check_trainable_grad(cfg, dev)
     train = check_train(dev)
     scoring = check_scoring(dev)
+    stream_launches = check_stream(dev)
     missing = [k for k in checks if launches[k] == 0]
     require(not missing, f"kernels never launched on a main path: {missing}")
 
@@ -2324,6 +2857,8 @@ def main():
             max_abs_err=r.get("raw_max_abs_err", r["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None))
+        if stream_launches.get(name):
+            line[-1]["stream_launches"] = stream_launches[name]
     lane = served_lanes[-1].get(main_dt, served_lanes[-1][F32])
     line[0].update(lanes_A=lane["A"], lanes_P=lane["P"],
                    lanes=lane["lanes"], lanes_on=lane["lanes"] - len(
@@ -2341,6 +2876,8 @@ def main():
                                trainable.items()},
         train_backward_ms={k: r["backward_ms"] for k, r in
                            trainable.items()},
+        train_backward_bound_ms={k: r["backward_bound_ms"] for k, r in
+                                 trainable.items()},
         backward="plain recompute, as _rba_bwd")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

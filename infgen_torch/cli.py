@@ -1,4 +1,5 @@
-"""Command line of the PyTorch port: the `rollout` and `train` sub-commands.
+"""Command line of the PyTorch port: the `rollout`, `stream`, `validate` and
+`train` sub-commands.
 
   python -m infgen_torch.cli rollout --config configs/ours_long_term.yaml \
       --synthetic [--device cuda|cpu] [--force-insert] [--num-scenarios N] \
@@ -41,6 +42,22 @@ buckets and the validation metrics go to D/rollout_metrics.json and three
 printed lines. `rollout --save-dir D` scores its rollouts the same way
 after its timed window and adds the metametric to its summary line. The
 Waymo loader belongs to a later slice of the port.
+
+  python -m infgen_torch.cli stream --synthetic [--config ...] \
+      [--total-steps 900] [--segment-steps R] [--fused-stream] \
+      [--num-scenarios N] [--device cuda|cpu] [--save-dir D] [--params ...] \
+      [--fused-block] [--pallas-attention]
+
+simulates `--total-steps` future 10 Hz frames of each scenario (rounded up
+to whole segments of R frames, default num_recurrent_steps_val) through
+`rollout/streaming.py` (`run_stream`): the host loop re-buckets each
+segment through RolloutServer (agent buckets 32, 64 and max_agents) and
+recycles the slots of agents that exited; `--fused-stream` runs every
+segment at full capacity with the continuation on the device. Each
+scenario's stitched registry goes to D/stream_{i:06d}.npz (default
+runs/default), then one JSON summary line: ms per segment and per token
+step, agents ever alive, buckets per segment, host reads, agent-steps/s and
+each kernel's launches.
 """
 
 import argparse
@@ -83,6 +100,8 @@ from infgen_torch.ops import refine_kernel as RFK
 from infgen_torch.ops import seed_kernel as SKN
 from infgen_torch.rollout.closed_loop import make_rollout_fn
 from infgen_torch.rollout.serving import RolloutServer
+from infgen_torch.rollout.streaming import (StreamingRollout, make_stream_fn,
+                                            seed_of, stitch_stream_outputs)
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
@@ -299,10 +318,86 @@ def run_train(cfg: Config, device=None, steps: int = 8,
     return trainer, summary
 
 
-def _seed(*key) -> int:
-    """A 63-bit generator seed from a key of non-negative integers."""
-    return int(np.random.SeedSequence(list(key)).generate_state(
-        1, np.uint64)[0] >> 1)
+def run_stream(cfg: Config, device=None, num_scenarios: int = 1,
+               total_steps: int = 900, segment_steps: Optional[int] = None,
+               fused: bool = False, params: Optional[str] = None,
+               save_dir: Optional[str] = None, model=None, tokenizers=None):
+    """Stream `num_scenarios` synthetic scenarios (seeds 0, 1, ...; stream
+    seed `seed_of(cfg.seed, i)`) for `total_steps` future 10 Hz frames in
+    segments of `segment_steps` (default num_recurrent_steps_val): through
+    StreamingRollout over a RolloutServer with agent buckets 32, 64 and
+    cfg.max_agents (the JAX package's `cli stream`), or with `fused`
+    through make_stream_fn at full capacity, stitched on the host. With
+    `save_dir` each scenario's registry goes to stream_{i:06d}.npz (the
+    JAX package's keys). Returns (results, summary): the stitched dicts and
+    ms per segment and per token step (host clock around each stream,
+    stitching included, ending in a synchronise), agents ever alive,
+    buckets, alive and inserted agents per segment, host reads,
+    agent-steps (non-invalid 10 Hz states after the history, as the JAX
+    bench counts a stream's) and agent-steps/s, and each kernel's
+    launches."""
+    from infgen_torch.train.loop import SyntheticDataset
+
+    device = resolve_device(device)
+    attr, mt, mv = tokenizers or build_tokenizers(cfg)
+    model = model or build_model(cfg, attr, device, params)
+    R = segment_steps or cfg.num_recurrent_steps_val
+    n_seg = -(-total_steps // R)
+    Hs = cfg.num_historical_steps
+    if fused:
+        stream_fn = make_stream_fn(model, cfg, attr, mt, mv, R, n_seg)
+    else:
+        streamer = StreamingRollout(RolloutServer(
+            cfg, attr, mt, mv, num_recurrent_steps=R,
+            agent_buckets=(32, 64, cfg.max_agents)), R)
+    dataset = SyntheticDataset(cfg, size=num_scenarios)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+    launches0 = kernel_launches()
+    results, wall_ms, host_reads = [], [], 0
+    for i in range(num_scenarios):
+        seed = seed_of(cfg.seed, i)
+        _sync(device)
+        t0 = time.perf_counter()
+        if fused:
+            res = stitch_stream_outputs(stream_fn(dataset[i], seed), Hs)
+            host_reads += stream_fn.host_reads
+        else:
+            res = streamer.run(model, dataset[i], seed, total_steps)
+            host_reads += streamer.host_reads
+        _sync(device)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        results.append(res)
+        if save_dir:
+            np.savez_compressed(
+                os.path.join(save_dir, f"stream_{i:06d}.npz"),
+                av_gid=np.int64(res["av_gid"]),
+                frames_per_segment=np.asarray(res["frames_per_segment"],
+                                              np.int64),
+                segment_buckets=np.asarray(
+                    [s["bucket"] for s in res["segments"]], np.int64),
+                **{k: v for k, v in res.items()
+                   if isinstance(v, np.ndarray)})
+    steps = [float((r["state"][:, Hs:] != INVALID_STATE).sum())
+             for r in results]
+    summary = dict(
+        _summary_head(cfg, device, num_scenarios, n_seg * R // SHIFT, False),
+        fused=fused, segment_steps=R, segments=n_seg,
+        frames=[int(r["state"].shape[1]) for r in results],
+        wall_ms=wall_ms,
+        ms_per_segment=[w / n_seg for w in wall_ms],
+        ms_per_token_step=[w / (n_seg * R // SHIFT) for w in wall_ms],
+        agents_ever_alive=[int(r["state"].shape[0]) for r in results],
+        buckets=[[s["bucket"] for s in r["segments"]] for r in results],
+        alive_per_segment=[[s["n_alive"] for s in r["segments"]]
+                           for r in results],
+        inserted_per_segment=[[s["n_inserted"] for s in r["segments"]]
+                              for r in results],
+        agent_steps=sum(steps),
+        agent_steps_per_s=sum(steps) / (sum(wall_ms) / 1e3),
+        **_launch_counts(launches0),
+        host_reads=host_reads)
+    return results, summary
 
 
 def _val_metrics(cfg: Config, grid_size: int, scen, inputs, out):
@@ -452,7 +547,7 @@ def validation_inputs(cfg: Config, tokenizers, device, num_scenarios: int):
         scen = dataset[i]
         s = to_device(scen, device)
         gen = torch.Generator(device=device).manual_seed(
-            _seed(cfg.seed + 1, 2 * i))
+            seed_of(cfg.seed + 1, 2 * i))
         items.append((scen, s, build_model_inputs(cfg, mt, attr, s, gen)))
     return items
 
@@ -519,7 +614,7 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
         if dump_rollouts and os.path.exists(dump):
             continue
         gens = [torch.Generator(device=device).manual_seed(
-            _seed(cfg.seed + 1, 2 * i + 1, k)) for k in range(n_roll)]
+            seed_of(cfg.seed + 1, 2 * i + 1, k)) for k in range(n_roll)]
         _sync(device)
         t0 = time.perf_counter()
         if n_roll == 1:
@@ -575,7 +670,8 @@ def score_rollouts(cfg: Config, outputs, save_dir: str, device=None,
 
 def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch")
-    p.add_argument("mode", choices=["rollout", "validate", "train"])
+    p.add_argument("mode", choices=["rollout", "stream", "validate",
+                                    "train"])
     p.add_argument("--config", default="configs/ours_long_term.yaml",
                    help="YAML config path")
     p.add_argument("--synthetic", action="store_true",
@@ -596,7 +692,17 @@ def main(argv=None):
                    help="train: checkpoint directory (resumes from it); "
                         "validate: where rollout_metrics.json and the dumps "
                         "go (default runs/default); rollout: score the "
-                        "rollouts and write rollout_metrics.json there")
+                        "rollouts and write rollout_metrics.json there; "
+                        "stream: where the stream_*.npz go (default "
+                        "runs/default)")
+    p.add_argument("--total-steps", type=int, default=900,
+                   help="stream: future 10 Hz frames to simulate")
+    p.add_argument("--segment-steps", type=int, default=None,
+                   help="stream: frames per segment (default "
+                        "num_recurrent_steps_val)")
+    p.add_argument("--fused-stream", action="store_true",
+                   help="stream: every segment at full capacity with the "
+                        "continuation on the device (no re-bucketing)")
     p.add_argument("--log-features", default=None,
                    help="validate: aggregated log features (.npz from "
                         "metrics.offline --aggregate-log) instead of the "
@@ -622,7 +728,16 @@ def main(argv=None):
                      args.log_features, args.dump_rollouts,
                      args.num_recurrent_steps)
         return
-    if args.mode == "train":
+    if args.mode == "stream":
+        results, summary = run_stream(
+            cfg, args.device, args.num_scenarios, args.total_steps,
+            args.segment_steps, args.fused_stream, args.params,
+            args.save_dir or "runs/default")
+        for i, r in enumerate(results):
+            print(f"scenario {i}: {r['state'].shape[1]} frames "
+                  f"({len(r['segments'])} segments), {r['state'].shape[0]} "
+                  f"agents ever alive, buckets {summary['buckets'][i]}")
+    elif args.mode == "train":
         _, summary = run_train(cfg, args.device, args.steps, args.batch,
                                args.save_dir)
     elif args.batch:

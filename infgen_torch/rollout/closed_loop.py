@@ -170,7 +170,7 @@ def _stack_lanes(xs):
 
 def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                     num_recurrent_steps: int = None,
-                    force_insert: bool = False):
+                    force_insert: bool = False, debug: bool = False):
     """Build `rollout(scenario, inputs, generator) -> dict`.
 
     `model` is an InfGenModel on the device the rollout runs on; `scenario`
@@ -184,6 +184,23 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     an agent whatever the seed-state head says (bounds the trained-model
     insertion cost for benchmarking). The returned function counts its
     host reads in `rollout.host_reads` (reset at each call).
+
+    debug=True adds the JAX package's per-step debug outputs
+    `debug_token_logits` [n_steps, A, V], `debug_state_logits` [n_steps,
+    A, 3] (the motion heads' fp32 logits) and `debug_layer_cols` [n_steps,
+    L, A, D] (the trunk's per-layer column, the last one the heads' input),
+    and the port's insertion records: for each head that decides an
+    insertion, `debug_{head}_top2` [n_steps, E, 2] (the indices of its two
+    largest fp32 logits, the first its choice; -1 past the step's last
+    evaluation) and `debug_{head}_gap` [n_steps, E] (their logit gap; inf
+    there), evaluation j of the step deciding its insert j (or ending the
+    step). The heads: `seed_type` and `seed_grid` (with grid tokens) over
+    E = insert_limit + 1 seed evaluations, and `refine_head` (the heading,
+    with head tokens) over E = max(insert_limit, 1) refine passes. A lane that stopped while others
+    ran (or under insertion_fixed_trip) also records the evaluations made
+    past its stop, which the loop discarded. A lane axis leads each, as on
+    every output. For bisecting two rollouts'
+    decisions; it keeps every step's logits.
     """
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     if R < SHIFT or R % SHIFT:
@@ -220,6 +237,21 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                                device=device)
     grid_xy = attr.grid_on(device)
 
+    # debug: the current step's insertion decisions, per head one (top-two
+    # indices [B, 2], gap [B]) per evaluation
+    picks = {}
+    pick_width = dict(seed_type=limit + 1)
+    if cfg.use_grid_token:
+        pick_width["seed_grid"] = limit + 1
+    if cfg.use_head_token:
+        pick_width["refine_head"] = max(limit, 1)
+
+    def note_pick(head, logits):
+        if debug:
+            top = torch.topk(logits.to(f32), 2, dim=-1)
+            picks.setdefault(head, []).append(
+                (top.indices, top.values[..., 0] - top.values[..., 1]))
+
     def vec(*xs, dtype=f32):
         return torch.tensor(xs, dtype=dtype, device=device)
 
@@ -234,6 +266,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     @torch.no_grad()
     def rollout(scenario, inputs, generator) -> Dict[str, Any]:
         rollout.host_reads = 0
+        picks.clear()
         lanes = isinstance(generator, (list, tuple))
         if not lanes:
             scenario, inputs = (tree_map(lambda x: x[None], t)
@@ -632,6 +665,9 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                 want_enter = _argmax_first(heads["state_logits"]) == 1
             type_idx = _argmax_first(heads["type_logits"]).to(i32)
             shape_pred = heads["shape"]
+            note_pick("seed_type", heads["type_logits"])
+            if cfg.use_grid_token:
+                note_pick("seed_grid", heads["pos_logits"])
 
             if cfg.use_grid_token:
                 pos_probs = torch.softmax(heads["pos_logits"], -1)
@@ -880,6 +916,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             heads = {k: v.to(f32)
                      for k, v in dec.refine_heads(refined).items()}
         if cfg.use_head_token:
+            note_pick("refine_head", heads["head_logits"])
             h_idx = _argmax_first(heads["head_logits"]).to(i32)
             new_head = wrap_angle(_decode_heading(h_idx) + ego_head)
         else:
@@ -973,6 +1010,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         B = carry.pos.shape[0]
         lane = arange_on(B, device)
 
+        picks.clear()
         # 1. insertion (skipped at t=0)
         if cfg.disable_insertion or t == 0:
             n_new = torch.zeros(B, dtype=i32, device=device)
@@ -1076,7 +1114,20 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         carry.pred_head[:, :, seg] = seg_head
         carry.pred_state[:, :, seg] = next_state[..., None].to(f32)
 
-        return carry, dict(n_inserted=n_new, seed_probs=seed_probs)
+        out = dict(n_inserted=n_new, seed_probs=seed_probs)
+        if debug:
+            out.update(token_logits=token_logits, state_logits=state_logits,
+                       layer_cols=carry.cache[:, :, :, c].transpose(0, 1)
+                       .clone())
+            for head, width in pick_width.items():
+                got = picks.get(head, [])[:width]
+                pad = width - len(got)
+                out[f"{head}_top2"] = torch.stack(
+                    [i for i, _ in got] + [torch.full(
+                        (B, 2), -1, dtype=torch.long, device=device)] * pad, 1)
+                out[f"{head}_gap"] = torch.stack([g for _, g in got] + [
+                    torch.full((B,), math.inf, device=device)] * pad, -1)
+        return carry, out
 
     # ---------------------------------------------------------------- #
     # outputs
@@ -1145,6 +1196,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             n_inserted=carry.n_inserted,
             per_step_inserted=outs["n_inserted"],
             seed_probs=outs["seed_probs"],
+            **{f"debug_{k}": v for k, v in outs.items() if k not in (
+                "n_inserted", "seed_probs")},
         )
 
     return rollout

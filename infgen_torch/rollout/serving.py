@@ -152,8 +152,9 @@ class RolloutServer:
         # measured table; None = capacity order.
         self.bucket_cost_ms = dict(bucket_cost_ms) if bucket_cost_ms else None
         self._fns: Dict[Tuple[int, int], Tuple] = {}
-        # the last rollout_batch call's dispatch: one (A, P, lanes, real
-        # scenarios) per batch, and the host reads of its rollouts
+        # the last rollout / rollout_batch call's dispatch: one (A, P,
+        # lanes, real scenarios) per batch, and the host reads of its
+        # rollouts
         self.last_dispatch = dict(batches=[], host_reads=0)
 
     def bucket_for(self, scenario: Scenario) -> Tuple[int, int]:
@@ -235,6 +236,8 @@ class RolloutServer:
             cfg, self.motion_tok, self.attr, scen,
             _generator(dev, seed if input_seed is None else input_seed))
         out = fn(scen, inputs, _generator(dev, seed))
+        self.last_dispatch = dict(batches=[(A, P, 1, 1)],
+                                  host_reads=fn.host_reads)
         if perm is not None:
             out = dict(out, slot_perm=self._perm_out(perm, A,
                                                      _live(scenario)))

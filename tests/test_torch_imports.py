@@ -27,6 +27,7 @@ def test_port_imports_no_jax():
     assert {f"infgen_torch/train/{m}.py" for m in (
         "targets", "losses", "train_step", "loop", "checkpoint")} <= names
     assert {f"infgen_torch/metrics/{m}.py" for m in METRICS} <= names
+    assert "infgen_torch/rollout/streaming.py" in names
     bad = {str(p.relative_to(ROOT)): sorted(
         {m for m in _imported(p) if m.split(".")[0] in FORBIDDEN})
         for p in FILES}
@@ -74,4 +75,33 @@ def test_metrics_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok True", \
+        out.stderr
+
+
+def test_streaming_imports_without_jax():
+    """The streaming module imports, and streams a tiny scenario for two
+    segments on the CPU, in a process where JAX, flax, optax and the JAX
+    package cannot be imported."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+            "import torch\n"
+            "from infgen_torch import cli\n"
+            "from infgen_torch.config import load_config\n"
+            "from infgen_torch.data.synthetic import "
+            "make_synthetic_scenario\n"
+            "from infgen_torch.rollout import streaming as ST\n"
+            "cfg = load_config('configs/tiny_smoke.yaml')\n"
+            "tok = cli.build_tokenizers(cfg)\n"
+            "model = cli.build_model(cfg, tok[0], 'cpu')\n"
+            "fn = ST.make_stream_fn(model, cfg, *tok, segment_steps=10,\n"
+            "                       n_segments=2)\n"
+            "res = ST.stitch_stream_outputs(fn(make_synthetic_scenario(\n"
+            "    cfg, seed=0, num_agents=4), 1), cfg.num_historical_steps)\n"
+            "print('ok', res['frames_per_segment'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok [21, 10]", \
         out.stderr

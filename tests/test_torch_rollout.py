@@ -118,14 +118,18 @@ def both():
 
 
 def _debug_logits(jmodel, jcfg, jtok, force, args):
-    """The JAX rollout's per-step token logits [step, A, V], from a second
-    compile with debug=True, made only when called: only a token flip
-    needs them."""
-    def get():
-        jfn = j_rollout_fn(jmodel, jcfg, *jtok, jit=True,
-                           force_insert=force, debug=True)
-        out = jfn(*args, jax.random.PRNGKey(7))
-        return np.asarray(out["debug_token_logits"], np.float64)
+    """The JAX rollout's per-step token logits [step, A, V] (or another of
+    its debug outputs, `key`), from a second compile with debug=True, made
+    only when first called: only a token flip and the debug test need
+    them."""
+    cache = {}
+
+    def get(key="debug_token_logits"):
+        if not cache:
+            jfn = j_rollout_fn(jmodel, jcfg, *jtok, jit=True,
+                               force_insert=force, debug=True)
+            cache.update(jax.device_get(jfn(*args, jax.random.PRNGKey(7))))
+        return np.asarray(cache[key], np.float64)
     return get
 
 
@@ -251,6 +255,74 @@ def test_fixed_trip_matches_early_exit(both):
     for k in CLOSE:
         np.testing.assert_allclose(out[k], ref[k], atol=1e-6, rtol=0,
                                    err_msg=k)
+
+
+def test_debug_outputs_match_jax(both):
+    """debug=True (motion mode): the per-step head logits and trunk columns
+    against the JAX package's debug outputs, and nothing else changed;
+    insert mode: the port's per-head insertion records, each choice the
+    decision the rollout made with it, -1 / inf where a step made no
+    decision of the kind."""
+    from infgen_torch.config import ENTER_STATE
+    attr, mt, mv = both["tok"]
+    cfg = both["cfg"]
+    heads = ["seed_type"] \
+        + ["seed_grid"] * cfg.use_grid_token \
+        + ["refine_head"] * cfg.use_head_token
+    for mode, over, force in (("motion", {"disable_insertion": True}, False),
+                              ("insert", {}, True)):
+        fn = make_rollout_fn(both["model"], cfg.replace(**over), attr, mt,
+                             mv, force_insert=force, debug=True)
+        out = {k: _np(v) for k, v in fn(
+            both["scen"], both["inputs"],
+            torch.Generator().manual_seed(7)).items()}
+        ref = both["runs"][mode][1]
+        assert set(out) - set(ref) == {
+            f"debug_{k}" for k in ("token_logits", "state_logits",
+                                   "layer_cols")} | {
+            f"debug_{h}_{r}" for h in heads for r in ("top2", "gap")}
+        for k in ref:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+        n_steps = cfg.num_recurrent_steps_val // 5
+        assert out["debug_layer_cols"].shape == (
+            n_steps, cfg.num_agent_layers, cfg.max_agents, cfg.hidden_dim)
+        if mode == "motion":
+            get = both["logits"][mode]
+            for k in ("token_logits", "state_logits", "layer_cols"):
+                np.testing.assert_allclose(out[f"debug_{k}"],
+                                           get(f"debug_{k}"), atol=1e-4,
+                                           rtol=0, err_msg=k)
+            for h in heads:
+                assert np.isinf(out[f"debug_{h}_gap"]).all()
+                assert (out[f"debug_{h}_top2"] == -1).all()
+            continue
+        # one seed evaluation per insert plus the one that stops the step;
+        # one refine per insertion iteration
+        H = (cfg.num_historical_steps - 1) // 5
+        n_ins = out["per_step_inserted"]
+        assert n_ins[1:].sum() > 0
+        for h in heads:
+            E = cfg.insert_limit + (h != "refine_head")
+            top2, gap = out[f"debug_{h}_top2"], out[f"debug_{h}_gap"]
+            assert top2.shape == (n_steps, E, 2) and gap.shape == (n_steps, E)
+            assert np.isinf(gap[0]).all() and (top2[0] == -1).all()
+            for t in range(1, n_steps):
+                m = n_ins[t] + (h != "refine_head")
+                assert np.isfinite(gap[t, :m]).all() and (gap[t, :m] >= 0).all()
+                assert (top2[t, :m, 0] != top2[t, :m, 1]).all()
+                assert np.isinf(gap[t, m:]).all() and (top2[t, m:] == -1).all()
+                # the step's inserts fill the free slots in ascending order;
+                # evaluation j chose insert j's type and grid cell
+                rows = np.nonzero(
+                    out["next_state_idx"][:, t + H - 1] == ENTER_STATE)[0]
+                assert len(rows) == n_ins[t]
+                if h == "seed_type":
+                    np.testing.assert_array_equal(
+                        top2[t, :n_ins[t], 0], out["pred_type"][rows])
+                if h == "seed_grid":
+                    np.testing.assert_array_equal(
+                        top2[t, :n_ins[t], 0],
+                        out["grid_index"][rows, t + H - 1])
 
 
 def test_cli_rollout_on_cpu(capsys):
