@@ -23,7 +23,11 @@ before the last line):
            `seed_eval_lanes` holds the lane form (B = 8 lanes, two masked
            off, in one launch) against its plain version and against the
            single launch, with its time, per-lane time and bound; after
-           `serving`, again at the shapes its batches gave the kernel
+           `serving`, again at the shapes its batches gave the kernel;
+           `seed_eval_full_lanes`, `refine_lanes` and `fused_block_lanes`
+           do the same for those three kernels' lane forms (the fused
+           block has no lane mask: every lane on), again after
+           `serving_kernels` at the shapes its batches gave them
   parity   a small closed-loop rollout (70 frames, past the temporal
            window) on the card (through the kernels) equal to the same
            rollout on the CPU (through the plain versions), with the
@@ -32,12 +36,17 @@ before the last line):
            with use_fused_block, with use_pallas_attention;
            `parity_serving` the same for three scenarios served as one
            batched rollout of four lanes (RolloutServer.rollout_batch),
-           with the flagship's flags and with use_pallas_attention
+           with the flagship's flags, with use_pallas_attention, and with
+           use_fused_block + use_seed_kernel_full + use_refine_kernel
   serving  the flagship at full width serving 8 synthetic scenarios
            through RolloutServer.rollout_batch (agent buckets 32 / 64 /
            128), in batches of up to 8 lanes and one scenario at a time,
            unforced and forced: ms per batched token step, agent-steps/s,
-           launches, host reads and peak memory
+           launches, host reads and peak memory; `serving_kernels` the
+           same with use_fused_block, use_seed_kernel_full and
+           use_refine_kernel on the flagship (the JAX bench's
+           INFGEN_BENCH_FUSED + _SEEDK_FULL + _REFK program), all three
+           kernels launched at B = 8
   trainable_grad  r_biased_attention_trainable (the kernel's forward, the
            plain recompute backward) at the training forward's three
            shapes in fp32, without and with dropout: forward and six
@@ -91,9 +100,12 @@ before the last line):
            without forced insertion (the seed head biased to decline) and
            once with it, with every kernel's launch count of that run
 
-then the summary line of every kernel ({"kernels": [...]}; seed_eval's
-entry also carries its lane form's time, bound and launches in the serving
-phase, each kernel that `stream` launched its `stream_launches`) and, last, the device line {"ok": true, "device": {...}}. Without CUDA it exits non-zero
+then the summary line of every kernel ({"kernels": [...]}; the entries of
+seed_eval, seed_eval_full, refine and fused_attention_block also carry
+their lane forms' time, bound and launches in the served batches
+(`serving`, `serving_kernels`), each kernel that `stream` launched its
+`stream_launches`) and, last, the device line {"ok": true, "device":
+{...}}. Without CUDA it exits non-zero
 and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
 """
 
@@ -418,11 +430,44 @@ def seed_full_cost(pack, args, outs):
     nbytes += _nbytes(base.weights, base.vectors, pack.weights, sd0,
                       mask_pl, mask_a, occ, *outs)
     nbytes += (pack.vectors.numel() - (G - n_occ) * D) * 4
+    return (nbytes, _full_macs(L, D, G, n_pl, n_a),
+            n_occ * D + D * D)                          # occupancy MLP
+
+
+def _full_macs(L, D, G, n_pl, n_a):
+    """Multiply-adds in the compute dtype of one full evaluation with n_pl
+    valid map rows and n_a valid agent rows."""
     macs = n_pl * L * 2 * D * D                         # map geometry terms
     macs += n_a * ((3 * L - 1) * 11 * D * D + L * 4 * D * D)  # chain, K/V
     macs += L * D * D                                   # occ2sa values
-    macs += _stack_macs(L, D, G, 2 * L * (n_pl + n_a))
-    return nbytes, macs, n_occ * D + D * D              # occupancy MLP
+    return macs + _stack_macs(L, D, G, 2 * L * (n_pl + n_a))
+
+
+def seed_full_lanes_cost(pack, sd0, lanes, outs, on):
+    """(bytes, multiply-adds, fp32 multiply-adds) of one lane-form launch of
+    seed_eval_full, as seed_lanes_cost counts seed_eval's: what the lanes
+    share (the packs, sd0, the lane mask; the occupancy MLP's W0 rows of
+    the cells some active lane occupies) read once, each active lane's rows
+    as seed_full_cost counts one evaluation's, the outputs written once.
+    `lanes` holds the stacked (k0, v0, r_pl, mask_pl, col, r_sa, mask_a,
+    occ)."""
+    k0, _, _, mask_pl, _, _, mask_a, occ = lanes
+    base = pack.base
+    L, D, G = base.L, base.D, base.G
+    act = on.nonzero().flatten().tolist()
+    es = k0.element_size()
+    nbytes = _nbytes(base.weights, base.vectors, pack.weights, sd0, on,
+                     *outs)
+    nbytes += (pack.vectors.numel()
+               - (G - int(occ[act].any(0).sum())) * D) * 4
+    macs = macs_f32 = 0
+    for b in act:
+        n_pl, n_a = int(mask_pl[b].sum()), int(mask_a[b].sum())
+        nbytes += (2 * L * n_pl + n_pl + 2 * n_a) * D * es + _nbytes(
+            mask_pl[b], mask_a[b], occ[b])
+        macs += _full_macs(L, D, G, n_pl, n_a)
+        macs_f32 += int(occ[b].sum()) * D + D * D
+    return nbytes, macs, macs_f32
 
 
 def refine_inputs(dec, cfg, dtype, rng, case, dev):
@@ -832,8 +877,7 @@ def check_seed_eval_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
 
     G = attr.grid_size
     H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
-    on = torch.tensor([b not in SEED_LANES_OFF for b in range(n_lanes)],
-                      device=dev)
+    on = lanes_on(n_lanes, dev)
     results = {}
     for dtype in (F32, BF16):
         dec = decoder_for(cfg, attr, dtype, dev)
@@ -899,12 +943,17 @@ def check_seed_eval_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
     return results
 
 
-def seed_full_stage_errors(pack, args, got, pre, H, Hd, what):
-    """(max, mean) abs error of one full evaluation's two stages, the larger
-    of each: the kernel's precompute against the plain one over the rows it
-    computes (the valid keys'), and its output against the plain stack run
-    on the kernel's own precompute (the masked rows, which the kernel leaves
-    unwritten, zeroed: their weight is 0)."""
+def seed_full_stage_errors(pack, args, got, pre, H, Hd, dtype, what):
+    """(max, mean, one-flip explanation or None) abs error of one full
+    evaluation's two stages, the larger of each: the kernel's precompute
+    against the plain one over the rows it computes (the valid keys'), and
+    its output against the plain stack run on the kernel's own precompute
+    (the masked rows, which the kernel leaves unwritten, zeroed: their
+    weight is 0). The stack is seed_eval's cluster stack on fp32 K/V, so
+    its stage is held as seed_eval is (seed_errors_of): a bf16 case over
+    seed_eval's limits counts by its one-flip explanation, when one flipped
+    near-tie operand of the one-row chain gives the kernel's output within
+    seed_eval's fp32 limit."""
     from infgen_torch.ops import seed_kernel as SK
 
     sd0, k0, v0, r_pl, mask_pl, col, r_sa, mask_a, occ = args
@@ -914,11 +963,11 @@ def seed_full_stage_errors(pack, args, got, pre, H, Hd, what):
         tuple([pre[0]] + [a[:, m] for a, m in zip(pre[1:], rows)]),
         tuple([twin[0]] + [b[:, m] for b, m in zip(twin[1:], rows)]), what)
     z = lambda t, m: t.masked_fill(~m[None, :, None], 0.0)
-    ref = SK.seed_eval_reference(
-        pack.base, sd0, pre[0], z(pre[1], mask_pl), z(pre[2], mask_pl),
-        mask_pl, z(pre[3], mask_a), z(pre[4], mask_a), mask_a, H, Hd)
-    stack_err = _err(got, ref, what)
-    return max(pre_err[0], stack_err[0]), max(pre_err[1], stack_err[1])
+    stack_args = (sd0, pre[0], z(pre[1], mask_pl), z(pre[2], mask_pl),
+                  mask_pl, z(pre[3], mask_a), z(pre[4], mask_a), mask_a)
+    err, mean, _, flip = seed_errors_of(pack.base, stack_args, got, H, Hd,
+                                        dtype, what)
+    return max(pre_err[0], err), max(pre_err[1], mean), flip
 
 
 def seed_full_stage_ms(pack, args, H, Hd):
@@ -948,7 +997,7 @@ def check_seed_eval_full(cfg, attr, dev):
         pdt = None if dtype == F32 else dtype
         pack = SK.pack_seed_params_full(dec, L, G, pdt)
         run = lambda fn, args, **kw: fn(pack, *args, H, Hd, **kw)
-        errs, means, e2e = {}, {}, {}
+        errs, means, e2e, flips = {}, {}, {}, {}
         for case in ("masked", "map_all_masked", "agents_all_masked"):
             args = seed_full_inputs(dec, cfg, G, pdt,
                                     np.random.default_rng(29), case, dev)
@@ -957,8 +1006,10 @@ def check_seed_eval_full(cfg, attr, dev):
                 *got, pre = run(SK.seed_eval_full_kernel, args,
                                 return_precompute=True)
                 ref = run(SK.seed_eval_full_reference, args)
-                errs[case], means[case] = seed_full_stage_errors(
-                    pack, args, tuple(got), pre, H, Hd, what)
+                errs[case], means[case], flip = seed_full_stage_errors(
+                    pack, args, tuple(got), pre, H, Hd, dtype, what)
+            if flip:
+                flips[case] = flip
             torch.cuda.synchronize()
             e2e[case] = _err(tuple(got), ref, what)[0]
         args = seed_full_inputs(dec, cfg, G, pdt, np.random.default_rng(29),
@@ -973,7 +1024,7 @@ def check_seed_eval_full(cfg, attr, dev):
         results[dtype] = finish("seed_eval_full", dtype, errs, means, ms,
                                 plain_ms,
                                 *seed_full_cost(pack, args, outs), e2e=e2e,
-                                **stages)
+                                explained_by_one_flip=flips, **stages)
     return results
 
 
@@ -987,10 +1038,23 @@ def refine_errors(pack, args, H, Hd, what):
     traced one bit for bit, against refine_reference as a whole."""
     from infgen_torch.ops import refine_kernel as RK
 
-    x, plk, rpl, mpl, raa, ma = args
     with torch.no_grad():
         head, off, tr = RK.refine_kernel(pack, *args, H, Hd, trace=True)
         got = RK.refine_kernel(pack, *args, H, Hd)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], head) and torch.equal(got[1], off),
+            f"{what}: the traced call's output differs from the untraced "
+            "one's")
+    return refine_errors_of(pack, args, head, off, tr, got, H, Hd, what)
+
+
+def refine_errors_of(pack, args, head, off, tr, got, H, Hd, what):
+    """refine_errors of the kernel's traced output (head, off, tr) and
+    untraced output `got` on `args`."""
+    from infgen_torch.ops import refine_kernel as RK
+
+    x, plk, rpl, mpl, raa, ma = args
+    with torch.no_grad():
         ref = RK.refine_reference(pack, *args, H, Hd)
         stages = []
         for j in range(2 * pack.L):
@@ -1001,10 +1065,6 @@ def refine_errors(pack, args, H, Hd, what):
                                f"{j}"))
         stages.append(_err((head, off), RK.refine_heads(pack, tr[-1][0]),
                            f"{what} heads"))
-    torch.cuda.synchronize()
-    require(torch.equal(got[0], head) and torch.equal(got[1], off),
-            f"{what}: the traced call's output differs from the untraced "
-            "one's")
     return (max(e for e, _ in stages), max(m for _, m in stages),
             _err(got, ref, what)[0])
 
@@ -1384,6 +1444,262 @@ def check_fused_block(cfg, attr, dev):
             plain_ms_by_call=dict(zip(("temporal", "map", "agent"),
                                       plain_ms)), **extra)
     return results
+
+
+# --------------------------------------------------------------------- #
+# the lane forms of seed_eval_full, refine and fused_attention_block
+# --------------------------------------------------------------------- #
+
+def lanes_on(n_lanes, dev):
+    """The lane mask of a lane check: SEED_LANES_OFF switched off."""
+    return torch.tensor([b not in SEED_LANES_OFF for b in range(n_lanes)],
+                        device=dev)
+
+
+def lanes_result(phase, kernel, dtype, cfg, on, errs, means, same, zero, ms,
+                 single_ms, cost, e2e=None, hold_errors=True, **extra):
+    """Emit one lane check's line and hold it: every active lane equal to
+    its single launch bit for bit, every masked-off lane's outputs zero,
+    and (hold_errors) every active lane within the kernel's TOL / MEAN_TOL
+    (and E2E_TOL, `e2e`) of its plain version. `cost` = (bytes,
+    multiply-adds of dtype, fp32 multiply-adds) of the launch."""
+    nbytes, macs, macs_f32 = cost
+    bound_ms, bound_by = bound_of(nbytes, macs, macs_f32, dtype)
+    n_lanes, n_on = on.numel(), int(on.sum())
+    res = dict(dtype=str(dtype)[6:], A=cfg.max_agents, P=cfg.max_map_tokens,
+               lanes=n_lanes, lanes_off=[b for b in range(n_lanes)
+                                         if not on[b]],
+               max_abs_err=max(errs.values()), errors=errs,
+               mean_abs_err=max(means.values()), mean_errors=means,
+               tolerance=TOL[kernel][dtype],
+               mean_tolerance=MEAN_TOL[kernel][dtype],
+               equal_to_single_launch=same, masked_lanes_zero=zero, ms=ms,
+               ms_per_lane=ms / n_on, single_ms=single_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes,
+               operations=2 * (macs + macs_f32), **extra)
+    if e2e is not None:
+        res.update(end_to_end_err=max(e2e.values()), end_to_end_errors=e2e,
+                   end_to_end_tolerance=E2E_TOL[kernel][dtype])
+    emit(phase, **res)
+    require(all(same.values()), f"{phase} {dtype}: a lane differs from the "
+            f"single launch on its inputs: {same}")
+    require(all(zero.values()), f"{phase} {dtype}: a masked-off lane "
+            f"wrote: {zero}")
+    require(not hold_errors or (
+        res["max_abs_err"] <= TOL[kernel][dtype]
+        and res["mean_abs_err"] <= MEAN_TOL[kernel][dtype]),
+        f"{phase} {dtype} disagree with the plain version: {errs} / {means}")
+    require(e2e is None or res["end_to_end_err"] <= E2E_TOL[kernel][dtype],
+            f"{phase} {dtype}: a whole call disagrees with the plain "
+            f"version: {e2e}")
+    return res
+
+
+def check_seed_eval_full_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
+    """seed_eval_full's lane form at cfg's shapes (the flagship's, and the
+    shapes the served batches gave it): n_lanes lanes of their own raw
+    inputs (lane 3 with every agent key masked) in one call, the lanes
+    SEED_LANES_OFF masked off, fp32 and bf16. Each active lane's output
+    must equal the single call on its inputs bit for bit and is held
+    against the plain version stage by stage on its own precompute and as
+    a whole (seed_full_stage_errors); a masked-off lane's outputs must be
+    zeros. Times: the lane call, per active lane, beside the single call;
+    bound: seed_full_lanes_cost. Returns {dtype: result}."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    G = attr.grid_size
+    H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
+    on = lanes_on(n_lanes, dev)
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = SK.pack_seed_params_full(dec, L, G, pdt)
+        per = [seed_full_inputs(dec, cfg, G, pdt,
+                                np.random.default_rng(100 + b),
+                                "agents_all_masked" if b == 3 else "masked",
+                                dev) for b in range(n_lanes)]
+        sd0 = per[0][0]
+        lanes = [torch.stack([a[i] for a in per]) for i in range(1, 9)]
+        with torch.no_grad():
+            small, pos, pre = SK.seed_eval_full_kernel(
+                pack, sd0, *lanes, H, Hd, return_precompute=True, lanes=on)
+            singles = [SK.seed_eval_full_kernel(pack, sd0, *a[1:], H, Hd)
+                       for a in per]
+        torch.cuda.synchronize()
+        errs, means, e2e, same, zero, flips = {}, {}, {}, {}, {}, {}
+        for b in range(n_lanes):
+            key, got = f"lane{b}", (small[b], pos[b])
+            if not on[b]:
+                zero[key] = not small[b].any() and not pos[b].any()
+                continue
+            same[key] = all(torch.equal(g, w) for g, w in zip(got,
+                                                              singles[b]))
+            args = (sd0, *per[b][1:])
+            what = f"seed_eval_full lanes {dtype} {key}"
+            with torch.no_grad():
+                errs[key], means[key], flip = seed_full_stage_errors(
+                    pack, args, got, tuple(p[b] for p in pre), H, Hd, dtype,
+                    what)
+                e2e[key] = _err(got, SK.seed_eval_full_reference(
+                    pack, *args, H, Hd), what)[0]
+            if flip:
+                flips[key] = flip
+        with torch.no_grad():
+            ms = median_ms(lambda: SK.seed_eval_full_kernel(
+                pack, sd0, *lanes, H, Hd, lanes=on), KERNEL_LAUNCHES)
+            single_ms = median_ms(lambda: SK.seed_eval_full_kernel(
+                pack, sd0, *per[0][1:], H, Hd), KERNEL_LAUNCHES)
+        results[dtype] = lanes_result(
+            "seed_eval_full_lanes", "seed_eval_full", dtype, cfg, on, errs,
+            means, same, zero, ms, single_ms,
+            seed_full_lanes_cost(pack, sd0, lanes, (small, pos), on),
+            e2e=e2e, explained_by_one_flip=flips)
+    return results
+
+
+def check_refine_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
+    """refine's lane form at the flagship width: n_lanes lanes of their own
+    padded 32-row neighbourhoods (lane 3 with every agent key masked) in
+    one launch, the lanes SEED_LANES_OFF masked off, fp32 and bf16. Each
+    active lane must equal the single launch on its inputs bit for bit and
+    is held against the plain version sublayer by sublayer from the lane
+    launch's own trace and as a whole (refine_errors_of); the untraced lane
+    launch must equal the traced one; a masked-off lane's outputs must be
+    zeros. Times: the lane launch, per active lane, beside the single
+    launch; bound: refine_cost of each active lane, the pack once."""
+    from infgen_torch.ops import refine_kernel as RK
+
+    H, Hd, L = cfg.num_heads, cfg.head_dim, cfg.num_seed_layers
+    on = lanes_on(n_lanes, dev)
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = RK.pack_refine_params(dec, L, attr.angle_size, pdt)
+        per = [refine_inputs(dec, cfg, pdt, np.random.default_rng(100 + b),
+                             "agents_all_masked" if b == 3 else "masked",
+                             dev) for b in range(n_lanes)]
+        lanes = [torch.stack([a[i] for a in per]) for i in range(6)]
+        with torch.no_grad():
+            head, off, tr = RK.refine_kernel(pack, *lanes, H, Hd, trace=True,
+                                             lanes=on)
+            got = RK.refine_kernel(pack, *lanes, H, Hd, lanes=on)
+            singles = [RK.refine_kernel(pack, *a, H, Hd) for a in per]
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], head) and torch.equal(got[1], off),
+                f"refine lanes {dtype}: the traced launch's output differs "
+                "from the untraced one's")
+        errs, means, e2e, same, zero = {}, {}, {}, {}, {}
+        nbytes, macs = _nbytes(pack.weights, pack.vectors, on, *got), 0
+        for b in range(n_lanes):
+            key = f"lane{b}"
+            if not on[b]:
+                zero[key] = not got[0][b].any() and not got[1][b].any()
+                continue
+            same[key] = torch.equal(got[0][b], singles[b][0]) \
+                and torch.equal(got[1][b], singles[b][1])
+            errs[key], means[key], e2e[key] = refine_errors_of(
+                pack, per[b], head[b], off[b], tr[b], (got[0][b], got[1][b]),
+                H, Hd, f"refine lanes {dtype} {key}")
+            nb, mc = refine_cost(pack, per[b], singles[b])
+            nbytes += nb - _nbytes(pack.weights, pack.vectors, *singles[b])
+            macs += mc
+        with torch.no_grad():
+            ms = median_ms(lambda: RK.refine_kernel(pack, *lanes, H, Hd,
+                                                    lanes=on),
+                           KERNEL_LAUNCHES)
+            single_ms = median_ms(lambda: RK.refine_kernel(pack, *per[0], H,
+                                                           Hd),
+                                  KERNEL_LAUNCHES)
+        results[dtype] = lanes_result(
+            "refine_lanes", "refine", dtype, cfg, on, errs, means, same, zero,
+            ms, single_ms, (nbytes, macs, 0), e2e=e2e)
+    return results
+
+
+def check_fused_block_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
+    """fused_attention_block's lane form at cfg's shapes (A query rows per
+    lane): the rollout's three calls (temporal and map keys per query, the
+    agent-agent call's keys the lane's own rows) with n_lanes lanes of
+    their own inputs in one launch each, with fp32 and with bf16 tensors
+    (the bf16 policy). The block takes no lane mask (the trunk runs every
+    lane), so every lane is on. Each lane must equal the single call on its
+    inputs bit for bit and is held against the plain version: fp32 at the
+    fp32 limits, bf16 tensors within the fp32 limit plus one bf16 step of
+    the plain output (as check_fused_block holds them). Times per launch,
+    averaged over the three calls as check_fused_block averages, beside
+    the single call; bound: fused_cost_least of each lane, the pack once
+    per launch."""
+    from infgen_torch.ops import fused_block as FB
+
+    H, name_k = cfg.num_heads, "fused_attention_block"
+    dec = decoder_for(cfg, attr, F32, dev)
+    on = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    results = {}
+    for dtype in (F32, BF16):
+        errs, means, same, steps = {}, {}, {}, {}
+        ms, single_ms, nbytes, least = [], [], 0, 0
+        for kind, name, mode in FUSED_CASES[:3]:
+            pack = FB.pack_fused_block(getattr(dec, name))
+            per = []
+            for b in range(n_lanes):
+                x, src, r, mask = fused_inputs(
+                    dec, cfg, kind, mode, "random",
+                    np.random.default_rng(100 + b), dev)
+                per.append(tuple(None if a is None else a.to(dtype)
+                                 for a in (x, src, r)) + (mask,))
+            st = lambda i: None if per[0][i] is None else torch.stack(
+                [a[i] for a in per])
+            args = (pack, st(0), st(1), st(2), st(3), H)
+            with torch.no_grad():
+                got = FB.fused_attention_block(*args)
+                singles = [FB.fused_attention_block(pack, *a, H)
+                           for a in per]
+                refs = [FB.fused_attention_block_reference(pack, *a, H)
+                        for a in per]
+            torch.cuda.synchronize()
+            require(got.dtype == dtype, f"fused lanes {dtype}: output dtype")
+            for b in range(n_lanes):
+                key = f"{kind}/lane{b}"
+                same[key] = torch.equal(got[b], singles[b])
+                g, ref = got[b].float(), refs[b].float()
+                errs[key], means[key] = _err(g, ref, f"fused lanes {key}")
+                if dtype == BF16:
+                    over = ((g - ref).abs() - TOL[name_k][F32]) \
+                        / (BF16_STEP * ref.abs()).clamp(min=1e-30)
+                    steps[key] = float(over.max())
+                nb, _ = fused_cost(pack, *per[b])
+                nbytes += nb - (_nbytes(pack.weights, pack.vectors)
+                                if b else 0)
+                least += fused_cost_least(pack, *per[b])[1]
+            with torch.no_grad():
+                ms.append(median_ms(lambda: FB.fused_attention_block(*args),
+                                    KERNEL_LAUNCHES))
+                single_ms.append(median_ms(
+                    lambda: FB.fused_attention_block(pack, *per[0], H),
+                    KERNEL_LAUNCHES))
+        n = len(ms)
+        extra = {}
+        if dtype == BF16:
+            extra = dict(bf16_tensor_steps=max(steps.values()),
+                         bf16_tensor_limit=1.0)
+            require(extra["bf16_tensor_steps"] <= 1.0,
+                    f"fused_attention_block lanes with bf16 tensors are more "
+                    f"than one bf16 step from the plain version: {steps}")
+        results[dtype] = lanes_result(
+            "fused_block_lanes", name_k, dtype, cfg, on, errs, means, same,
+            {}, sum(ms) / n, sum(single_ms) / n, (nbytes / n, 0, least / n),
+            hold_errors=dtype == F32,
+            ms_by_call=dict(zip(("temporal", "map", "agent"), ms)),
+            single_ms_by_call=dict(zip(("temporal", "map", "agent"),
+                                       single_ms)), **extra)
+    return results
+
+
+LANE_CHECKS = {"seed_eval_full": check_seed_eval_full_lanes,
+               "refine": check_refine_lanes,
+               "fused_attention_block": check_fused_block_lanes}
 
 
 def rba_inputs(rng, B, Q, K, Dr, HD, H, drop, dev, w=None):
@@ -1854,8 +2170,26 @@ def check_parity(dev, phase):
                 f"{phase}: {kernel} never launched")
 
 
+# the kernel flags whose kernels take lanes since their lane forms: the JAX
+# bench's INFGEN_BENCH_FUSED + _SEEDK_FULL + _REFK program
+LANE_KERNEL_FLAGS = dict(use_fused_block=True, use_seed_kernel_full=True,
+                         use_refine_kernel=True)
 SERVING_PARITY_FLAGS = {"flagship": {},
-                        "pallas_attention": dict(use_pallas_attention=True)}
+                        "pallas_attention": dict(use_pallas_attention=True),
+                        "lane_kernels": LANE_KERNEL_FLAGS}
+
+
+def served_kernels(flags):
+    """The kernels a served rollout with `flags` (on the flagship's) must
+    launch: its seed kernel and the kernels its flags pick."""
+    out = ["seed_eval_full" if flags.get("use_seed_kernel_full")
+           else "seed_eval"]
+    for flag, kernel in (("use_refine_kernel", "refine"),
+                         ("use_fused_block", "fused_attention_block"),
+                         ("use_pallas_attention", "r_biased_attention")):
+        if flags.get(flag):
+            out.append(kernel)
+    return out
 
 
 def check_parity_serving(dev):
@@ -1863,9 +2197,10 @@ def check_parity_serving(dev):
     rollout (RolloutServer.rollout_batch: one bucket, a batch of four
     lanes, the last one padding) at the parity phases' config, on the card
     (kernels in fp32) against the CPU (plain versions): decisions equal,
-    poses within POSE_TOL, per scenario; once with the flagship's flags and
-    once with use_pallas_attention. seed_eval (and r_biased_attention in
-    its run) must have launched."""
+    poses within POSE_TOL, per scenario; with the flagship's flags, with
+    use_pallas_attention, and with the three kernels that take lanes since
+    their lane forms (LANE_KERNEL_FLAGS). Each run's kernels
+    (served_kernels) must have launched."""
     from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
                                   kernel_launches)
     from infgen_torch.data.synthetic import make_synthetic_scenario
@@ -1908,37 +2243,41 @@ def check_parity_serving(dev):
                 f"{pose_err} > {POSE_TOL}")
         require(all(n > 0 for n in inserted),
                 f"parity_serving {name}: a scenario inserted no agent")
-        require(launches["seed_eval"] > 0,
-                f"parity_serving {name}: seed_eval never launched")
-        require(not flags.get("use_pallas_attention")
-                or launches["r_biased_attention"] > 0,
-                f"parity_serving {name}: r_biased_attention never launched")
+        for kernel in served_kernels(flags):
+            require(launches[kernel] > 0,
+                    f"parity_serving {name}: {kernel} never launched")
     emit("parity_serving", config=PARITY_DESC, scenarios=3, lanes=4,
          tolerance=POSE_TOL, runs=runs)
 
 
-def check_serving(dev):
-    """This slice's main path: the flagship (configs/ours_long_term.yaml) at
-    full width serving SERVING_SCENARIOS synthetic scenarios through
-    RolloutServer.rollout_batch (the command line's --batch), in batches of
-    up to SERVING_SCENARIOS lanes and, on the same scenarios, one at a
-    time; unforced (the seed head's "enter" logit shifted by
-    ENTER_LOGIT_SHIFT) and forced, as run_preset drives its rollouts. Every
-    kernel count is set to 0 just before each batched run and read just
-    after; check_rollout holds every lane. Returns the seed_eval launches of
-    the batched runs and the (A, P, lanes) of each batch they dispatched."""
+def check_serving(dev, phase="serving", flags=None):
+    """The served main path: the flagship (configs/ours_long_term.yaml,
+    with `flags` replaced on it) at full width serving SERVING_SCENARIOS
+    synthetic scenarios through RolloutServer.rollout_batch (the command
+    line's --batch), in batches of up to SERVING_SCENARIOS lanes and, on
+    the same scenarios, one at a time; unforced (the seed head's "enter"
+    logit shifted by ENTER_LOGIT_SHIFT) and forced, as run_preset drives
+    its rollouts. Every kernel count is set to 0 just before each run and
+    read just after; check_rollout holds every lane. The config's seed
+    kernel (and under the fused block, the block) must launch in every run,
+    and every kernel of served_kernels in the batched runs together (the
+    refine pass runs only where an agent is inserted). Returns each
+    kernel's launches in the batched runs and the (A, P, lanes) of each
+    batch they dispatched."""
     from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
                                   kernel_launches, run_batched)
     from infgen_torch.config import SHIFT, load_config
 
-    cfg = load_config(FLAGSHIP)
+    flags = flags or {}
+    cfg = load_config(FLAGSHIP).replace(**flags)
     n_steps = cfg.num_recurrent_steps_val // SHIFT
+    every_run = [k for k in served_kernels(flags) if k != "refine"]
     tokenizers = build_tokenizers(cfg)
     model = build_model(cfg, tokenizers[0], dev)
     with torch.no_grad():
         model.agent_decoder.seed_state_predict_head.Dense_1.bias[1] += \
             ENTER_LOGIT_SHIFT
-    runs, lanes_launches, shapes = [], 0, set()
+    runs, lanes_launches, shapes = [], {}, set()
     for force in (False, True):
         for batch in (SERVING_SCENARIOS, 1):
             torch.cuda.reset_peak_memory_stats()
@@ -1950,11 +2289,13 @@ def check_serving(dev):
             launches = kernel_launches()
             for o in outs:
                 check_rollout(o, cfg, n_steps, A=o["pred_traj"].shape[0])
-            require(launches["seed_eval"] > 0,
-                    f"serving (force={force}, batch={batch}): seed_eval "
-                    "never launched")
+            for kernel in every_run:
+                require(launches[kernel] > 0,
+                        f"{phase} (force={force}, batch={batch}): {kernel} "
+                        "never launched")
             if batch > 1:
-                lanes_launches += launches["seed_eval"]
+                for k, n in launches.items():
+                    lanes_launches[k] = lanes_launches.get(k, 0) + n
                 shapes |= {(b["A"], b["P"], b["lanes"])
                            for b in summary["batches"]}
             runs.append(dict(
@@ -1967,8 +2308,11 @@ def check_serving(dev):
     by = {(r["force_insert"], r["batch"]): r for r in runs}
     require(sum(by[True, 1]["agents_inserted"])
             > sum(by[False, 1]["agents_inserted"]),
-            "serving: the unforced runs did not decline")
-    emit("serving", config=os.path.relpath(FLAGSHIP, ROOT),
+            f"{phase}: the unforced runs did not decline")
+    missing = [k for k in served_kernels(flags) if not lanes_launches[k]]
+    require(not missing, f"{phase}: {missing} never launched at B = "
+            f"{SERVING_SCENARIOS}")
+    emit(phase, config=os.path.relpath(FLAGSHIP, ROOT), flags=flags,
          scenarios=SERVING_SCENARIOS, agent_buckets=SERVING_BUCKETS,
          token_steps=n_steps, enter_logit_shift=ENTER_LOGIT_SHIFT,
          runs=runs, same_inserts_batched_and_single={
@@ -2816,6 +3160,8 @@ def main():
     cfg, lat = load_config(FLAGSHIP), load_config(LATENCY)
     attr = build_tokenizers(cfg)[0]
     check_seed_eval_lanes(cfg, attr, dev)
+    for lane_check in LANE_CHECKS.values():
+        lane_check(cfg, attr, dev)
     checks = {"seed_eval": check_seed_eval(cfg, attr, dev),
               "seed_eval_full": check_seed_eval_full(lat, attr, dev),
               "refine": check_refine(lat, attr, dev),
@@ -2839,6 +3185,15 @@ def main():
         cfg.replace(max_agents=A, max_map_tokens=P), attr, dev, n)
         for A, P, n in served]
     require(served_lanes, "serving dispatched no batch of lanes")
+    # this slice's path: the three lane forms served at full width, then
+    # each lane form at the shapes its served batches gave it
+    kernel_lanes_launches, kernel_served = check_serving(
+        dev, "serving_kernels", LANE_KERNEL_FLAGS)
+    require(kernel_served, "serving_kernels dispatched no batch of lanes")
+    served_kernel_lanes = {name: [lane_check(
+        cfg.replace(max_agents=A, max_map_tokens=P), attr, dev, n)
+        for A, P, n in kernel_served]
+        for name, lane_check in LANE_CHECKS.items()}
     trainable = check_trainable_grad(cfg, dev)
     train = check_train(dev)
     scoring = check_scoring(dev)
@@ -2859,15 +3214,27 @@ def main():
             bound_by=r["bound_by"], library_ms=None))
         if stream_launches.get(name):
             line[-1]["stream_launches"] = stream_launches[name]
+    def lane_fields(lane, err_key, launched):
+        return dict(lanes_A=lane["A"], lanes_P=lane["P"],
+                    lanes=lane["lanes"],
+                    lanes_on=lane["lanes"] - len(lane["lanes_off"]),
+                    lanes_ms=lane["ms"], lanes_ms_per_lane=lane["ms_per_lane"],
+                    lanes_single_ms=lane["single_ms"],
+                    lanes_bound_ms=lane["bound_ms"],
+                    lanes_bound_by=lane["bound_by"],
+                    lanes_max_abs_err=lane[err_key],
+                    lanes_launches=launched)
+
     lane = served_lanes[-1].get(main_dt, served_lanes[-1][F32])
-    line[0].update(lanes_A=lane["A"], lanes_P=lane["P"],
-                   lanes=lane["lanes"], lanes_on=lane["lanes"] - len(
-        lane["lanes_off"]), lanes_ms=lane["ms"],
-        lanes_ms_per_lane=lane["ms_per_lane"],
-        lanes_bound_ms=lane["bound_ms"], lanes_bound_by=lane["bound_by"],
-        lanes_max_abs_err=lane["raw_max_abs_err"],
-        lanes_launches=lanes_launches,
-        scoring_launches=scoring["launches"]["seed_eval"])
+    line[0].update(lane_fields(lane, "raw_max_abs_err",
+                               lanes_launches["seed_eval"]),
+                   scoring_launches=scoring["launches"]["seed_eval"])
+    for entry in line:
+        if entry["name"] in served_kernel_lanes:
+            res = served_kernel_lanes[entry["name"]][-1]
+            entry.update(lane_fields(res.get(main_dt, res[F32]),
+                                     "max_abs_err",
+                                     kernel_lanes_launches[entry["name"]]))
     rba = next(e for e in line if e["name"] == "r_biased_attention")
     rba.update(
         train_launches=train["launches"]["r_biased_attention"],

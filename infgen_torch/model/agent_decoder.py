@@ -500,18 +500,16 @@ class AgentDecoder(nn.Module):
         precedence) each of the 3L sublayers is one call of
         ops/fused_block, its parameters from `fused_packs`
         (pack_column_blocks, built once per rollout; packed here when
-        None).
+        None); with a lane axis one call takes every lane's [B, A, ...]
+        rows, the agent-agent keys within each lane.
 
-        Both kernels take one scenario's [A, ...] rows: with a lane axis
-        they take one lane (n_rows then [1]) and refuse more.
+        The column kernel takes one scenario's [A, ...] rows: with a lane
+        axis it takes one lane (n_rows then [1]) and refuses more.
         """
-        if (self.cfg.use_column_kernel or self.cfg.use_fused_block) \
-                and x_c.dim() == 3:
+        if self.cfg.use_column_kernel and x_c.dim() == 3:
             if x_c.shape[0] != 1:
-                flag = "use_column_kernel" if self.cfg.use_column_kernel \
-                    else "use_fused_block"
-                raise ValueError(f"{flag}: the kernel takes one lane, got "
-                                 f"{x_c.shape[0]}")
+                raise ValueError("use_column_kernel: the kernel takes one "
+                                 f"lane, got {x_c.shape[0]}")
             cols, out = self.motion_column(
                 x_c[0], key_stack[:, 0], t_r_raw[0], t_mask[0], a2a_r_raw[0],
                 a2a_mask[0], pl_keys[0], pl_r_raw[0], pl_mask[0],

@@ -80,10 +80,10 @@ def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, n_ptrs, n_ints in (("infgen_seed_eval", 12, 7),
                                  ("infgen_seed_eval_lanes", 13, 8),
-                                 ("infgen_seed_eval_full", 19, 8),
-                                 ("infgen_refine", 11, 6),
+                                 ("infgen_seed_eval_full", 20, 9),
+                                 ("infgen_refine", 12, 7),
                                  ("infgen_motion_column", 14, 7),
-                                 ("infgen_fused_block", 6, 6),
+                                 ("infgen_fused_block", 6, 7),
                                  ("infgen_r_biased_attention", 9, 6)):
         fn = getattr(lib, name)
         fn.argtypes = [ci] + [vp] * n_ptrs + [ci] * n_ints + [vp]

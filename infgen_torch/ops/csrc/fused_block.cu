@@ -61,6 +61,14 @@
 //     keep the per-head weighted sums of LN(key) and LN(r) in registers,
 //     rescaled per tile. With shared or self keys LN(key) is computed once
 //     per block for all K keys.
+//
+// Lanes. A batched rollout runs one scenario per lane: x [B, Q, D], keys
+// [B, Q, K, D] (per query) or [B, K, D] (shared), r [B, Q, K, D], mask
+// [B, Q, K], out [B, Q, D], one launch of (tiles per lane, B) blocks. A
+// block reads its own lane's rows and keys, so self-attention attends
+// within the lane's rows only; the weights are shared. The single call is
+// the launch with B = 1, and every lane computes what its single call
+// computes, bit for bit.
 
 #include "dense_row.cuh"
 
@@ -81,15 +89,27 @@ constexpr int kMats = 11;      // matrices a block streams, in use order
 enum HeadArg { WKH = kNumArgs, WKRH, kNumFbArgs };
 
 struct Params {
-  const void* x;       // [Q, D] In
-  const void* src;     // [Q, K, D] (per query) or [K, D] (shared) In; null:
-                       // self-attention over x
-  const void* r;       // [Q, K, D] In
-  const uint8_t* mask; // [Q, K]
+  const void* x;       // [B, Q, D] In
+  const void* src;     // [B, Q, K, D] (per query) or [B, K, D] (shared) In;
+                       // null: self-attention over x
+  const void* r;       // [B, Q, K, D] In
+  const uint8_t* mask; // [B, Q, K]
   const void* w[kNumFbArgs];
-  void* out;           // [Q, D] In
-  int Q, K, D, H, Hd, per_query;
+  void* out;           // [B, Q, D] In
+  int B, Q, K, D, H, Hd, per_query;
 };
+
+// p's arrays moved to lane b's rows (elements of In, `es` bytes each).
+__device__ __forceinline__ void to_lane(Params& p, size_t b, size_t es) {
+  const size_t qd = (size_t)p.Q * p.D, qkd = (size_t)p.Q * p.K * p.D;
+  p.x = static_cast<const char*>(p.x) + b * qd * es;
+  if (p.src != nullptr)
+    p.src = static_cast<const char*>(p.src) +
+            b * (p.per_query ? qkd : (size_t)p.K * p.D) * es;
+  p.r = static_cast<const char*>(p.r) + b * qkd * es;
+  p.mask += b * p.Q * p.K;
+  p.out = static_cast<char*>(p.out) + b * qd * es;
+}
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -544,6 +564,7 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* o) {
 template <typename In>
 __global__ void __launch_bounds__(kFbThreads, 1) fused_block_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
+  to_lane(p, blockIdx.y, sizeof(In));
   const int D = p.D, H = p.H, Hd = p.Hd, K = p.K, HD = H * D;
   const int tid = threadIdx.x, bd = blockDim.x, warp = tid >> 5;
   const int nw = bd >> 5, RD = kRows * D;
@@ -651,8 +672,8 @@ int launch(Params& p, cudaStream_t stream) {
   static size_t allowed = 0;
   const cudaError_t err = allow_smem(fused_block_kernel<In>, bytes, allowed);
   if (err != cudaSuccess) return (int)err;
-  fused_block_kernel<In><<<(p.Q + kRows - 1) / kRows, kFbThreads, bytes,
-                           stream>>>(p);
+  const dim3 grid((p.Q + kRows - 1) / kRows, p.B);
+  fused_block_kernel<In><<<grid, kFbThreads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -666,16 +687,19 @@ extern "C" int infgen_fused_block_smem(int dtype, int D, int H, int K,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, x_src, r and the output; the weights
-// are fp32). x_src: null for self-attention. per_query: x_src is [Q, K, D].
-// ptrs: host array of kNumFbArgs device pointers (one sublayer's pack and
-// its head-blocked key projections). Returns a cudaError_t; 0 on a
-// successful launch.
+// are fp32). B lanes of Q rows each (B = 1: one call's [Q, ...] arrays).
+// x_src: null for self-attention. per_query: x_src is [B, Q, K, D], else
+// [B, K, D]. ptrs: host array of kNumFbArgs device pointers (one sublayer's
+// pack and its head-blocked key projections). Returns a cudaError_t; 0 on
+// a successful launch.
 extern "C" int infgen_fused_block(int dtype, const void* x, const void* x_src,
                                   const void* r, const uint8_t* mask,
-                                  const uint64_t* ptrs, void* out, int Q,
-                                  int K, int D, int H, int Hd, int per_query,
-                                  void* stream) {
+                                  const uint64_t* ptrs, void* out, int B,
+                                  int Q, int K, int D, int H, int Hd,
+                                  int per_query, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   Params p;
+  p.B = B;
   p.x = x;
   p.src = x_src;
   p.r = r;

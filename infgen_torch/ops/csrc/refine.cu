@@ -64,6 +64,15 @@
 // parity.
 // What sets its time (scripts/kernel_stamps.py, PERF.md): the exchanges,
 // about 2-3 us per barrier with its remote stores, and the LayerNorms.
+//
+// Lanes. A batched rollout refines one insert per lane (scenario) at once:
+// one launch of B clusters, cluster b reading lane b's [R, D] rows and
+// masks ([B, R, ...] arrays) and writing its own rows of the outputs, the
+// weights shared. An optional lane mask [B] (the lanes that insert) is
+// read by every CTA of a cluster before anything else, so a masked-off
+// cluster leaves as a whole, its outputs zeroed, before its first barrier.
+// The single pass is the launch with B = 1 and no mask; every active lane
+// computes what its single pass computes, bit for bit.
 
 #include <cooperative_groups.h>
 
@@ -128,19 +137,35 @@ __host__ __device__ inline TileLayout tile_layout(int L, int D, int kc,
 }
 
 struct Params {
-  const float* x_sub;      // [R, D]
-  const void* pl_keys;     // [R, D] T
-  const void* r_pl;        // [R, D] T
-  const uint8_t* mask_pl;  // [R]
-  const void* r_aa;        // [R, D] T
-  const uint8_t* mask_a;   // [R]
+  const float* x_sub;      // [B, R, D]
+  const void* pl_keys;     // [B, R, D] T
+  const void* r_pl;        // [B, R, D] T
+  const uint8_t* mask_pl;  // [B, R]
+  const void* r_aa;        // [B, R, D] T
+  const uint8_t* mask_a;   // [B, R]
   const void* tiles;       // [kc, stages, slot] T
   const float* v[kNumArgs];
-  float* out_head;         // [angle_size]
-  float* out_off;          // [2]
-  float* trace;            // [2L, R, D] x after each sublayer, or null
+  float* out_head;         // [B, angle_size]
+  float* out_off;          // [B, 2]
+  float* trace;            // [B, 2L, R, D] x after each sublayer, or null
+  const uint8_t* lanes;    // [B] lane mask, or null: every lane on
   int L, R, D, angle_size;
 };
+
+// p's arrays moved to lane b's rows (T: the type of the key rows).
+template <typename T>
+__device__ __forceinline__ void to_lane(Params& p, size_t b) {
+  const size_t rd = (size_t)p.R * p.D;
+  p.x_sub += b * rd;
+  p.pl_keys = static_cast<const T*>(p.pl_keys) + b * rd;
+  p.r_pl = static_cast<const T*>(p.r_pl) + b * rd;
+  p.r_aa = static_cast<const T*>(p.r_aa) + b * rd;
+  p.mask_pl += b * p.R;
+  p.mask_a += b * p.R;
+  p.out_head += b * p.angle_size;
+  p.out_off += b * 2;
+  if (p.trace != nullptr) p.trace += b * 2 * p.L * rd;
+}
 
 template <typename T>
 struct RefSmem {
@@ -502,6 +527,21 @@ __global__ void __launch_bounds__(kRefThreads, 1) refine_kernel(Params p) {
   const int c = (int)cl.block_rank(), kc = (int)cl.num_blocks();
   const int D = p.D, R = p.R, J = 2 * p.L;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  {  // this cluster's lane; a masked-off one zeroes its outputs and leaves,
+     // every CTA of it before any barrier
+    const int b = blockIdx.x / kc;
+    to_lane<T>(p, b);
+    if (p.lanes != nullptr && !p.lanes[b]) {
+      if (c == 0)
+        for (int i = tid; i < p.angle_size + 2; i += kRefThreads) {
+          if (i < p.angle_size)
+            p.out_head[i] = 0.f;
+          else
+            p.out_off[i - p.angle_size] = 0.f;
+        }
+      return;
+    }
+  }
   const TileLayout lay = tile_layout<T>(p.L, D, kc, p.angle_size);
   const int ld = lay.ld, ld4 = lay.ld4, c0 = kSlice * c;
   RefSmem<T> s;
@@ -837,7 +877,7 @@ size_t smem_bytes(int L, int D, int kc, int angle) {
 }
 
 template <typename T>
-int launch(const Params& p, int kc, cudaStream_t stream) {
+int launch(const Params& p, int kc, int B, cudaStream_t stream) {
   const size_t bytes = smem_bytes<T>(p.L, p.D, kc, p.angle_size);
   static size_t allowed = 0;
   cudaError_t err = allow_smem(refine_kernel<T>, bytes, allowed);
@@ -848,7 +888,7 @@ int launch(const Params& p, int kc, cudaStream_t stream) {
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kc);
+  cfg.gridDim = dim3(kc * B);
   cfg.blockDim = dim3(kRefThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -870,8 +910,10 @@ extern "C" int infgen_refine_smem(int dtype, int L, int D, int angle_size) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (pl_keys, r_pl, r_aa and the tiles).
+// B lanes: x_sub, pl_keys, r_pl, r_aa [B, R, D], masks [B, R], out_head
+// [B, angle_size], out_off [B, 2]; lanes [B] bytes or null (all on).
 // ptrs: host array of kNumArgs device pointers (the packed vectors); tiles:
-// refine_kernel.py::refine_tiles; trace: [2L, R, D] fp32 (x after each
+// refine_kernel.py::refine_tiles; trace: [B, 2L, R, D] fp32 (x after each
 // sublayer; the last one's row 0 only is computed) or null. Takes heads of
 // 16 (H = D / 16 CTAs, 2 <= H <= 8) and R <= 32. Returns a cudaError_t; 0
 // on a successful launch.
@@ -880,11 +922,12 @@ extern "C" int infgen_refine(int dtype, const float* x_sub,
                              const uint8_t* mask_pl, const void* r_aa,
                              const uint8_t* mask_a, const uint64_t* ptrs,
                              const void* tiles, float* out_head,
-                             float* out_off, float* trace, int L, int R,
+                             float* out_off, float* trace,
+                             const uint8_t* lanes, int B, int L, int R,
                              int D, int H, int Hd, int angle_size,
                              void* stream) {
   if (Hd != kSlice || H * Hd != D || H < 2 || H > kMaxCluster || R < 1 ||
-      R > kRows)
+      R > kRows || B < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x_sub = x_sub;
@@ -899,12 +942,13 @@ extern "C" int infgen_refine(int dtype, const float* x_sub,
   p.out_head = out_head;
   p.out_off = out_off;
   p.trace = trace;
+  p.lanes = lanes;
   p.L = L;
   p.R = R;
   p.D = D;
   p.angle_size = angle_size;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, H, s);
-  if (dtype == 1) return launch<bf16>(p, H, s);
+  if (dtype == 0) return launch<float>(p, H, B, s);
+  if (dtype == 1) return launch<bf16>(p, H, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -54,6 +54,18 @@
 // chain blocks (100 tiles each) finish long after the map and occupancy
 // blocks, then the stack. Tiles of 16 rows and a four-stage ring did not
 // shorten the chain.
+//
+// Lanes. A batched rollout evaluates one seed per lane (scenario) at once:
+// the inputs and the scratch carry a leading lane axis ([B, L, P, D] k0 /
+// v0, [B, P, D] r_pl, [B, A, D] agent column and r_sa, [B, ...] masks and
+// occupancy rows; sd0 and the weights shared). The precompute's grid gains
+// a lane dimension (blockIdx.y: its row tiles run over every lane), and the
+// stack launches one cluster of kCluster CTAs per lane. An optional lane
+// mask [B] switches lanes off: their precompute blocks leave at once, and
+// every CTA of their stack cluster zeroes its share of the outputs and
+// leaves before its first cluster barrier. The single evaluation is the
+// launch with B = 1 and no mask; every active lane computes what its
+// single evaluation computes, bit for bit.
 
 #include "cluster_stack.cuh"
 #include "mma_tiles.cuh"
@@ -97,8 +109,31 @@ struct PreParams {
   float* V_pt;             // [L, P, D] out
   float* K_a;              // [L, A, D] out
   float* V_a;              // [L, A, D] out
+  const uint8_t* lanes;    // [B] lane mask, or null: every lane on
   int L, P, A, D, G, n_map_blocks, n_agent_blocks;
 };
+
+// p's arrays moved to lane b's ([B, ...] arrays; T: the raw inputs' type).
+// Returns false when the lane is masked off.
+template <typename T>
+__device__ __forceinline__ bool pre_lane(PreParams& p, size_t b) {
+  if (p.lanes != nullptr && !p.lanes[b]) return false;
+  const size_t lp = (size_t)p.L * p.P * p.D, la = (size_t)p.L * p.A * p.D;
+  p.k0 = static_cast<const T*>(p.k0) + b * lp;
+  p.v0 = static_cast<const T*>(p.v0) + b * lp;
+  p.r_pl = static_cast<const T*>(p.r_pl) + b * p.P * p.D;
+  p.mask_pl += b * p.P;
+  p.agent_col = static_cast<const T*>(p.agent_col) + b * p.A * p.D;
+  p.r_sa = static_cast<const T*>(p.r_sa) + b * p.A * p.D;
+  p.mask_a += b * p.A;
+  p.occ += b * p.G;
+  p.v_occ += b * p.L * p.D;
+  p.K_pt += b * lp;
+  p.V_pt += b * lp;
+  p.K_a += b * la;
+  p.V_a += b * la;
+  return true;
+}
 
 template <typename T>
 __device__ __forceinline__ const T* mat(const PreParams& p, FullArg a,
@@ -311,6 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1) precompute_fp32_kernel(
   extern __shared__ __align__(16) float smem[];
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   using T = float;
+  if (!pre_lane<T>(p, blockIdx.y)) return;
   const int b = blockIdx.x;
   if (b < p.n_map_blocks)
     map_rows<T>(p, b * kMapTile, smem);
@@ -741,6 +777,7 @@ __global__ void __launch_bounds__(kPreThreads, 1) precompute_bf16_kernel(
     PreParams p) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  if (!pre_lane<bf16>(p, blockIdx.y)) return;
   const int b = blockIdx.x;
   if (b < p.n_agent_blocks) {
     chain_block(p, b, smem_b);
@@ -762,16 +799,37 @@ struct StackArgs {
   const void* weights;
   const float* vectors;
   float *out_small, *out_pos;
+  const uint8_t* lanes;  // [B] lane mask, or null: every lane on
   int L, P, A, D, H, Hd, G;
 };
 
+// One cluster per lane: lane b's precompute results and masks, its rows of
+// the outputs. A masked-off cluster zeroes its outputs and leaves before
+// its first cluster barrier (and reads nothing of the precompute).
 template <typename T>
 __global__ void __launch_bounds__(kStackThreads, 1) stack_kernel(StackArgs a) {
   extern __shared__ __align__(16) float smem[];
+  const size_t b = blockIdx.x / kCluster;
+  float* out_small = a.out_small + b * 3 * kSmallCols;
+  float* out_pos = a.out_pos + b * a.G;
+  if (a.lanes != nullptr && !a.lanes[b]) {
+    const int n = 3 * kSmallCols + a.G, step = kCluster * blockDim.x;
+    for (int i = (blockIdx.x % kCluster) * blockDim.x + threadIdx.x; i < n;
+         i += step) {
+      if (i < 3 * kSmallCols)
+        out_small[i] = 0.f;
+      else
+        out_pos[i - 3 * kSmallCols] = 0.f;
+    }
+    return;
+  }
+  const size_t lp = (size_t)a.L * a.P * a.D, la = (size_t)a.L * a.A * a.D;
   cluster_stack_and_heads<T, float>(
-      seed_weights<T>(a.weights, a.vectors, a.L, a.D), a.sd0, a.v_occ,
-      a.k_pt, a.v_pt, a.mask_pl, a.k_a, a.v_a, a.mask_a, a.out_small,
-      a.out_pos, a.L, a.P, a.A, a.D, a.H, a.Hd, a.G, smem,
+      seed_weights<T>(a.weights, a.vectors, a.L, a.D), a.sd0,
+      a.v_occ + b * a.L * a.D, a.k_pt + b * lp, a.v_pt + b * lp,
+      a.mask_pl + b * a.P, a.k_a + b * la, a.v_a + b * la,
+      a.mask_a + b * a.A, out_small, out_pos, a.L, a.P, a.A, a.D, a.H,
+      a.Hd, a.G, smem,
       [] { asm volatile("griddepcontrol.wait;\n" ::: "memory"); });
 }
 
@@ -799,7 +857,7 @@ size_t pre_bytes(int D, int P, int A, int G) {
 // call filled), 3 both.
 template <typename T>
 int launch(PreParams& p, const float* sd0, float* out_small, float* out_pos,
-           int H, int Hd, int stages, cudaStream_t stream) {
+           int B, int H, int Hd, int stages, cudaStream_t stream) {
   cudaError_t err;
   if (stages & 1) {
     const size_t pre = pre_bytes<T>(p.D, p.P, p.A, p.G);
@@ -819,7 +877,8 @@ int launch(PreParams& p, const float* sd0, float* out_small, float* out_pos,
     static size_t allowed = 0;
     err = allow_smem(kernel, pre, allowed);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, sizeof(T) == 2 ? kPreThreads : kThreads, pre, stream>>>(p);
+    kernel<<<dim3(grid, B), sizeof(T) == 2 ? kPreThreads : kThreads, pre,
+             stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -830,8 +889,8 @@ int launch(PreParams& p, const float* sd0, float* out_small, float* out_pos,
     if (err != cudaSuccess) return (int)err;
     StackArgs a{sd0,       p.v_occ,    p.K_pt,      p.V_pt, p.K_a, p.V_a,
                 p.mask_pl, p.mask_a,   p.weights,   p.vectors,
-                out_small, out_pos,    p.L,         p.P,    p.A,   p.D,
-                H,         Hd,         p.G};
+                out_small, out_pos,    p.lanes,     p.L,    p.P,   p.A,
+                p.D,       H,          Hd,          p.G};
     cudaLaunchAttribute attrs[2];
     attrs[0].id = cudaLaunchAttributeClusterDimension;
     attrs[0].val.clusterDim.x = kCluster;
@@ -840,7 +899,7 @@ int launch(PreParams& p, const float* sd0, float* out_small, float* out_pos,
     attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attrs[1].val.programmaticStreamSerializationAllowed = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(kCluster);
+    cfg.gridDim = dim3(kCluster * B);
     cfg.blockDim = dim3(kStackThreads);
     cfg.dynamicSmemBytes = bytes;
     cfg.stream = stream;
@@ -867,19 +926,24 @@ extern "C" int infgen_seed_eval_full_smem(int dtype, int L, int P, int A,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (k0, v0, r_pl, agent_col, r_sa and the
-// packed matrices). full_ptrs: host array of kNumFullArgs device pointers
-// (TILES: seed_kernel.py::chain_tiles for bf16, else null). v_occ .. v_a:
-// fp32 scratch the first kernel writes and the second reads. stages: see
-// launch. Returns a cudaError_t; 0 on successful launches.
+// packed matrices). B lanes: every input but sd0, every scratch array and
+// the outputs carry a leading lane axis (B = 1: one evaluation's arrays);
+// lanes [B] bytes or null (all on). full_ptrs: host array of kNumFullArgs
+// device pointers (TILES: seed_kernel.py::chain_tiles for bf16, else
+// null). v_occ .. v_a: fp32 scratch the first kernel writes and the second
+// reads. stages: see launch. Returns a cudaError_t; 0 on successful
+// launches.
 extern "C" int infgen_seed_eval_full(
     int dtype, const float* sd0, const void* k0, const void* v0,
     const void* r_pl, const uint8_t* mask_pl, const void* agent_col,
     const void* r_sa, const uint8_t* mask_a, const uint8_t* occ,
     const void* weights, const float* vectors, const uint64_t* full_ptrs,
     float* v_occ, float* K_pt, float* V_pt, float* K_a, float* V_a,
-    float* out_small, float* out_pos, int L, int P, int A, int D, int H,
-    int Hd, int G, int stages, void* stream) {
+    float* out_small, float* out_pos, const uint8_t* lanes, int B, int L,
+    int P, int A, int D, int H, int Hd, int G, int stages, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   PreParams p;
+  p.lanes = lanes;
   p.k0 = k0;
   p.v0 = v0;
   p.r_pl = r_pl;
@@ -904,9 +968,9 @@ extern "C" int infgen_seed_eval_full(
   p.G = G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(p, sd0, out_small, out_pos, H, Hd, stages, s);
+    return launch<float>(p, sd0, out_small, out_pos, B, H, Hd, stages, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(p, sd0, out_small, out_pos, H, Hd, stages,
-                                 s);
+    return launch<__nv_bfloat16>(p, sd0, out_small, out_pos, B, H, Hd,
+                                 stages, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,11 @@ csrc/fused_block.cu, whose header states its bound and design).
                                    tensors, takes the plain version for CPU
                                    tensors, raises otherwise
 
+Lanes: every array may carry a leading lane axis B (one scenario each, as
+`jax.vmap` batches the TPU kernel): x_dst [B, Q, D], x_src [B, Q, K, D],
+[B, K, D] or None, r [B, Q, K, D], mask [B, Q, K]. Each lane is the call
+on its own arrays; self-attention attends within its lane's rows.
+
 Precision follows the TPU kernel: the weights are the fp32 masters, every
 input is cast up to fp32 and the whole layer runs in fp32, with no
 compute-dtype rounding of matmul operands (unlike the other kernels of the
@@ -101,11 +106,11 @@ def kernel_accepts(D: int, num_heads: int) -> bool:
 
 
 def _mode(x_dst, x_src):
-    """Key mode of a call: 'self' (x_src None), 'shared' ([K, D]) or
-    'per_query' ([Q, K, D])."""
+    """Key mode of a call: 'self' (x_src None), 'shared' ([..., K, D]) or
+    'per_query' ([..., Q, K, D]: one more axis than x_dst)."""
     if x_src is None:
         return "self"
-    return "per_query" if x_src.dim() == 3 else "shared"
+    return "per_query" if x_src.dim() == x_dst.dim() + 1 else "shared"
 
 
 def fused_attention_block_reference(pack: FusedPack, x_dst, x_src, r, mask,
@@ -114,7 +119,12 @@ def fused_attention_block_reference(pack: FusedPack, x_dst, x_src, r, mask,
     kernel's `_kernel`): fp32 throughout. x_dst [Q, D]; x_src [Q, K, D]
     (keys gathered per query), [K, D] (shared keys) or None (self-attention
     over x_dst); r [Q, K, D]; mask [Q, K] bool. Returns [Q, D] in x_dst's
-    dtype."""
+    dtype. With a lane axis (x_dst [B, Q, D], the others likewise) each
+    lane is the call on its own arrays, into [B, Q, D]."""
+    if x_dst.dim() == 3:
+        return torch.stack([fused_attention_block_reference(
+            pack, x_dst[b], None if x_src is None else x_src[b], r[b],
+            mask[b], num_heads) for b in range(x_dst.shape[0])])
     f32 = torch.float32
     Q, D = x_dst.shape
     keys = x_src
@@ -129,15 +139,20 @@ def fused_attention_block_reference(pack: FusedPack, x_dst, x_src, r, mask,
 def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
                           num_heads: int) -> torch.Tensor:
     """One DenseAttention layer (shapes and math of
-    fused_attention_block_reference). x_dst, x_src and r share one dtype,
-    float32 or bfloat16, and are contiguous; the output takes the dtype.
-    CUDA tensors launch csrc/fused_block.cu on the current stream (one
-    launch, counted in `fused_attention_block.launches`); CPU tensors take
-    the plain version. The kernel's widths: kernel_accepts."""
+    fused_attention_block_reference), with or without a leading lane axis.
+    x_dst, x_src and r share one dtype, float32 or bfloat16, and are
+    contiguous; the output takes the dtype. CUDA tensors launch
+    csrc/fused_block.cu on the current stream (one launch for every lane,
+    counted once in `fused_attention_block.launches`); CPU tensors take the
+    plain version. The kernel's widths: kernel_accepts."""
     dev = x_dst.device
     mode = _mode(x_dst, x_src)
-    Q, D = x_dst.shape
-    K = r.shape[1]
+    lead = tuple(x_dst.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("fused_attention_block takes x_dst [Q, D] or "
+                         f"[B, Q, D], got {tuple(x_dst.shape)}")
+    Q, D = x_dst.shape[-2:]
+    K = r.shape[-2]
     dt = x_dst.dtype
     if K > MAX_KEYS:
         raise ValueError(f"fused_attention_block takes at most {MAX_KEYS} "
@@ -147,15 +162,15 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
     if D != pack.D or D > 512 or D % num_heads:
         raise ValueError("fused_attention_block needs x_dst [Q, D] with the "
                          "pack's D <= 512, a multiple of num_heads")
-    _check("x_dst", x_dst, dt, (Q, D), dev)
+    _check("x_dst", x_dst, dt, (*lead, Q, D), dev)
     if mode == "per_query":
-        _check("x_src", x_src, dt, (Q, K, D), dev)
+        _check("x_src", x_src, dt, (*lead, Q, K, D), dev)
     elif mode == "shared":
-        _check("x_src", x_src, dt, (K, D), dev)
+        _check("x_src", x_src, dt, (*lead, K, D), dev)
     elif K != Q:
         raise ValueError("self-attention needs r [Q, Q, D]")
-    _check("r", r, dt, (Q, K, D), dev)
-    _check("mask", mask, torch.bool, (Q, K), dev)
+    _check("r", r, dt, (*lead, Q, K, D), dev)
+    _check("mask", mask, torch.bool, (*lead, Q, K), dev)
     if dev.type == "cpu":
         return fused_attention_block_reference(pack, x_dst, x_src, r, mask,
                                                num_heads)
@@ -182,13 +197,13 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
             raise ValueError(f"fused_attention_block: {smem} B of shared "
                              "memory exceed the 227 KB a block can use")
         _SMEM_OK.add(shape)
-    out = torch.empty((Q, D), dtype=dt, device=dev)
+    out = torch.empty((*lead, Q, D), dtype=dt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_fused_block(
         _DTYPE_CODE[dt], x_dst.data_ptr(),
         0 if x_src is None else x_src.data_ptr(), r.data_ptr(),
-        mask.data_ptr(), ctypes.addressof(pack.ptrs), out.data_ptr(), Q, K,
-        D, num_heads, Hd, per_query, stream)
+        mask.data_ptr(), ctypes.addressof(pack.ptrs), out.data_ptr(),
+        lead[0] if lead else 1, Q, K, D, num_heads, Hd, per_query, stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError "
                            f"{err}")

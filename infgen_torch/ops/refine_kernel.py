@@ -15,7 +15,9 @@ csrc/refine.cu, whose header states its bound and design).
   refine_kernel       the wrapper: launches the kernel on CUDA tensors, takes
                       the plain version for CPU tensors, raises otherwise;
                       optionally also returns x after every sublayer (a
-                      stage-wise check reads it)
+                      stage-wise check reads it). Both take a leading lane
+                      axis (a batched rollout's scenarios, one insert each)
+                      and a lane mask
 
 The inserted agent is row 0 of an R-row neighbourhood; only it attends. The
 other rows take the zero-aggregate closed form, which is the shared gated
@@ -280,19 +282,41 @@ def _sublayers(pack: RefinePack, x_sub, *args):
     return xs[1:]
 
 
+def _lanes_of(pack: RefinePack, x_sub, args, lanes, trace: bool):
+    """The plain pass of each lane ([B, R, ...] inputs): (head [B, angle],
+    offset [B, 2]) and with `trace` [B, 2L, R, D]; a lane that `lanes`
+    switches off gives zeros, as the kernel's masked-off clusters do."""
+    B = x_sub.shape[0]
+    on = [True] * B if lanes is None else lanes.tolist()
+    outs = []
+    for b in range(B):
+        xs = _sublayers(pack, x_sub[b], *(a[b] for a in args[:5]), *args[5:])
+        out = (*refine_heads(pack, xs[-1][0]), torch.stack(xs))
+        outs.append(out if on[b] else tuple(torch.zeros_like(t)
+                                            for t in out))
+    stacked = tuple(torch.stack(parts) for parts in zip(*outs))
+    return stacked if trace else stacked[:2]
+
+
 def refine_reference(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
-                     mask_a, num_heads: int, head_dim: int
+                     mask_a, num_heads: int, head_dim: int, lanes=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch refine pass, the kernel's math: matmul inputs rounded
     to the compute dtype, products and sums in fp32; fp32 LayerNorm (eps
-    1e-6) and softmax; an all-masked key set aggregates to zero."""
-    x = _sublayers(pack, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a,
-                   num_heads, head_dim)[-1]
+    1e-6) and softmax; an all-masked key set aggregates to zero. With a
+    lane axis (every input [B, R, ...]) each lane is evaluated as a call of
+    its own would evaluate it, into head [B, angle] and offset [B, 2]; a
+    lane that `lanes` [B] bool switches off gives zeros."""
+    args = (pl_keys, r_pl, mask_pl, r_aa, mask_a, num_heads, head_dim)
+    if x_sub.dim() == 3:
+        return _lanes_of(pack, x_sub, args, lanes, False)
+    x = _sublayers(pack, x_sub, *args)[-1]
     return refine_heads(pack, x[0])
 
 
 def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
-                  mask_a, num_heads: int, head_dim: int, trace: bool = False):
+                  mask_a, num_heads: int, head_dim: int, trace: bool = False,
+                  lanes=None):
     """One refine pass. x_sub [R, D] fp32 (row 0 the inserted agent, rows
     past the real neighbourhood zero); pl_keys / r_pl [R, D] (map key k
     and its relation), r_aa [R, D] (agent key row k's relation; rows 0 and
@@ -303,10 +327,20 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     csrc/refine.cu on the current stream (counted in
     `refine_kernel.launches`); CPU tensors take the plain version
     (refine_reference). The kernel takes the widths of kernel_accepts;
-    others raise."""
+    others raise.
+
+    Lanes: every input [B, R, ...] refines every lane's insert in one
+    launch, one cluster per lane, into head [B, angle_size], offset [B, 2]
+    (and trace [B, 2L, R, D]); `lanes` [B] bool switches lanes off (their
+    outputs are zeros). One launch counts once, whatever B."""
     dev = x_sub.device
+    batched = x_sub.dim() == 3
+    if lanes is not None and not batched:
+        raise ValueError("refine_kernel: a lane mask needs a lane axis")
     if dev.type == "cpu":
         args = (pl_keys, r_pl, mask_pl, r_aa, mask_a, num_heads, head_dim)
+        if batched:
+            return _lanes_of(pack, x_sub, args, lanes, trace)
         if not trace:
             return refine_reference(pack, x_sub, *args)
         xs = _sublayers(pack, x_sub, *args)
@@ -314,17 +348,20 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     if dev.type != "cuda":
         raise ValueError(f"refine_kernel: unsupported device {dev}")
     D, cdt = pack.D, pack.dtype
-    R = x_sub.shape[0]
+    lead = tuple(x_sub.shape[:1]) if batched else ()
+    R = x_sub.shape[-2]
     if not kernel_accepts(cdt, D, num_heads, head_dim, R):
         raise ValueError(
             "refine_kernel takes fp32 or bf16, 2 to 8 heads of 16 columns "
             f"(num_heads * head_dim == D) and at most 32 rows, got {cdt}, "
             f"D={D}, {num_heads} heads of {head_dim}, {R} rows")
-    _check("x_sub", x_sub, torch.float32, (R, D), dev)
+    _check("x_sub", x_sub, torch.float32, (*lead, R, D), dev)
     for name, t in (("pl_keys", pl_keys), ("r_pl", r_pl), ("r_aa", r_aa)):
-        _check(name, t, cdt, (R, D), dev)
-    _check("mask_pl", mask_pl, torch.bool, (R,), dev)
-    _check("mask_a", mask_a, torch.bool, (R,), dev)
+        _check(name, t, cdt, (*lead, R, D), dev)
+    _check("mask_pl", mask_pl, torch.bool, (*lead, R), dev)
+    _check("mask_a", mask_a, torch.bool, (*lead, R), dev)
+    if lanes is not None:
+        _check("lanes", lanes, torch.bool, lead, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
     lay = tile_layout(pack.L, D, pack.angle_size, cdt)
     _check("tiles", pack.tiles, cdt, (lay["kc"], lay["stages"], lay["slot"]),
@@ -338,16 +375,18 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
                              "exceed the 227 KB a block can use")
         _SMEM_OK.add(shape)
     f32 = dict(dtype=torch.float32, device=dev)
-    head = torch.empty((pack.angle_size,), **f32)
-    off = torch.empty((2,), **f32)
-    tr = torch.zeros((2 * pack.L, R, D), **f32) if trace else None
+    head = torch.empty((*lead, pack.angle_size), **f32)
+    off = torch.empty((*lead, 2), **f32)
+    tr = torch.zeros((*lead, 2 * pack.L, R, D), **f32) if trace else None
     err = library().infgen_refine(
         _DTYPE_CODE[cdt], x_sub.data_ptr(), pl_keys.data_ptr(),
         r_pl.data_ptr(), mask_pl.data_ptr(), r_aa.data_ptr(),
         mask_a.data_ptr(), ctypes.addressof(pack.ptrs),
         pack.tiles.data_ptr(), head.data_ptr(), off.data_ptr(),
-        0 if tr is None else tr.data_ptr(), pack.L, R, D, num_heads,
-        head_dim, pack.angle_size, torch.cuda.current_stream(dev).cuda_stream)
+        0 if tr is None else tr.data_ptr(),
+        0 if lanes is None else lanes.data_ptr(), lead[0] if lead else 1,
+        pack.L, R, D, num_heads, head_dim, pack.angle_size,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"refine kernel launch failed: cudaError {err}")
     refine_kernel.launches += 1

@@ -17,7 +17,7 @@ csrc/seed_eval_full.cu, whose headers state their bounds and designs).
                      occupancy MLP (fp32) and occ2sa values, the map K/V
                      (rollout-invariant k0 / v0 plus the geometry terms) and
                      the agent rows' zero-aggregate key chain and K/V, all
-                     from raw inputs
+                     from raw inputs; with the same lane axis and lane mask
 
 Outputs: small [3, 4] fp32 (rows state / type / shape; leading 2 / 3 / 3
 columns meaningful) and pos [G] fp32 grid-cell logits. The TPU version's
@@ -434,12 +434,13 @@ def pack_seed_params_full(decoder, L: int, grid_size: int,
         {**w, **v}, mats + vecs, (0 if tiles is None else tiles.data_ptr(),)))
 
 
-def _zero_agg(pack: SeedPack, x, j):
+def _zero_agg(pack: SeedPack, x, j, rnd):
     """Sublayer j of the seed stack on rows with no incident edge
-    (agg == 0): the key chain's step. fp32 residual carrier."""
-    f32, cdt = torch.float32, pack.dtype
+    (agg == 0): the key chain's step. fp32 residual carrier; `rnd` rounds
+    each matmul input."""
+    f32 = torch.float32
     w, v, D = pack.w, pack.v, pack.D
-    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
+    mm = lambda a, m: rnd(a) @ m.to(f32)
     dst_n = _ln(x, v["lnq_s"][j], v["lnq_b"][j])
     g = torch.sigmoid(mm(dst_n, w["wg"][j][D:]) + v["bg"][j])
     agg = g * (mm(dst_n, w["ws"][j]) + v["bs"][j])
@@ -452,14 +453,17 @@ def _zero_agg(pack: SeedPack, x, j):
 
 
 def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
-                              r_sa, occ):
+                              r_sa, occ, round_operand=None):
     """The per-step precompute of the full kernel, in plain PyTorch:
     (v_occ [L, D], K_pt, V_pt [L, P, D], K_a, V_a [L, A, D]), all fp32 and
     never rounded to the compute dtype (map K/V = k0 + the geometry term in
-    fp32, unlike the non-full path, which rounds the sum)."""
+    fp32, unlike the non-full path, which rounds the sum).
+    `round_operand(x)` replaces the rounding of each matmul input, in call
+    order, as in seed_eval_reference."""
     f32, cdt = torch.float32, pack.dtype
     w, v = pack.w, pack.v
-    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
+    rnd = round_operand or (lambda x: x.to(cdt).to(f32))
+    mm = lambda a, m: rnd(a) @ m.to(f32)
     L = pack.base.L
 
     h = occ.to(f32) @ v["oe_w0"] + v["oe_b0"]
@@ -481,7 +485,7 @@ def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
     K_a, V_a = [], []
     for i in range(L):
         for s in (0, 1):                                  # occ2sa, pt2sa
-            ag = _zero_agg(pack.base, ag, 3 * i + s)
+            ag = _zero_agg(pack.base, ag, 3 * i + s, rnd)
         # this layer's a2sa reads the chain before its own zero-agg step
         src_n = _ln(ag, v["ka_lns_s"][i], v["ka_lns_b"][i])
         rn = _ln(rsa, v["sar_lnr_s"][i], v["sar_lnr_b"][i])
@@ -489,16 +493,45 @@ def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
         V_a.append(mm(src_n, w["ka_wv"][i]) + v["ka_bv"][i]
                    + mm(rn, w["sar_wvr"][i]) + v["sar_bvr"][i])
         if i + 1 < L:               # the last layer's step is never read
-            ag = _zero_agg(pack.base, ag, 3 * i + 2)
+            ag = _zero_agg(pack.base, ag, 3 * i + 2, rnd)
     return (v_occ, torch.stack(K_pt), torch.stack(V_pt), torch.stack(K_a),
             torch.stack(V_a))
 
 
+def _full_lanes(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl, agent_col,
+                r_sa, mask_a, occ, num_heads: int, head_dim: int, lanes):
+    """The plain full evaluation of each lane ([B, ...] inputs, sd0 shared):
+    (small [B, 3, 4], pos [B, G], the precompute's five arrays [B, ...]),
+    a lane that `lanes` switches off all zeros, as the kernel's masked-off
+    lanes give (their precompute is never read)."""
+    B = k0.shape[0]
+    on = [True] * B if lanes is None else lanes.tolist()
+    outs = []
+    for b in range(B):
+        pre = seed_eval_full_precompute(pack, k0[b], v0[b], r_pl[b],
+                                        agent_col[b], r_sa[b], occ[b])
+        out = seed_eval_reference(pack.base, sd0, pre[0], pre[1], pre[2],
+                                  mask_pl[b], pre[3], pre[4], mask_a[b],
+                                  num_heads, head_dim)
+        if not on[b]:
+            out = tuple(torch.zeros_like(t) for t in out)
+            pre = tuple(torch.zeros_like(t) for t in pre)
+        outs.append((*out, *pre))
+    stacked = [torch.stack(parts) for parts in zip(*outs)]
+    return stacked[0], stacked[1], tuple(stacked[2:])
+
+
 def seed_eval_full_reference(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
                              agent_col, r_sa, mask_a, occ, num_heads: int,
-                             head_dim: int):
+                             head_dim: int, lanes=None):
     """Plain-PyTorch full evaluation: the precompute, then the stack and
-    heads of seed_eval_reference on its fp32 results."""
+    heads of seed_eval_reference on its fp32 results. With a lane axis
+    (k0 / v0 [B, L, P, D], the other inputs but sd0 [B, ...]) each lane as
+    its own call evaluates it, into small [B, 3, 4] and pos [B, G]; a lane
+    that `lanes` [B] bool switches off gives zeros."""
+    if k0.dim() == 4:
+        return _full_lanes(pack, sd0, k0, v0, r_pl, mask_pl, agent_col,
+                           r_sa, mask_a, occ, num_heads, head_dim, lanes)[:2]
     v_occ, K_pt, V_pt, K_a, V_a = seed_eval_full_precompute(
         pack, k0, v0, r_pl, agent_col, r_sa, occ)
     return seed_eval_reference(pack.base, sd0, v_occ, K_pt, V_pt, mask_pl,
@@ -507,7 +540,8 @@ def seed_eval_full_reference(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
 
 def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
                           agent_col, r_sa, mask_a, occ, num_heads: int,
-                          head_dim: int, return_precompute: bool = False):
+                          head_dim: int, return_precompute: bool = False,
+                          lanes=None):
     """One full seed evaluation from raw inputs. sd0 [D] fp32; k0 / v0
     [L, P, D] (the rollout-invariant x_pt projections), r_pl [P, D] (map
     geometry embedding), agent_col [A, D] (the raw feature column) and r_sa
@@ -521,9 +555,25 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     computed by the kernel) come back as a third output, so that the two
     stages can be checked one at a time. The kernel takes D <= 512
     divisible by 32 in fp32, and only D = 64 or 128 in bf16 (its
-    tensor-core tiles)."""
+    tensor-core tiles).
+
+    Lanes: every input but sd0 with a leading lane axis B (k0 / v0
+    [B, L, P, D], r_pl [B, P, D], agent_col / r_sa [B, A, D], masks [B, P]
+    / [B, A], occ [B, G]) evaluates every lane in one call (one precompute
+    launch over all lanes' tiles, one stack cluster per lane) into small
+    [B, 3, 4] and pos [B, G]; `lanes` [B] bool switches lanes off (their
+    outputs are zeros). One call counts once, whatever B."""
     dev = sd0.device
+    batched = k0.dim() == 4
+    if lanes is not None and not batched:
+        raise ValueError("seed_eval_full_kernel: a lane mask needs a lane "
+                         "axis")
     if dev.type == "cpu":
+        if batched:
+            small, pos, pre = _full_lanes(pack, sd0, k0, v0, r_pl, mask_pl,
+                                          agent_col, r_sa, mask_a, occ,
+                                          num_heads, head_dim, lanes)
+            return (small, pos, pre) if return_precompute else (small, pos)
         pre = seed_eval_full_precompute(pack, k0, v0, r_pl, agent_col, r_sa,
                                         occ)
         out = seed_eval_reference(pack.base, sd0, pre[0], pre[1], pre[2],
@@ -534,7 +584,8 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
         raise ValueError(f"seed_eval_full_kernel: unsupported device {dev}")
     base = pack.base
     L, D, G = base.L, base.D, base.G
-    P, A = k0.shape[1], agent_col.shape[0]
+    lead = tuple(k0.shape[:1]) if batched else ()
+    P, A = k0.shape[-2], agent_col.shape[-2]
     cdt = pack.dtype
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"seed_eval_full_kernel: compute dtype {cdt} "
@@ -543,14 +594,16 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
         raise ValueError("seed_eval_full_kernel needs num_heads * head_dim "
                          "== D <= 512")
     _check("sd0", sd0, torch.float32, (D,), dev)
-    _check("k0", k0, cdt, (L, P, D), dev)
-    _check("v0", v0, cdt, (L, P, D), dev)
-    _check("r_pl", r_pl, cdt, (P, D), dev)
-    _check("mask_pl", mask_pl, torch.bool, (P,), dev)
-    _check("agent_col", agent_col, cdt, (A, D), dev)
-    _check("r_sa", r_sa, cdt, (A, D), dev)
-    _check("mask_a", mask_a, torch.bool, (A,), dev)
-    _check("occ", occ, torch.bool, (G,), dev)
+    _check("k0", k0, cdt, (*lead, L, P, D), dev)
+    _check("v0", v0, cdt, (*lead, L, P, D), dev)
+    _check("r_pl", r_pl, cdt, (*lead, P, D), dev)
+    _check("mask_pl", mask_pl, torch.bool, (*lead, P), dev)
+    _check("agent_col", agent_col, cdt, (*lead, A, D), dev)
+    _check("r_sa", r_sa, cdt, (*lead, A, D), dev)
+    _check("mask_a", mask_a, torch.bool, (*lead, A), dev)
+    _check("occ", occ, torch.bool, (*lead, G), dev)
+    if lanes is not None:
+        _check("lanes", lanes, torch.bool, lead, dev)
     for name, t, dt in (("weights", base.weights, cdt),
                         ("vectors", base.vectors, torch.float32),
                         ("full weights", pack.weights, cdt),
@@ -575,7 +628,7 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
         _FULL_SMEM_OK.add(shape)
     small, pos, pre = seed_eval_full_launch(
         pack, sd0, k0, v0, r_pl, mask_pl, agent_col, r_sa, mask_a, occ,
-        num_heads, head_dim)
+        num_heads, head_dim, lanes=lanes)
     seed_eval_full_kernel.launches += 1
     if return_precompute:
         return small, pos, pre
@@ -584,26 +637,33 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
 
 def seed_eval_full_launch(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
                           agent_col, r_sa, mask_a, occ, num_heads: int,
-                          head_dim: int, stages: int = 3, pre=None):
+                          head_dim: int, stages: int = 3, pre=None,
+                          lanes=None):
     """Launch csrc/seed_eval_full.cu on CUDA tensors that
     seed_eval_full_kernel has checked, without counting: stages 1 runs the
     precompute, 2 the stack on `pre` (a previous call's precompute), 3 both.
-    Returns (small, pos, pre); a stage-wise timing uses it directly."""
+    Returns (small, pos, pre); a stage-wise timing uses it directly. With a
+    lane axis every array carries it, the scratch too, and `lanes`
+    switches lanes off."""
     from infgen_torch.ops.build import library
     lib = library()
     base = pack.base
     L, D, G = base.L, base.D, base.G
-    P, A = k0.shape[1], agent_col.shape[0]
+    lead = tuple(k0.shape[:1]) if k0.dim() == 4 else ()
+    P, A = k0.shape[-2], agent_col.shape[-2]
     dev = sd0.device
     f32 = dict(dtype=torch.float32, device=dev)
     if pre is None:
         # fp32 precompute results, written by the first kernel, read by the
-        # second; rows of masked keys are left unwritten and never read
-        pre = (torch.empty((L, D), **f32), torch.empty((L, P, D), **f32),
-               torch.empty((L, P, D), **f32), torch.empty((L, A, D), **f32),
-               torch.empty((L, A, D), **f32))
-    small = torch.empty((3, SMALL_COLS), **f32)
-    pos = torch.empty((G,), **f32)
+        # second; rows of masked keys (and masked-off lanes) are left
+        # unwritten and never read
+        pre = (torch.empty((*lead, L, D), **f32),
+               torch.empty((*lead, L, P, D), **f32),
+               torch.empty((*lead, L, P, D), **f32),
+               torch.empty((*lead, L, A, D), **f32),
+               torch.empty((*lead, L, A, D), **f32))
+    small = torch.empty((*lead, 3, SMALL_COLS), **f32)
+    pos = torch.empty((*lead, G), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_seed_eval_full(
         _DTYPE_CODE[pack.dtype], sd0.data_ptr(), k0.data_ptr(),
@@ -611,8 +671,9 @@ def seed_eval_full_launch(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
         agent_col.data_ptr(), r_sa.data_ptr(), mask_a.data_ptr(),
         occ.data_ptr(), base.weights.data_ptr(), base.vectors.data_ptr(),
         ctypes.addressof(pack.ptrs), *(t.data_ptr() for t in pre),
-        small.data_ptr(), pos.data_ptr(), L, P, A, D, num_heads, head_dim, G,
-        stages, stream)
+        small.data_ptr(), pos.data_ptr(),
+        0 if lanes is None else lanes.data_ptr(), lead[0] if lead else 1, L,
+        P, A, D, num_heads, head_dim, G, stages, stream)
     if err != 0:
         raise RuntimeError(f"seed_eval_full kernel launch failed: cudaError "
                            f"{err}")

@@ -18,9 +18,10 @@ generator of its own. A single scenario is one lane, the axis squeezed on
 output. Per lane the result is the single rollout's of that scenario with
 that generator. The insertion loop runs while any lane runs; a stopped
 lane is frozen by the select of the fixed-trip form, and only running lanes
-draw. The column kernel, the full seed kernel, the refine kernel and the
-fused blocks take one scenario's rows: under those flags a rollout of more
-than one lane raises.
+draw. The seed kernels, the refine kernel and the fused blocks take every
+lane in one launch (the seed and refine kernels skip the lanes that stopped
+or do not insert); the column kernel takes one scenario's rows: under its
+flag a rollout of more than one lane raises.
 
 The big rollout state (`RolloutCarry`) is updated in place, column by
 column; the small per-step insertion state is rebuilt functionally, so that
@@ -94,8 +95,7 @@ REFINE_A2SA_K = 24   # reference max_num_neighbors=24
 REFINE_PL2SA_K = 32  # 10 m radius holds far fewer map tokens
 # the flags whose kernels take one scenario's rows: a rollout of more than
 # one lane refuses them
-ONE_LANE_FLAGS = ("use_column_kernel", "use_seed_kernel_full",
-                  "use_refine_kernel", "use_fused_block")
+ONE_LANE_FLAGS = ("use_column_kernel",)
 
 
 class RolloutCarry(NamedTuple):
@@ -179,8 +179,9 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     it. With a list of generators, one per lane, `scenario` and `inputs`
     are stacked along a leading lane axis (data.scenario.stack_scenarios,
     data.features.build_model_inputs_batch) and every output gains it. A
-    rollout of more than one lane under one of ONE_LANE_FLAGS raises
-    ValueError. force_insert=True makes every insertion iteration propose
+    rollout of more than one lane under one of ONE_LANE_FLAGS (the column
+    kernel's) raises ValueError; every other kernel takes the lanes in one
+    launch per call. force_insert=True makes every insertion iteration propose
     an agent whatever the seed-state head says (bounds the trained-model
     insertion cost for benchmarking). The returned function counts its
     host reads in `rollout.host_reads` (reset at each call).
@@ -622,15 +623,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             list (only they draw); None: every lane."""
             occ_vec = fast["occ_vec"]
             if use_sknf:
-                # precompute + stack + heads from raw inputs, one call (one
-                # lane)
+                # precompute + stack + heads of every lane from raw inputs,
+                # one call
                 small, posl = SKN.seed_eval_full_kernel(
-                    seed["pack"], seed["vec"].to(f32), seed["k0"][0],
-                    seed["v0"][0], r_pl_emb[0], pl_mask[0],
-                    fast["agent_col"][0], fast["r_sa"][0],
-                    fast["a2sa_mask"][0], occ_vec[0], cfg.num_heads,
-                    cfg.head_dim)
-                small, posl = small[None], posl[None]
+                    seed["pack"], seed["vec"].to(f32), seed["k0"],
+                    seed["v0"], r_pl_emb, pl_mask, fast["agent_col"],
+                    fast["r_sa"], fast["a2sa_mask"], occ_vec, cfg.num_heads,
+                    cfg.head_dim, lanes=run)
             elif use_skn:
                 # the whole stack + heads of every lane in one CUDA kernel
                 small, posl = SKN.seed_eval_kernel(
@@ -720,7 +719,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             slim, recs, new_feat, ins_pos, ins_head = _do_insert(
                 slim, recs, n_new, slot, do_insert, prop["next_pos"],
                 prop["g_idx"], prop["type_idx"], prop["shape"], ego_pos,
-                ego_head, cand, tables, seed)
+                ego_head, cand, tables, seed, run)
 
             # ---- patch the inserted row into the fast-eval state ----
             rel = ins_pos - ego_pos
@@ -849,10 +848,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
     def _do_insert(slim, recs, n_new, slot, do_insert, next_pos, g_idx,
                    type_idx, shape_pred, ego_pos, ego_head, cand, tables,
-                   seed):
+                   seed, run=None):
         """Refine + record one insertion per lane against the column-c loop
         state; every write is masked by `do_insert`. Full-carry row writes
-        are deferred to `_apply_inserts` after the loop."""
+        are deferred to `_apply_inserts` after the loop. run: the lanes
+        still running (None: every lane); the refine kernel skips the
+        lanes that do not insert."""
+        B = slot.shape[0]
         onehot = torch.arange(A, device=device) == slot[:, None]   # [B, A]
         m1 = onehot & do_insert[:, None]
 
@@ -892,24 +894,26 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                           1)
         pl_x = _rows(cand["x"], idx_p)
         if use_refk:
-            # the whole refine pass in one kernel (one lane) on a padded
-            # 32-row neighbourhood: row 0 the insert, rows 1..24 its agent
-            # keys (their relations there, zero rows past them, all masked
-            # but the real ones); map key k and its relation in row k
+            # the whole refine pass of every inserting lane in one kernel
+            # launch on a padded 32-row neighbourhood per lane: row 0 the
+            # insert, rows 1..24 its agent keys (their relations there,
+            # zero rows past them, all masked but the real ones); map key k
+            # and its relation in row k. Built on the device: no host read
             R_, Ka = REFINE_PL2SA_K, idx_a.shape[1]
             rdt = seed["refine_pack"].dtype
-            x_pad = torch.zeros((R_, D), device=device)
-            x_pad[:1 + Ka] = x_sub[0]
-            raa_pad = torch.zeros((R_, D), dtype=rdt, device=device)
-            raa_pad[1:1 + Ka] = dec.embed_a2a_r(r_aa[0])
-            ma_pad = torch.zeros(R_, dtype=torch.bool, device=device)
-            ma_pad[1:1 + Ka] = val_a[0]
+            x_pad = torch.zeros((B, R_, D), device=device)
+            x_pad[:, :1 + Ka] = x_sub
+            raa_pad = torch.zeros((B, R_, D), dtype=rdt, device=device)
+            raa_pad[:, 1:1 + Ka] = dec.embed_a2a_r(r_aa)
+            ma_pad = torch.zeros((B, R_), dtype=torch.bool, device=device)
+            ma_pad[:, 1:1 + Ka] = val_a
             head_logits, off = RFK.refine_kernel(
-                seed["refine_pack"], x_pad, pl_x[0],
-                dec.embed_pl2a_r(r_pp[0]), val_p[0], raa_pad, ma_pad,
-                cfg.num_heads, cfg.head_dim)
-            heads = dict(head_logits=head_logits[None],
-                         offset_xy=torch.tanh(off)[None] * 2.0)
+                seed["refine_pack"], x_pad, pl_x.contiguous(),
+                dec.embed_pl2a_r(r_pp).contiguous(), val_p.contiguous(),
+                raa_pad, ma_pad, cfg.num_heads, cfg.head_dim,
+                lanes=do_insert if run is None else do_insert & run)
+            heads = dict(head_logits=head_logits,
+                         offset_xy=torch.tanh(off) * 2.0)
         else:
             refined = dec.refine_column_sub(x_sub, pl_x, r_pp, val_p, r_aa,
                                             val_a)

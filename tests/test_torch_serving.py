@@ -19,11 +19,24 @@ and the rollout's lane axis, on the CPU.
 - `seed_eval_reference` over lanes against the unbatched one lane by lane
   (masked-off lanes give zeros), and one case against `jax.vmap` of the
   JAX package's Pallas `seed_eval_kernel` in interpret mode.
-- The one-lane kernel flags refuse a rollout of more than one lane.
+- The same for the lane forms of `seed_eval_full`, `refine` and
+  `fused_attention_block`: each plain twin over lanes against the
+  unbatched twin lane by lane, and each against `jax.vmap` of the JAX
+  package's Pallas kernel in interpret mode, within that kernel's port
+  test's tolerance.
+- Under each of those three flags, each lane of a batched rollout gives its
+  single rollout's decisions bitwise and its poses within LANE_POSE_TOL,
+  with the host reads of the rollout with the flag off; a two-scenario
+  fleet through the chunked stream runner under all three gives each
+  scenario's own stream; and a two-lane rollout under all three equals
+  `jax.jit(jax.vmap(...))` of the JAX package's rollout (PARITY.md's
+  protocol; the JAX side compiles in a thread of its module fixture while
+  the port-only tests run). The column kernel's flag still refuses lanes.
 """
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -32,30 +45,42 @@ import pytest
 import torch
 
 from infgen_tpu.config import Config as JConfig
+from infgen_tpu.data.features import build_model_inputs as j_build_inputs
 from infgen_tpu.data.synthetic import make_synthetic_scenario as j_synthetic
 from infgen_tpu.model.agent_decoder import AgentDecoder as JDecoder
+from infgen_tpu.model.infgen import InfGenModel as JModel
+from infgen_tpu.ops import refine_kernel as JRK
 from infgen_tpu.ops import seed_fast as JSF
 from infgen_tpu.ops import seed_kernel as JSK
+from infgen_tpu.ops.fused_block import fused_attention_block as j_fused
 from infgen_tpu.rollout import serving as JS
+from infgen_tpu.rollout.closed_loop import make_rollout_fn as j_rollout_fn
 from infgen_tpu.tokenizers.attr_tokenizer import AttrTokenizer as JAttr
 from infgen_tpu.tokenizers.motion_tokenizer import MotionTokenizer as JMotion
 from infgen_tpu.tokenizers.vocab import load_map_vocab as j_map_vocab
 
 from infgen_torch import cli
 from infgen_torch.config import Config
+from infgen_torch.convert import load_flax_params
 from infgen_torch.data import scenario as S
 from infgen_torch.data.features import (build_model_inputs,
                                         build_model_inputs_batch)
 from infgen_torch.data.synthetic import make_synthetic_scenario
-from infgen_torch.model.layers import Dense, Embed, LayerNorm
+from infgen_torch.model.layers import Dense, DenseAttention, Embed, LayerNorm
+from infgen_torch.ops import fused_block as FB
+from infgen_torch.ops import refine_kernel as RK
 from infgen_torch.ops import seed_fast as SF
 from infgen_torch.ops import seed_kernel as SK
 from infgen_torch.rollout import closed_loop as CL
+from infgen_torch.rollout import streaming as ST
 from infgen_torch.rollout.serving import (RolloutServer, compact_scenario,
                                           repad_scenario)
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 
+from test_torch_column_kernel import Layers, attention_tree, mlp_tree
 from test_torch_layers import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_rollout import CFG as ROLLOUT_CFG
+from test_torch_rollout import CLOSE, POSE_TOL
 
 
 TINY = dict(max_agents=16, max_map_tokens=128, num_agent_layers=2,
@@ -365,10 +390,11 @@ LANES = 3
 
 
 def _decoder_tree(dec, rng):
-    """Random weights for the port's agent decoder and the same weights as
-    a flax params tree (convert.py's names read backwards), without tracing
-    the JAX model: kernels ~ N(0, 1/fan_in), biases and embeddings
-    ~ N(0, 0.1^2), LayerNorm scales ~ 1 + N(0, 0.1^2)."""
+    """Random weights for a port module (the agent decoder, or the whole
+    InfGenModel) and the same weights as a flax params tree (convert.py's
+    names read backwards), without tracing the JAX model: kernels
+    ~ N(0, 1/fan_in), biases and embeddings ~ N(0, 0.1^2), LayerNorm
+    scales ~ 1 + N(0, 0.1^2)."""
     tree = {}
     with torch.no_grad():
         for name, prm in sorted(dec.named_parameters()):
@@ -538,11 +564,364 @@ def test_seed_eval_lanes_match_jax_vmap(seed_setup):
 
 
 # --------------------------------------------------------------------- #
-# refused lanes, the command line
+# the lane forms of seed_eval_full, refine and fused_attention_block
 # --------------------------------------------------------------------- #
+
+LANE_MASK = (True, False, True)          # lane 1 switched off
+FULL_L = 1          # seed_eval_full lanes: the first seed layer of the tree
+REF_L, REF_R, REF_KA, REF_AH = 1, 32, 24, 120   # refine lanes: layers, rows
+FUSED_QK = {"per_query": (9, 5), "shared": (9, 7), "self": (9, 9)}
+D_F, H_F = 32, 2                         # the fused block's lane cases
+TOL_LANES = {"seed_eval_full": 1e-5, "refine": 2e-5,
+             "fused_attention_block": 2e-5}   # each kernel's port test's
+
+
+def _full_lane_args(s):
+    """seed_eval_full's lane inputs ([B, ...], sd0 apart) as the rollout
+    builds them: k0 / v0 of every lane's map features, the geometry
+    embeddings, the raw agent column, masks and occupancy rows."""
+    dec = s["model"].agent_decoder
+    t = lambda k: torch.as_tensor(np.stack([np.asarray(x[k])
+                                            for x in s["lanes"]]))
+    with torch.no_grad():
+        x_pt = t("x_pt")
+        kv = [SF.precompute_src_kv(dec.pt2sa_attn_layers[i], x_pt)
+              for i in range(FULL_L)]
+        return (torch.stack([k for k, _ in kv], 1),
+                torch.stack([v for _, v in kv], 1),
+                dec.embed_pl2sa_r(t("pl_r_raw")), t("pl_mask"),
+                t("agent_col"), dec.embed_a2sa_r(t("a2sa_r_raw")),
+                t("a2sa_mask"), t("occ_vec"))
+
+
+@pytest.fixture(scope="module")
+def refine_setup():
+    """The refine pass's flax subtrees (REF_L trunk layers and the two
+    heads), the port's layers loaded from them, and LANES lanes of padded
+    inputs (row 0 the insert, rows 1..24 its neighbours; lane 1 with every
+    agent key masked)."""
+    rng = np.random.default_rng(67)
+    specs = {}
+    for i in range(REF_L):
+        specs[f"pt2a_{i}"] = ("attn", True, True)
+        specs[f"a2a_{i}"] = ("attn", False, True)
+    specs["seed_heading_rel_token_predict_head"] = ("mlp", D_F, REF_AH)
+    specs["seed_offset_xy_predict_head"] = ("mlp", D_F, 2)
+    tree = {name: (attention_tree(rng, sp[1]) if sp[0] == "attn"
+                   else mlp_tree(rng, sp[1], sp[2]))
+            for name, sp in specs.items()}
+    R, Ka = REF_R, REF_KA
+    f = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    lanes = []
+    for b in range(LANES):
+        x = dict(x_sub=np.zeros((R, D_F), np.float32), pl_keys=f(R, D_F),
+                 r_pl=f(R, D_F), mask_pl=rng.uniform(size=R) < 0.7,
+                 r_aa=np.zeros((R, D_F), np.float32),
+                 mask_a=np.zeros(R, bool))
+        x["x_sub"][:1 + Ka] = f(1 + Ka, D_F)
+        x["r_aa"][1:1 + Ka] = f(Ka, D_F)
+        x["mask_a"][1:1 + Ka] = (rng.uniform(size=Ka) < 0.6) & (b != 1)
+        lanes.append(x)
+    return tree, Layers(tree, specs).eval(), lanes
+
+
+_REF_ARGS = ("x_sub", "pl_keys", "r_pl", "mask_pl", "r_aa", "mask_a")
+
+
+def _fused_lanes(mode):
+    """(flax subtree, port module, x [B, Q, D], x_src, r, mask) of a
+    fused-block lane case: LANES lanes of their own rows and keys, one
+    query row of lane 0 fully masked."""
+    rng = np.random.default_rng(83 + sorted(FUSED_QK).index(mode))
+    Q, K = FUSED_QK[mode]
+    bipartite = mode == "per_query"
+    tree = attention_tree(rng, bipartite)
+    mod = DenseAttention(D_F, H_F, D_F // H_F, bipartite=bipartite)
+    load_flax_params(mod, tree)
+    f = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    x, r = f(LANES, Q, D_F), f(LANES, Q, K, D_F)
+    mask = rng.uniform(size=(LANES, Q, K)) < 0.5
+    mask[0, 2] = False
+    src = {"per_query": (LANES, Q, K, D_F), "shared": (LANES, K, D_F)}.get(
+        mode)
+    return tree, mod.eval(), x, None if src is None else f(*src), r, mask
+
+
+@pytest.mark.parametrize("kernel", sorted(TOL_LANES))
+def test_lane_twins_match_single(seed_setup, refine_setup, kernel):
+    """Each lane of a kernel's lane form (its plain twin, through the
+    wrapper on CPU tensors: nothing launches) equals the unbatched twin on
+    that lane's inputs bit for bit; a lane switched off gives zeros. The
+    fused block (no lane mask) in each key mode: self-attention reads its
+    own lane's rows only."""
+    t = lambda a: None if a is None else torch.as_tensor(a)
+    on = torch.tensor(LANE_MASK)
+    before = (SK.seed_eval_full_kernel.launches, RK.refine_kernel.launches,
+              FB.fused_attention_block.launches)
+    with torch.no_grad():
+        if kernel == "seed_eval_full":
+            pack = SK.pack_seed_params_full(seed_setup["model"].agent_decoder,
+                                            FULL_L, seed_setup["G"])
+            sd0, args = t(seed_setup["sd0"]), _full_lane_args(seed_setup)
+            got = SK.seed_eval_full_kernel(pack, sd0, *args, H_, 16,
+                                           lanes=on)
+            want = [SK.seed_eval_full_reference(
+                pack, sd0, *(a[b] for a in args), H_, 16)
+                for b in range(LANES)]
+        elif kernel == "refine":
+            _, layers, lanes = refine_setup
+            pack = RK.pack_refine_params(layers, REF_L, REF_AH)
+            args = [t(np.stack([x[k] for x in lanes])) for k in _REF_ARGS]
+            got = RK.refine_kernel(pack, *args, H_F, 16, lanes=on)
+            want = [RK.refine_reference(pack, *(a[b] for a in args), H_F,
+                                        16) for b in range(LANES)]
+        else:
+            for mode in sorted(FUSED_QK):
+                _, mod, x, src, r, mask = _fused_lanes(mode)
+                pack = FB.pack_fused_block(mod)
+                out = FB.fused_attention_block(pack, t(x), t(src), t(r),
+                                               t(mask), H_F)
+                assert out.shape == x.shape
+                for b in range(LANES):
+                    one = FB.fused_attention_block_reference(
+                        pack, t(x[b]), None if src is None else t(src[b]),
+                        t(r[b]), t(mask[b]), H_F)
+                    assert torch.equal(out[b], one), (mode, b)
+            got = None
+    assert before == (SK.seed_eval_full_kernel.launches,
+                      RK.refine_kernel.launches,
+                      FB.fused_attention_block.launches)
+    if got is None:
+        return
+    for part in got:
+        assert part.shape[0] == LANES
+    for b in range(LANES):
+        if not LANE_MASK[b]:
+            assert not any(part[b].any() for part in got), b
+            continue
+        for part, ref in zip(got, want[b]):
+            assert torch.equal(part[b], ref), (kernel, b)
+
+
+def _jax_full_lanes(s):
+    """jax.vmap of the Pallas seed_eval_full_kernel (interpret mode) over
+    the lanes' raw inputs, jitted once."""
+    p, jdec, G = s["p"], s["jdec"], s["G"]
+    Gp = -(-G // 128) * 128
+    pack = JSK.pack_seed_params_full(p, FULL_L, G, jnp.float32)
+    sel = JSK.selector(D_, H_, 16)
+    sd0 = jnp.asarray(s["sd0"])[None]
+    lane = lambda m, n: jnp.broadcast_to(m[:, None], (n, D_)).astype(
+        jnp.float32)
+
+    def one(x):
+        def prep(mdl):
+            return (mdl.embed_pl2sa_r(x["pl_r_raw"]),
+                    mdl.embed_a2sa_r(x["a2sa_r_raw"]))
+        r_pl, r_sa = jdec.apply({"params": p}, method=prep)
+        kv = [JSF.precompute_src_kv(p[f"pt2sa_{i}"], x["x_pt"], None)
+              for i in range(FULL_L)]
+        occ = jnp.pad(x["occ_vec"].astype(jnp.float32), (0, Gp - G))[None]
+        return JSK.seed_eval_full_kernel(
+            pack, sd0, jnp.stack([k for k, _ in kv]),
+            jnp.stack([v for _, v in kv]), r_pl, lane(x["pl_mask"], P_),
+            x["agent_col"], r_sa, lane(x["a2sa_mask"], A_), occ, sel, H_, 16,
+            interpret=True)
+
+    xs = {k: jnp.stack([jnp.asarray(x[k]) for x in s["lanes"]])
+          for k in s["lanes"][0]}
+    small, pos = (np.asarray(a) for a in jax.jit(jax.vmap(one))(xs))
+    return [np.concatenate([small[b, 0, :2], small[b, 1, :3],
+                            small[b, 2, :3], pos[b, 0, :G]])
+            for b in range(LANES)]
+
+
+def _jax_refine_lanes(tree, lanes):
+    """jax.vmap of the Pallas refine_kernel (interpret mode) over lanes,
+    the [2, 128] output of each cut to its heading logits and offsets."""
+    R = REF_R
+    lane = lambda m: jnp.broadcast_to(m[:, None], (R, D_F)).astype(
+        jnp.float32)
+
+    def one(x):
+        return JRK.refine_kernel(
+            JRK.pack_refine_params(tree, REF_L, REF_AH, None), x["x_sub"],
+            x["pl_keys"], x["r_pl"], lane(x["mask_pl"]), x["r_aa"],
+            lane(x["mask_a"]), JRK.selector(D_F, H_F, 16), H_F, 16,
+            interpret=True)
+
+    xs = {k: jnp.stack([jnp.asarray(x[k]) for x in lanes]) for k in _REF_ARGS}
+    out = np.asarray(jax.jit(jax.vmap(one))(xs))
+    return [np.concatenate([out[b, 0, :REF_AH], out[b, 1, :2]])
+            for b in range(LANES)]
+
+
+@pytest.mark.parametrize("kernel", sorted(TOL_LANES))
+def test_lane_forms_match_jax_vmap(seed_setup, refine_setup, kernel):
+    """The lane form of each kernel (its plain twin) against jax.vmap of the
+    JAX package's Pallas kernel in interpret mode, on the same numpy
+    inputs and converted weights, fp32, lane by lane, within the tolerance
+    of the kernel's own port test (summation order only). The fused block
+    in self mode, whose keys are the lane's own rows (the rollout's other
+    calls gather keys per query row, where lanes are only more rows)."""
+    tol = TOL_LANES[kernel]
+    t = lambda a: None if a is None else torch.as_tensor(a)
+    if kernel == "seed_eval_full":
+        want = _jax_full_lanes(seed_setup)
+        pack = SK.pack_seed_params_full(seed_setup["model"].agent_decoder,
+                                        FULL_L, seed_setup["G"])
+        with torch.no_grad():
+            small, pos = SK.seed_eval_full_kernel(
+                pack, t(seed_setup["sd0"]), *_full_lane_args(seed_setup),
+                H_, 16)
+        got = [torch.cat([small[b, 0, :2], small[b, 1, :3], small[b, 2, :3],
+                          pos[b]]).numpy() for b in range(LANES)]
+    elif kernel == "refine":
+        tree, layers, lanes = refine_setup
+        want = _jax_refine_lanes(tree, lanes)
+        pack = RK.pack_refine_params(layers, REF_L, REF_AH)
+        with torch.no_grad():
+            head, off = RK.refine_kernel(
+                pack, *(t(np.stack([x[k] for x in lanes]))
+                        for k in _REF_ARGS), H_F, 16)
+        got = [torch.cat([head[b], off[b]]).numpy() for b in range(LANES)]
+    else:
+        tree, mod, x, _, r, mask = _fused_lanes("self")
+        fn = jax.jit(jax.vmap(lambda x_, r_, m_: j_fused(
+            tree, x_, None, r_, m_, H_F, interpret=True)))
+        want = list(np.asarray(fn(x, r, mask)))
+        with torch.no_grad():
+            got = list(FB.fused_attention_block(
+                FB.pack_fused_block(mod), t(x), None, t(r), t(mask),
+                H_F).numpy())
+    assert len(got) == len(want)
+    for b, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, atol=tol, rtol=0,
+                                   err_msg=f"{kernel} lane {b}")
+
+
+# --------------------------------------------------------------------- #
+# the three kernel flags over lanes
+# --------------------------------------------------------------------- #
+
+LANE_FLAGS = {"use_fused_block": dict(use_fused_block=True),
+              "use_seed_kernel_full": dict(use_seed_kernel_full=True),
+              "use_refine_kernel": dict(use_refine_kernel=True)}
+ALL_THREE = {k: v for f in LANE_FLAGS.values() for k, v in f.items()}
+# tests/test_torch_variant_rollouts.py's config (one agent and one seed
+# layer), 30 frames, forced insertion; the two lanes' scenarios
+ROLL = {**ROLLOUT_CFG, "num_agent_layers": 1, "num_seed_layers": 1,
+        "num_recurrent_steps_val": 30}
+ROLL_SCENS = ((2, 10), (3, 6))           # (seed, agents)
+ROLL_KEY = 0                             # the JAX input key
+
+
+def _jax_vmapped_rollout(params):
+    """The map uniforms of the JAX input key, and the JAX package's rollout
+    with the flax `params` under all three flags as jax.jit(jax.vmap) over
+    the two lanes (the JAX server's batched program), beam 1, forced
+    insertion."""
+    jcfg = JConfig(**ROLL, **ALL_THREE)
+    jattr = JAttr(jcfg.grid_range, jcfg.grid_interval, jcfg.pl2seed_radius,
+                  jcfg.angle_interval)
+    jmt, jmv = JMotion(), j_map_vocab()
+    key = jax.random.PRNGKey(ROLL_KEY)
+    uniforms = np.array(jax.random.uniform(jax.random.split(key)[0],
+                                           (jcfg.max_map_tokens,)))
+    jscens = [j_synthetic(jcfg, seed=s, num_agents=n) for s, n in ROLL_SCENS]
+    build = jax.jit(lambda sc, k: j_build_inputs(jcfg, jmt, jattr, sc, k))
+    stack = lambda trees: jax.tree.map(lambda *a: jnp.stack(a), *trees)
+    jfn = j_rollout_fn(JModel(jcfg, jattr.grid, jattr.grid_size,
+                              jattr.angle_size), jcfg, jattr, jmt, jmv,
+                       jit=False, force_insert=True)
+    keys = jax.random.split(jax.random.PRNGKey(7), len(ROLL_SCENS))
+    out = jax.device_get(jax.jit(jax.vmap(jfn, in_axes=(None, 0, 0, 0)))(
+        params, stack(jscens), stack([build(sc, key) for sc in jscens]),
+        keys))
+    return uniforms, out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_lanes_rollout():
+    """The port at ROLL under all three flags with random weights, and the
+    JAX side of test_lane_flags_rollout_matches_jax_vmap on the same
+    weights (its compile and run), started in a thread at the module's
+    first test and collected by that test, the last of the module."""
+    cfg = Config(**ROLL, **ALL_THREE)
+    tok = cli.build_tokenizers(cfg)
+    model = cli.build_model(cfg, tok[0], "cpu")
+    params = _decoder_tree(model, np.random.default_rng(0))
+    with ThreadPoolExecutor(1) as pool:
+        yield cfg, tok, model.eval(), pool.submit(_jax_vmapped_rollout,
+                                                  params)
+
+
+@pytest.fixture(scope="module")
+def stop_apart():
+    """test_forced_insertion_lanes_stop_apart's beam-1 setup (insert_limit
+    4, seed_eval) over 15 frames, lanes of 13 and 4 live agents: forced
+    insertion fills the first within a few iterations and the second only
+    when its budget runs out, so the kernels' lane masks switch the lanes
+    off at different iterations. With the batch's lanes and host reads
+    with every kernel flag but seed_eval's off."""
+    cfg = Config(**dict(TINY, insert_limit=4, num_recurrent_steps_val=15,
+                        use_seed_kernel=True))
+    tok = cli.build_tokenizers(cfg)
+    model = cli.build_model(cfg, tok[0], "cpu")
+    scens = [make_synthetic_scenario(cfg, seed=s, num_agents=n)
+             for s, n in ((5, 13), (7, 4))]
+    off, reads_off, _ = _lane_rollouts(cfg, tok, model, scens, {},
+                                       singles=False)
+    return cfg, tok, model, scens, off, reads_off
+
+
+def _lane_rollouts(cfg, tok, model, scens, flags, singles=True):
+    """(the lanes of a batched rollout of `scens` under `flags`, its host
+    reads, each scenario's single rollout or None), beam 1, forced
+    insertion, the inputs from generator seeds 40 + i."""
+    attr, mt, mv = tok
+    c = cfg.replace(**flags)
+    fn = CL.make_rollout_fn(model, c, attr, mt, mv, force_insert=True)
+    lanes = [S.to_device(sc, "cpu") for sc in scens]
+    inputs = [build_model_inputs(c, mt, attr, sd,
+                                 torch.Generator().manual_seed(40 + i))
+              for i, sd in enumerate(lanes)]
+    gens = lambda: [torch.Generator().manual_seed(50 + i)
+                    for i in range(len(lanes))]
+    out = fn(S.stack_scenarios(lanes), S.stack_scenarios(inputs), gens())
+    reads = fn.host_reads
+    if singles:
+        singles = [fn(sd, inp, g)
+                   for sd, inp, g in zip(lanes, inputs, gens())]
+    return ([{k: v[b] for k, v in out.items()} for b in range(len(lanes))],
+            reads, singles or None)
+
+
+@pytest.mark.parametrize("flag", sorted(LANE_FLAGS))
+def test_lane_flags_serve_lanes(stop_apart, flag):
+    """Under each of the three flags a two-lane rollout runs (their kernels
+    take lanes now) whose lanes stop inserting at different iterations:
+    each lane gives its single rollout's decisions bitwise and its poses
+    within LANE_POSE_TOL, and the batch reads the host as often as with
+    the flag off."""
+    cfg, tok, model, scens, off, reads_off = stop_apart
+    lanes, reads, singles = _lane_rollouts(cfg, tok, model, scens,
+                                           LANE_FLAGS[flag])
+    assert reads == reads_off
+    per_step = np.stack([lane["per_step_inserted"].numpy()
+                         for lane in lanes])
+    assert any(len(set(col)) > 1 for col in per_step.T), per_step
+    for lane, single, plain in zip(lanes, singles, off):
+        _same(lane, single, pose_tol=LANE_POSE_TOL["beam1"])
+        np.testing.assert_array_equal(lane["next_token_idx"].numpy(),
+                                      plain["next_token_idx"].numpy())
+
 
 @pytest.mark.parametrize("flag", CL.ONE_LANE_FLAGS)
 def test_one_lane_flags_refuse_lanes(tiny, flag):
+    """The column kernel's flag, the one left in ONE_LANE_FLAGS, refuses a
+    rollout of more than one lane."""
+    assert CL.ONE_LANE_FLAGS == ("use_column_kernel",)
     cfg, (attr, mt, mv), model = tiny
     c = cfg.replace(**{flag: True})
     fn = CL.make_rollout_fn(model, c, attr, mt, mv)
@@ -554,6 +933,75 @@ def test_one_lane_flags_refuse_lanes(tiny, flag):
     with pytest.raises(ValueError, match=flag):
         fn(batch, inputs, gens)
 
+
+def test_chunked_fleet_under_lane_flags(tiny):
+    """A fleet of two scenarios through make_chunked_stream_runner under
+    all three flags (one chunk of two segments, beam 1) gives in each lane
+    the scenario's own stream with the seed the runner gives that lane:
+    states and types bitwise, poses within LANE_POSE_TOL, the same agents
+    ever alive."""
+    cfg0, tok, model = tiny
+    cfg = cfg0.replace(insert_limit=2, insert_beam_size=1, **ALL_THREE)
+    Hs, P, seg = cfg.num_historical_steps, cfg.max_map_tokens, 10
+    scens = [make_synthetic_scenario(cfg, seed=s, num_agents=n)
+             for s, n in ((0, 6), (3, 9))]
+    runner = ST.make_chunked_stream_runner(cfg, *tok, segment_steps=seg)
+    outs, used = runner(model, scens, ((cfg.max_agents, 2),), 5)
+    assert used == [cfg.max_agents]
+    fn = ST.make_stream_fn(model, cfg, *tok, segment_steps=seg,
+                           n_segments=2)
+    ever = []
+    for i, sc in enumerate(scens):
+        own = fn(repad_scenario(compact_scenario(sc)[0], cfg.max_agents, P),
+                 ST.seed_of(5, 0, i))
+        want = ST.stitch_stream_outputs(own, Hs)
+        got = ST.stitch_stream_outputs(
+            {k: v[i] for k, v in outs[0].items() if k != "final_agents"}, Hs)
+        for k in ("state", "type"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k in ("traj", "head", "shape"):
+            np.testing.assert_allclose(got[k], want[k], rtol=0, err_msg=k,
+                                       atol=LANE_POSE_TOL["beam1"])
+        ever.append(want["state"].shape[0])
+    assert runner.agents_ever_alive == ever
+    assert sum(int(o["n_inserted"].sum()) for o in outs) > 0
+
+
+def test_lane_flags_rollout_matches_jax_vmap(jax_lanes_rollout):
+    """A two-lane rollout of the port under all three flags against
+    jax.jit(jax.vmap) of the JAX package's rollout under the same flags
+    (both sides' kernels as their plain versions: the Pallas kernels in
+    interpret mode, the port's twins), beam 1, fp32, forced insertion, the
+    same converted weights and map uniforms: per lane, token ids, state
+    ids, slot activity and insertion counts bitwise (PARITY.md), poses
+    within POSE_TOL."""
+    cfg, (attr, mt, mv), model, jax_side = jax_lanes_rollout
+    uniforms, jout = jax_side.result()
+    fn = CL.make_rollout_fn(model, cfg, attr, mt, mv, force_insert=True)
+    scens = [S.to_device(make_synthetic_scenario(cfg, seed=s, num_agents=n),
+                         "cpu") for s, n in ROLL_SCENS]
+    inputs = [build_model_inputs(cfg, mt, attr, sd,
+                                 pt_uniform=torch.as_tensor(uniforms))
+              for sd in scens]
+    out = fn(S.stack_scenarios(scens), S.stack_scenarios(inputs),
+             [torch.Generator().manual_seed(7 + i) for i in range(2)])
+    lanes = [{k: v[b] for k, v in out.items()} for b in range(2)]
+    for b, lane in enumerate(lanes):
+        assert set(lane) == set(jout)
+        for k in EXACT:
+            np.testing.assert_array_equal(lane[k].numpy(),
+                                          np.asarray(jout[k])[b],
+                                          err_msg=f"lane {b} {k}")
+        for k in CLOSE:
+            np.testing.assert_allclose(lane[k].numpy(),
+                                       np.asarray(jout[k])[b], atol=POSE_TOL,
+                                       rtol=0, err_msg=f"lane {b} {k}")
+        assert int(lane["n_inserted"]) > 0
+
+
+# --------------------------------------------------------------------- #
+# the command line
+# --------------------------------------------------------------------- #
 
 def test_cli_batched_rollout_on_cpu(capsys):
     """`rollout --batch B` serves the scenarios through rollout_batch and
