@@ -683,10 +683,11 @@ class NearTieRounder:
     `round_operand` hook), listing every operand that lies within `eps` bf16
     steps of a rounding midpoint, where a kernel summing in another order
     may round to the other neighbour; with `flip` = (call, index) it rounds
-    that one operand the other way."""
+    that one operand the other way, with `flips` each of those."""
 
-    def __init__(self, flip=None, eps=1e-3):
-        self.flip, self.eps, self.calls, self.sites = flip, eps, 0, []
+    def __init__(self, flip=None, eps=1e-3, flips=()):
+        self.flips = set(flips) | ({flip} if flip is not None else set())
+        self.eps, self.calls, self.sites = eps, 0, []
 
     def __call__(self, x):
         r = x.to(BF16).float()
@@ -700,9 +701,10 @@ class NearTieRounder:
             ~ok, float("inf"))
         for i in torch.nonzero(tie.reshape(-1) < self.eps).flatten().tolist():
             self.sites.append((self.calls, i, float(tie.reshape(-1)[i])))
-        if self.flip is not None and self.flip[0] == self.calls:
+        mine = [i for c, i in self.flips if c == self.calls]
+        if mine:
             r = r.reshape(-1).clone()
-            r[self.flip[1]] = other.reshape(-1)[self.flip[1]]
+            r[mine] = other.reshape(-1)[mine]
             r = r.reshape(x.shape)
         self.calls += 1
         return r
@@ -724,6 +726,35 @@ def explain_by_one_flip(plain, got, limit):
         if e <= limit:
             break
     return None if best is None else (*best, len(finder.sites))
+
+
+def diagnose_flips(plain, got, tries=16, eps=1e-3):
+    """What explains a kernel's output `got` that no one flip does: the one
+    or two near-tie flips (operands within `eps` bf16 steps of a midpoint)
+    that bring the plain version `plain(rounder)` closest to `got` in max
+    abs error, the first of the `tries` operands nearest a midpoint, the
+    second of the `tries` nearest once the first is flipped (a flip moves
+    every later operand). A diagnosis, never a hold: returns the (max,
+    mean) abs error before any flip and after the best flips, those flips
+    and the near-ties found."""
+    near = lambda rounder, made=(): sorted(
+        (t for t in rounder.sites if t[:2] not in made),
+        key=lambda t: t[2])[:tries]
+    err = lambda rounder: _err(got, plain(rounder), "flip diagnosis")
+    finder = NearTieRounder(eps=eps)
+    before = err(finder)
+    best = (before, ())
+    for first in near(finder):
+        one = NearTieRounder(eps=eps, flips={first[:2]})
+        best = min(best, (err(one), (first,)), key=lambda t: t[0][0])
+        for second in near(one, {first[:2]}):
+            two = NearTieRounder(eps=eps, flips={first[:2], second[:2]})
+            best = min(best, (err(two), (first, second)),
+                       key=lambda t: t[0][0])
+    return dict(errors=before, after_flips=best[0], near_ties=len(
+        finder.sites), flips=[dict(operand_call=c, operand_index=i,
+                                   bf16_steps_from_midpoint=d)
+                              for c, i, d in best[1]])
 
 
 def seed_eval_errors(pack, args, H, Hd, dtype, what):
@@ -943,17 +974,12 @@ def check_seed_eval_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
     return results
 
 
-def seed_full_stage_errors(pack, args, got, pre, H, Hd, dtype, what):
-    """(max, mean, one-flip explanation or None) abs error of one full
-    evaluation's two stages, the larger of each: the kernel's precompute
-    against the plain one over the rows it computes (the valid keys'), and
-    its output against the plain stack run on the kernel's own precompute
-    (the masked rows, which the kernel leaves unwritten, zeroed: their
-    weight is 0). The stack is seed_eval's cluster stack on fp32 K/V, so
-    its stage is held as seed_eval is (seed_errors_of): a bf16 case over
-    seed_eval's limits counts by its one-flip explanation, when one flipped
-    near-tie operand of the one-row chain gives the kernel's output within
-    seed_eval's fp32 limit."""
+def seed_full_stages(pack, args, pre, what):
+    """The two stages of one full evaluation: the (max, mean) abs error of
+    the kernel's precompute `pre` against the plain one over the rows it
+    computes (the valid keys'), and the arguments of the plain stack on the
+    kernel's own precompute (the masked rows, which the kernel leaves
+    unwritten, zeroed: their weight is 0)."""
     from infgen_torch.ops import seed_kernel as SK
 
     sd0, k0, v0, r_pl, mask_pl, col, r_sa, mask_a, occ = args
@@ -963,11 +989,50 @@ def seed_full_stage_errors(pack, args, got, pre, H, Hd, dtype, what):
         tuple([pre[0]] + [a[:, m] for a, m in zip(pre[1:], rows)]),
         tuple([twin[0]] + [b[:, m] for b, m in zip(twin[1:], rows)]), what)
     z = lambda t, m: t.masked_fill(~m[None, :, None], 0.0)
-    stack_args = (sd0, pre[0], z(pre[1], mask_pl), z(pre[2], mask_pl),
-                  mask_pl, z(pre[3], mask_a), z(pre[4], mask_a), mask_a)
+    return pre_err, (sd0, pre[0], z(pre[1], mask_pl), z(pre[2], mask_pl),
+                     mask_pl, z(pre[3], mask_a), z(pre[4], mask_a), mask_a)
+
+
+def seed_full_stage_errors(pack, args, got, pre, H, Hd, what):
+    """(max, mean) abs error of one full evaluation's two stages, the larger
+    of each: the precompute's and the output's against the plain stack run
+    on the kernel's own precompute (seed_full_stages)."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    pre_err, stack_args = seed_full_stages(pack, args, pre, what)
+    ref = SK.seed_eval_reference(pack.base, *stack_args, H, Hd)
+    stack_err = _err(got, ref, what)
+    return max(pre_err[0], stack_err[0]), max(pre_err[1], stack_err[1])
+
+
+def seed_full_lane_errors(pack, args, got, pre, H, Hd, dtype, what):
+    """One lane of seed_eval_full's lane form against its plain version:
+    its stages as seed_full_stage_errors reads them, the stack stage held
+    as seed_eval's cluster stack (which it is, on fp32 K/V) is held
+    (seed_errors_of): a bf16 reading over seed_eval's limits counts by its
+    one-flip explanation when one flipped near-tie operand of the one-row
+    chain gives the kernel's output within seed_eval's fp32 limit. A stack
+    reading over those limits that no one flip explains is diagnosed
+    (diagnose_flips), never held by it. Returns (held max, held mean, a
+    dict of the raw readings, the explanation, the diagnosis)."""
+    from infgen_torch.ops import seed_kernel as SK
+
+    pre_err, stack_args = seed_full_stages(pack, args, pre, what)
+    raw = _err(got, SK.seed_eval_reference(pack.base, *stack_args, H, Hd),
+               what)
     err, mean, _, flip = seed_errors_of(pack.base, stack_args, got, H, Hd,
                                         dtype, what)
-    return max(pre_err[0], err), max(pre_err[1], mean), flip
+    readings = dict(max=max(pre_err[0], raw[0]),
+                    mean=max(pre_err[1], raw[1]), precompute=pre_err,
+                    stack=raw)
+    diagnosis = None
+    if flip is None and (raw[0] > TOL["seed_eval"][dtype]
+                         or raw[1] > MEAN_TOL["seed_eval"][dtype]):
+        diagnosis = diagnose_flips(
+            lambda rnd: SK.seed_eval_reference(pack.base, *stack_args, H, Hd,
+                                               round_operand=rnd), got)
+    return (max(pre_err[0], err), max(pre_err[1], mean), readings, flip,
+            diagnosis)
 
 
 def seed_full_stage_ms(pack, args, H, Hd):
@@ -997,7 +1062,7 @@ def check_seed_eval_full(cfg, attr, dev):
         pdt = None if dtype == F32 else dtype
         pack = SK.pack_seed_params_full(dec, L, G, pdt)
         run = lambda fn, args, **kw: fn(pack, *args, H, Hd, **kw)
-        errs, means, e2e, flips = {}, {}, {}, {}
+        errs, means, e2e = {}, {}, {}
         for case in ("masked", "map_all_masked", "agents_all_masked"):
             args = seed_full_inputs(dec, cfg, G, pdt,
                                     np.random.default_rng(29), case, dev)
@@ -1006,10 +1071,8 @@ def check_seed_eval_full(cfg, attr, dev):
                 *got, pre = run(SK.seed_eval_full_kernel, args,
                                 return_precompute=True)
                 ref = run(SK.seed_eval_full_reference, args)
-                errs[case], means[case], flip = seed_full_stage_errors(
-                    pack, args, tuple(got), pre, H, Hd, dtype, what)
-            if flip:
-                flips[case] = flip
+                errs[case], means[case] = seed_full_stage_errors(
+                    pack, args, tuple(got), pre, H, Hd, what)
             torch.cuda.synchronize()
             e2e[case] = _err(tuple(got), ref, what)[0]
         args = seed_full_inputs(dec, cfg, G, pdt, np.random.default_rng(29),
@@ -1024,7 +1087,7 @@ def check_seed_eval_full(cfg, attr, dev):
         results[dtype] = finish("seed_eval_full", dtype, errs, means, ms,
                                 plain_ms,
                                 *seed_full_cost(pack, args, outs), e2e=e2e,
-                                explained_by_one_flip=flips, **stages)
+                                **stages)
     return results
 
 
@@ -1501,9 +1564,10 @@ def check_seed_eval_full_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
     inputs (lane 3 with every agent key masked) in one call, the lanes
     SEED_LANES_OFF masked off, fp32 and bf16. Each active lane's output
     must equal the single call on its inputs bit for bit and is held
-    against the plain version stage by stage on its own precompute and as
-    a whole (seed_full_stage_errors); a masked-off lane's outputs must be
-    zeros. Times: the lane call, per active lane, beside the single call;
+    against the plain version stage by stage on its own precompute, its
+    stack stage as seed_eval's is held, and as a whole
+    (seed_full_lane_errors; the raw readings beside); a masked-off lane's
+    outputs must be zeros. Times: the lane call, per active lane, beside the single call;
     bound: seed_full_lanes_cost. Returns {dtype: result}."""
     from infgen_torch.ops import seed_kernel as SK
 
@@ -1527,7 +1591,8 @@ def check_seed_eval_full_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
             singles = [SK.seed_eval_full_kernel(pack, sd0, *a[1:], H, Hd)
                        for a in per]
         torch.cuda.synchronize()
-        errs, means, e2e, same, zero, flips = {}, {}, {}, {}, {}, {}
+        errs, means, e2e, same, zero = {}, {}, {}, {}, {}
+        raw, flips, diagnosed = {}, {}, {}
         for b in range(n_lanes):
             key, got = f"lane{b}", (small[b], pos[b])
             if not on[b]:
@@ -1538,13 +1603,16 @@ def check_seed_eval_full_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
             args = (sd0, *per[b][1:])
             what = f"seed_eval_full lanes {dtype} {key}"
             with torch.no_grad():
-                errs[key], means[key], flip = seed_full_stage_errors(
-                    pack, args, got, tuple(p[b] for p in pre), H, Hd, dtype,
-                    what)
+                errs[key], means[key], raw[key], flip, diag = \
+                    seed_full_lane_errors(pack, args, got,
+                                          tuple(p[b] for p in pre), H, Hd,
+                                          dtype, what)
                 e2e[key] = _err(got, SK.seed_eval_full_reference(
                     pack, *args, H, Hd), what)[0]
             if flip:
                 flips[key] = flip
+            if diag:
+                diagnosed[key] = diag
         with torch.no_grad():
             ms = median_ms(lambda: SK.seed_eval_full_kernel(
                 pack, sd0, *lanes, H, Hd, lanes=on), KERNEL_LAUNCHES)
@@ -1554,7 +1622,10 @@ def check_seed_eval_full_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
             "seed_eval_full_lanes", "seed_eval_full", dtype, cfg, on, errs,
             means, same, zero, ms, single_ms,
             seed_full_lanes_cost(pack, sd0, lanes, (small, pos), on),
-            e2e=e2e, explained_by_one_flip=flips)
+            e2e=e2e, raw_max_abs_err=max(r["max"] for r in raw.values()),
+            raw_mean_abs_err=max(r["mean"] for r in raw.values()),
+            raw_errors=raw, explained_by_one_flip=flips,
+            unexplained_by_one_flip=diagnosed)
     return results
 
 

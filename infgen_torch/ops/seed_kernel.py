@@ -434,13 +434,12 @@ def pack_seed_params_full(decoder, L: int, grid_size: int,
         {**w, **v}, mats + vecs, (0 if tiles is None else tiles.data_ptr(),)))
 
 
-def _zero_agg(pack: SeedPack, x, j, rnd):
+def _zero_agg(pack: SeedPack, x, j):
     """Sublayer j of the seed stack on rows with no incident edge
-    (agg == 0): the key chain's step. fp32 residual carrier; `rnd` rounds
-    each matmul input."""
-    f32 = torch.float32
+    (agg == 0): the key chain's step. fp32 residual carrier."""
+    f32, cdt = torch.float32, pack.dtype
     w, v, D = pack.w, pack.v, pack.D
-    mm = lambda a, m: rnd(a) @ m.to(f32)
+    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
     dst_n = _ln(x, v["lnq_s"][j], v["lnq_b"][j])
     g = torch.sigmoid(mm(dst_n, w["wg"][j][D:]) + v["bg"][j])
     agg = g * (mm(dst_n, w["ws"][j]) + v["bs"][j])
@@ -453,17 +452,14 @@ def _zero_agg(pack: SeedPack, x, j, rnd):
 
 
 def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
-                              r_sa, occ, round_operand=None):
+                              r_sa, occ):
     """The per-step precompute of the full kernel, in plain PyTorch:
     (v_occ [L, D], K_pt, V_pt [L, P, D], K_a, V_a [L, A, D]), all fp32 and
     never rounded to the compute dtype (map K/V = k0 + the geometry term in
-    fp32, unlike the non-full path, which rounds the sum).
-    `round_operand(x)` replaces the rounding of each matmul input, in call
-    order, as in seed_eval_reference."""
+    fp32, unlike the non-full path, which rounds the sum)."""
     f32, cdt = torch.float32, pack.dtype
     w, v = pack.w, pack.v
-    rnd = round_operand or (lambda x: x.to(cdt).to(f32))
-    mm = lambda a, m: rnd(a) @ m.to(f32)
+    mm = lambda a, m: a.to(cdt).to(f32) @ m.to(f32)
     L = pack.base.L
 
     h = occ.to(f32) @ v["oe_w0"] + v["oe_b0"]
@@ -485,7 +481,7 @@ def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
     K_a, V_a = [], []
     for i in range(L):
         for s in (0, 1):                                  # occ2sa, pt2sa
-            ag = _zero_agg(pack.base, ag, 3 * i + s, rnd)
+            ag = _zero_agg(pack.base, ag, 3 * i + s)
         # this layer's a2sa reads the chain before its own zero-agg step
         src_n = _ln(ag, v["ka_lns_s"][i], v["ka_lns_b"][i])
         rn = _ln(rsa, v["sar_lnr_s"][i], v["sar_lnr_b"][i])
@@ -493,7 +489,7 @@ def seed_eval_full_precompute(pack: SeedFullPack, k0, v0, r_pl, agent_col,
         V_a.append(mm(src_n, w["ka_wv"][i]) + v["ka_bv"][i]
                    + mm(rn, w["sar_wvr"][i]) + v["sar_bvr"][i])
         if i + 1 < L:               # the last layer's step is never read
-            ag = _zero_agg(pack.base, ag, 3 * i + 2, rnd)
+            ag = _zero_agg(pack.base, ag, 3 * i + 2)
     return (v_occ, torch.stack(K_pt), torch.stack(V_pt), torch.stack(K_a),
             torch.stack(V_a))
 

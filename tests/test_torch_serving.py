@@ -30,13 +30,14 @@ and the rollout's lane axis, on the CPU.
   fleet through the chunked stream runner under all three gives each
   scenario's own stream; and a two-lane rollout under all three equals
   `jax.jit(jax.vmap(...))` of the JAX package's rollout (PARITY.md's
-  protocol; the JAX side compiles in a thread of its module fixture while
-  the port-only tests run). The column kernel's flag still refuses lanes.
+  protocol; the JAX side traces and compiles in a process of its own,
+  started by its module fixture, while the port-only tests run). The
+  column kernel's flag still refuses lanes.
 """
 
 import json
+import multiprocessing
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -845,15 +846,22 @@ def _jax_vmapped_rollout(params):
 def jax_lanes_rollout():
     """The port at ROLL under all three flags with random weights, and the
     JAX side of test_lane_flags_rollout_matches_jax_vmap on the same
-    weights (its compile and run), started in a thread at the module's
-    first test and collected by that test, the last of the module."""
+    weights (its trace, compile and run), started at the module's first
+    test in a process of its own, since its trace is Python-bound and
+    would hold this process's interpreter lock from the tests beside it.
+    The last test of the module collects it; without that test the
+    process ends unread when the module does."""
     cfg = Config(**ROLL, **ALL_THREE)
     tok = cli.build_tokenizers(cfg)
     model = cli.build_model(cfg, tok[0], "cpu")
     params = _decoder_tree(model, np.random.default_rng(0))
-    with ThreadPoolExecutor(1) as pool:
-        yield cfg, tok, model.eval(), pool.submit(_jax_vmapped_rollout,
-                                                  params)
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        yield cfg, tok, model.eval(), pool.apply_async(_jax_vmapped_rollout,
+                                                       (params,))
+    finally:
+        pool.terminate()
+        pool.join()
 
 
 @pytest.fixture(scope="module")
@@ -976,7 +984,7 @@ def test_lane_flags_rollout_matches_jax_vmap(jax_lanes_rollout):
     ids, slot activity and insertion counts bitwise (PARITY.md), poses
     within POSE_TOL."""
     cfg, (attr, mt, mv), model, jax_side = jax_lanes_rollout
-    uniforms, jout = jax_side.result()
+    uniforms, jout = jax_side.get()
     fn = CL.make_rollout_fn(model, cfg, attr, mt, mv, force_insert=True)
     scens = [S.to_device(make_synthetic_scenario(cfg, seed=s, num_agents=n),
                          "cpu") for s, n in ROLL_SCENS]
