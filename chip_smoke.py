@@ -27,7 +27,15 @@ before the last line):
            `seed_eval_full_lanes`, `refine_lanes` and `fused_block_lanes`
            do the same for those three kernels' lane forms (the fused
            block has no lane mask: every lane on), again after
-           `serving_kernels` at the shapes its batches gave them
+           `serving_kernels` at the shapes its batches gave them;
+           `column_lanes` the same for motion_column's lane form (8 lanes
+           at the latency preset's A = 128, two with occupancy bound 0,
+           one with a small bound; each lane bit for bit its single call,
+           a lane with bound 0 bit for bit the call without the bound),
+           again after `serving_latency` at the shapes its batches gave
+           it, with seed_eval_full's and refine's lane forms there; the
+           fused block's checks include refine_column's two calls (all A
+           rows, keys per query, one query row's keys)
   parity   a small closed-loop rollout (70 frames, past the temporal
            window) on the card (through the kernels) equal to the same
            rollout on the CPU (through the plain versions), with the
@@ -36,8 +44,9 @@ before the last line):
            with use_fused_block, with use_pallas_attention;
            `parity_serving` the same for three scenarios served as one
            batched rollout of four lanes (RolloutServer.rollout_batch),
-           with the flagship's flags, with use_pallas_attention, and with
-           use_fused_block + use_seed_kernel_full + use_refine_kernel
+           with the flagship's flags, with use_pallas_attention, with
+           use_fused_block + use_seed_kernel_full + use_refine_kernel, and
+           with the latency preset's three kernel flags
   serving  the flagship at full width serving 8 synthetic scenarios
            through RolloutServer.rollout_batch (agent buckets 32 / 64 /
            128), in batches of up to 8 lanes and one scenario at a time,
@@ -46,7 +55,9 @@ before the last line):
            same with use_fused_block, use_seed_kernel_full and
            use_refine_kernel on the flagship (the JAX bench's
            INFGEN_BENCH_FUSED + _SEEDK_FULL + _REFK program), all three
-           kernels launched at B = 8
+           kernels launched at B = 8; `serving_latency` the same for the
+           latency preset (configs/ours_long_term_latency.yaml: its three
+           kernels, the column's lane form among them, at B = 8)
   trainable_grad  r_biased_attention_trainable (the kernel's forward, the
            plain recompute backward) at the training forward's three
            shapes in fp32, without and with dropout: forward and six
@@ -88,7 +99,8 @@ before the last line):
            the flagship through cli.run_stream (900 frames in 300-frame
            segments, re-bucketed), 8 scenarios as lanes through the chunked
            runner (plan 128 / 64 / 64), the latency preset for two
-           segments: ms per segment and per token step, agent-steps/s,
+           segments, and its fleet of 8 through the chunked runner (plan
+           128 / 64): ms per segment and per token step, agent-steps/s,
            agents ever alive, buckets, host reads, peak memory, launches;
            the registries' invariants
   rollout  the flagship rollout (configs/ours_long_term.yaml), its two
@@ -100,10 +112,10 @@ before the last line):
            without forced insertion (the seed head biased to decline) and
            once with it, with every kernel's launch count of that run
 
-then the summary line of every kernel ({"kernels": [...]}; the entries of
-seed_eval, seed_eval_full, refine and fused_attention_block also carry
-their lane forms' time, bound and launches in the served batches
-(`serving`, `serving_kernels`), each kernel that `stream` launched its
+then the summary line of every kernel ({"kernels": [...]}; every entry but
+r_biased_attention's also carries its lane form's time, bound and
+launches in the served batches (`serving`, `serving_kernels`,
+`serving_latency`), each kernel that `stream` launched its
 `stream_launches`) and, last, the device line {"ok": true, "device":
 {...}}. Without CUDA it exits non-zero
 and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
@@ -517,11 +529,12 @@ def refine_cost(pack, args, outs):
     return nbytes, macs
 
 
-def column_inputs(dec, cfg, dtype, rng, case, dev):
-    """The column's inputs at the flagship shapes, as the rollout builds
-    them (relation embeddings from the model; keys and relations in the
-    compute dtype; the column fp32). Returns (args, n_rows): rows at or
-    above n_rows are inactive slots with every key masked."""
+def column_inputs(dec, cfg, dtype, rng, case, dev, n_rows=None):
+    """The column's inputs at cfg's shapes, as the rollout builds them
+    (relation embeddings from the model; keys and relations in the compute
+    dtype; the column fp32). Returns (args, n_rows): rows at or above
+    n_rows (77 in case "n_rows", else A, unless given) are inactive slots
+    with every key masked."""
     from infgen_torch.config import SHIFT
 
     L, A, D = cfg.num_agent_layers, cfg.max_agents, cfg.hidden_dim
@@ -529,7 +542,8 @@ def column_inputs(dec, cfg, dtype, rng, case, dev):
     W, K = min(cfg.time_span // SHIFT, Ti), cfg.pl2a_num_neighbors
     t = _tensor(dev)
     cdt = dtype or F32
-    n_rows = 77 if case == "n_rows" else A
+    if n_rows is None:
+        n_rows = 77 if case == "n_rows" else A
     act = torch.arange(A, device=dev) < n_rows
     m = lambda *s, p: torch.as_tensor(rng.uniform(size=s) < p, device=dev)
     t_mask = m(A, W, p=0.8) & act[:, None]
@@ -1275,22 +1289,31 @@ FUSED_CASES = (("temporal", "t_attn_0", "per_query"),
                ("map", "pt2a_0", "per_query"),
                ("agent", "a2a_0", "self"),
                ("shared", "t_attn_0", "shared"),
-               ("shared_bipartite", "pt2a_0", "shared"))
-MASK_CASES = ("random", "half", "all_valid")
+               ("shared_bipartite", "pt2a_0", "shared"),
+               # AgentDecoder.refine_column's fused branch: all A rows, map
+               # keys x_pt[pl_keys], then agent keys x[a2a_idx], per query
+               ("refine_map", "pt2a_0", "per_query"),
+               ("refine_agent", "a2a_0", "per_query"))
+# query_row: refine_column's masks, the keys of one query row only
+MASK_CASES = ("random", "half", "all_valid", "query_row")
 
 
 def fused_inputs(dec, cfg, kind, mode, mask_case, rng, dev):
     """(x [A, D], x_src, r, mask) of one fused-block case at the flagship
     shapes, fp32: the rollout's key counts (W = 12 temporal, 5 map, A agent
-    keys; 100 shared keys), relations from the model's embeddings. Mask
+    keys; 100 shared keys; refine_column's 32 map and 24 agent keys, the
+    rollout's refine neighbourhood), relations from the model's
+    embeddings. Mask
     cases: random (p 0.5, row 3 fully masked, row 7 all valid), half (every
-    other key valid in every row), all valid."""
+    other key valid in every row), all valid, query_row (row 11's keys at
+    p 0.8, every other row fully masked)."""
     from infgen_torch.config import SHIFT
 
     A, D = cfg.max_agents, cfg.hidden_dim
     Ti = (cfg.num_recurrent_steps_val + cfg.num_historical_steps) // SHIFT
     W = min(cfg.time_span // SHIFT, Ti)
-    K = {"temporal": W, "map": cfg.pl2a_num_neighbors, "agent": A}.get(
+    K = {"temporal": W, "map": cfg.pl2a_num_neighbors, "agent": A,
+         "refine_map": REFINE_ROWS, "refine_agent": REFINE_AGENTS}.get(
         kind, 100)
     t = _tensor(dev)
     x = t(rng.normal(size=(A, D)))
@@ -1301,7 +1324,7 @@ def fused_inputs(dec, cfg, kind, mode, mask_case, rng, dev):
             r = dec.r_t_emb(torch.cat([_geo(rng, t, A, K),
                                        t(rng.integers(-W, 0, (A, K, 1)))],
                                       -1))
-        elif kind == "agent":
+        elif kind in ("agent", "refine_agent"):
             r = dec.r_a2a_emb(_geo(rng, t, A, K, radius=60.0))
         else:
             r = dec.r_pt2a_emb(_geo(rng, t, A, K, radius=30.0))
@@ -1311,6 +1334,9 @@ def fused_inputs(dec, cfg, kind, mode, mask_case, rng, dev):
         mask[7] = True
     elif mask_case == "half":
         mask = (torch.arange(K, device=dev) % 2 == 0)[None].expand(A, K)
+    elif mask_case == "query_row":
+        mask = torch.zeros((A, K), dtype=torch.bool, device=dev)
+        mask[11] = torch.as_tensor(rng.uniform(size=K) < 0.8, device=dev)
     else:
         mask = torch.ones((A, K), dtype=torch.bool, device=dev)
     return x, src, r.float(), mask.contiguous()
@@ -1771,6 +1797,100 @@ def check_fused_block_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
 LANE_CHECKS = {"seed_eval_full": check_seed_eval_full_lanes,
                "refine": check_refine_lanes,
                "fused_attention_block": check_fused_block_lanes}
+
+
+# --------------------------------------------------------------------- #
+# the lane form of motion_column
+# --------------------------------------------------------------------- #
+
+COLUMN_SMALL_LANE, COLUMN_SMALL_ROWS = 3, 7   # a lane with few live rows
+
+
+def column_lanes_cost(pack, per, rows, num_heads):
+    """(bytes, multiply-adds at the pack's dtype, fp32 multiply-adds) of one
+    lane call: column_cost_least of each lane on its own inputs and
+    occupancy bound (its keys and relations read once, its epilogues), the
+    packed weights once per launch."""
+    pack_bytes = _nbytes(pack.weights, pack.vectors)
+    nbytes, macs, macs_f32 = pack_bytes, 0, 0
+    for args, n in zip(per, rows):
+        b, m, m32 = column_cost_least(pack, args, n, num_heads)
+        nbytes, macs, macs_f32 = nbytes + b - pack_bytes, macs + m, \
+            macs_f32 + m32
+    return nbytes, macs, macs_f32
+
+
+def check_column_lanes(cfg, attr, dev, n_lanes=SEED_LANES):
+    """motion_column's lane form at cfg's shapes (the latency preset's
+    A = 128, and the shapes the served batches gave it): n_lanes lanes of
+    their own inputs in one call, the lanes SEED_LANES_OFF with occupancy
+    bound 0 (no active slot), lane COLUMN_SMALL_LANE with COLUMN_SMALL_ROWS
+    live rows, the others every row; fp32 and bf16. Each lane must equal
+    the single call on its inputs and bound bit for bit; a lane with bound
+    0 must equal the call without the bound on its inputs (every row's
+    zero-aggregate epilogue, what the full computation gives) bit for bit;
+    each lane is held against the plain version one layer at a time and as
+    a whole, as check_motion_column holds the single call. Times: the lane
+    call, per lane with live rows, the single call in the same run; bound:
+    column_lanes_cost. Returns {dtype: result}."""
+    from infgen_torch.ops import column_kernel as CK
+
+    H, Hd, L, A = cfg.num_heads, cfg.head_dim, cfg.num_agent_layers, \
+        cfg.max_agents
+    rows = [0 if b in SEED_LANES_OFF else COLUMN_SMALL_ROWS
+            if b == COLUMN_SMALL_LANE else A for b in range(n_lanes)]
+    on = torch.tensor([n > 0 for n in rows], device=dev)
+    nr = torch.tensor(rows, dtype=torch.int32, device=dev)
+    results = {}
+    for dtype in (F32, BF16):
+        dec = decoder_for(cfg, attr, dtype, dev)
+        pdt = None if dtype == F32 else dtype
+        pack = CK.pack_column_params(dec, L, pdt)
+        per = [column_inputs(dec, cfg, pdt, np.random.default_rng(100 + b),
+                             "masked", dev, n_rows=rows[b])[0]
+               for b in range(n_lanes)]
+        lanes = [torch.stack([a[i] for a in per], 1 if i == 1 else 0)
+                 for i in range(len(per[0]))]
+        run = lambda args, n: CK.motion_column_kernel(pack, *args, H, Hd,
+                                                      n_rows=n)
+        with torch.no_grad():
+            got = run(lanes, nr)
+            singles = [run(a, nr[b]) for b, a in enumerate(per)]
+            fulls = {b: run(per[b], None) for b in range(n_lanes)
+                     if not rows[b]}
+        torch.cuda.synchronize()
+        require(got.shape == (L, n_lanes, A, cfg.hidden_dim),
+                f"column lanes {dtype}: output shape {tuple(got.shape)}")
+        errs, means, e2e, same, empty = {}, {}, {}, {}, {}
+        for b in range(n_lanes):
+            key, g = f"lane{b}", got[:, b]
+            same[key] = torch.equal(g, singles[b])
+            if not rows[b]:
+                empty[key] = torch.equal(g, fulls[b])
+            what = f"motion_column lanes {dtype} {key}"
+            with torch.no_grad():
+                layers = CK.motion_column_reference(
+                    pack, *per[b], H, Hd, n_rows=nr[b], layer_inputs=g)
+                ref = CK.motion_column_reference(pack, *per[b], H, Hd,
+                                                 n_rows=nr[b])
+            errs[key], means[key] = _err(g, layers, what)
+            e2e[key] = _err(g, ref, what)[0]
+        with torch.no_grad():
+            ms = median_ms(lambda: run(lanes, nr), KERNEL_LAUNCHES)
+            single_ms = median_ms(lambda: run(per[0], nr[0]),
+                                  KERNEL_LAUNCHES)
+        W, K = per[0][1].shape[2], per[0][4].shape[1]
+        results[dtype] = lanes_result(
+            "column_lanes", "motion_column", dtype, cfg, on, errs, means,
+            same, {}, ms, single_ms,
+            column_lanes_cost(pack, per, rows, H), e2e=e2e, n_rows=rows,
+            empty_lanes_zero_aggregate=empty,
+            launches_per_call=CK.launches_per_call(dtype, L),
+            scratch_bytes=4 * n_lanes * CK.scratch_floats(
+                pack.dtype, L, A, W, K, cfg.hidden_dim))
+        require(all(empty.values()), f"column lanes {dtype}: a lane with "
+                f"bound 0 differs from its full computation: {empty}")
+    return results
 
 
 def rba_inputs(rng, B, Q, K, Dr, HD, H, drop, dev, w=None):
@@ -2247,18 +2367,21 @@ LANE_KERNEL_FLAGS = dict(use_fused_block=True, use_seed_kernel_full=True,
                          use_refine_kernel=True)
 SERVING_PARITY_FLAGS = {"flagship": {},
                         "pallas_attention": dict(use_pallas_attention=True),
-                        "lane_kernels": LANE_KERNEL_FLAGS}
+                        "lane_kernels": LANE_KERNEL_FLAGS,
+                        "latency": PARITY_FLAGS["parity_latency"]}
 
 
-def served_kernels(flags):
-    """The kernels a served rollout with `flags` (on the flagship's) must
-    launch: its seed kernel and the kernels its flags pick."""
-    out = ["seed_eval_full" if flags.get("use_seed_kernel_full")
-           else "seed_eval"]
-    for flag, kernel in (("use_refine_kernel", "refine"),
-                         ("use_fused_block", "fused_attention_block"),
-                         ("use_pallas_attention", "r_biased_attention")):
-        if flags.get(flag):
+def served_kernels(cfg):
+    """The kernels a served rollout under config `cfg` must launch: its
+    seed kernel and the kernels its flags pick (the column kernel takes
+    precedence over the fused block)."""
+    out = ["seed_eval_full" if cfg.use_seed_kernel_full else "seed_eval"]
+    fused = cfg.use_fused_block and not cfg.use_column_kernel
+    for on, kernel in ((cfg.use_refine_kernel, "refine"),
+                       (cfg.use_column_kernel, "motion_column"),
+                       (fused, "fused_attention_block"),
+                       (cfg.use_pallas_attention, "r_biased_attention")):
+        if on:
             out.append(kernel)
     return out
 
@@ -2269,8 +2392,9 @@ def check_parity_serving(dev):
     lanes, the last one padding) at the parity phases' config, on the card
     (kernels in fp32) against the CPU (plain versions): decisions equal,
     poses within POSE_TOL, per scenario; with the flagship's flags, with
-    use_pallas_attention, and with the three kernels that take lanes since
-    their lane forms (LANE_KERNEL_FLAGS). Each run's kernels
+    use_pallas_attention, with the three kernels that took lanes first
+    (LANE_KERNEL_FLAGS), and with the latency preset's three kernels
+    (the column kernel's lane form among them). Each run's kernels
     (served_kernels) must have launched."""
     from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
                                   kernel_launches)
@@ -2314,23 +2438,25 @@ def check_parity_serving(dev):
                 f"{pose_err} > {POSE_TOL}")
         require(all(n > 0 for n in inserted),
                 f"parity_serving {name}: a scenario inserted no agent")
-        for kernel in served_kernels(flags):
+        for kernel in served_kernels(cfg):
             require(launches[kernel] > 0,
                     f"parity_serving {name}: {kernel} never launched")
     emit("parity_serving", config=PARITY_DESC, scenarios=3, lanes=4,
          tolerance=POSE_TOL, runs=runs)
 
 
-def check_serving(dev, phase="serving", flags=None):
-    """The served main path: the flagship (configs/ours_long_term.yaml,
-    with `flags` replaced on it) at full width serving SERVING_SCENARIOS
+def check_serving(dev, phase="serving", flags=None, path=FLAGSHIP):
+    """The served main path: the config at `path` (the flagship,
+    configs/ours_long_term.yaml, by default; with `flags` replaced on it)
+    at full width serving SERVING_SCENARIOS
     synthetic scenarios through RolloutServer.rollout_batch (the command
     line's --batch), in batches of up to SERVING_SCENARIOS lanes and, on
     the same scenarios, one at a time; unforced (the seed head's "enter"
     logit shifted by ENTER_LOGIT_SHIFT) and forced, as run_preset drives
     its rollouts. Every kernel count is set to 0 just before each run and
     read just after; check_rollout holds every lane. The config's seed
-    kernel (and under the fused block, the block) must launch in every run,
+    kernel (and its trunk kernel, the fused block or the column) must
+    launch in every run,
     and every kernel of served_kernels in the batched runs together (the
     refine pass runs only where an agent is inserted). Returns each
     kernel's launches in the batched runs and the (A, P, lanes) of each
@@ -2340,9 +2466,9 @@ def check_serving(dev, phase="serving", flags=None):
     from infgen_torch.config import SHIFT, load_config
 
     flags = flags or {}
-    cfg = load_config(FLAGSHIP).replace(**flags)
+    cfg = load_config(path).replace(**flags)
     n_steps = cfg.num_recurrent_steps_val // SHIFT
-    every_run = [k for k in served_kernels(flags) if k != "refine"]
+    every_run = [k for k in served_kernels(cfg) if k != "refine"]
     tokenizers = build_tokenizers(cfg)
     model = build_model(cfg, tokenizers[0], dev)
     with torch.no_grad():
@@ -2380,10 +2506,10 @@ def check_serving(dev, phase="serving", flags=None):
     require(sum(by[True, 1]["agents_inserted"])
             > sum(by[False, 1]["agents_inserted"]),
             f"{phase}: the unforced runs did not decline")
-    missing = [k for k in served_kernels(flags) if not lanes_launches[k]]
+    missing = [k for k in served_kernels(cfg) if not lanes_launches[k]]
     require(not missing, f"{phase}: {missing} never launched at B = "
             f"{SERVING_SCENARIOS}")
-    emit(phase, config=os.path.relpath(FLAGSHIP, ROOT), flags=flags,
+    emit(phase, config=os.path.relpath(path, ROOT), flags=flags,
          scenarios=SERVING_SCENARIOS, agent_buckets=SERVING_BUCKETS,
          token_steps=n_steps, enter_logit_shift=ENTER_LOGIT_SHIFT,
          runs=runs, same_inserts_batched_and_single={
@@ -2947,6 +3073,7 @@ STREAM_FRAMES = 900          # (a): cli stream's default horizon
 STREAM_FLEET = 8             # (b): synthetic scenarios (seeds 0..7)
 STREAM_PLAN = ((128, 1), (64, 1), (64, 1))   # the JAX bench's fleet plan
 STREAM_LATENCY_SEGMENTS = 2  # (c)
+STREAM_LATENCY_PLAN = ((128, 1), (64, 1))    # (d): two chunks
 
 
 def check_parity_stream(dev):
@@ -3104,7 +3231,10 @@ def check_stream(dev):
           each chunk one segment of all the scenarios as lanes (seed_eval's
           lane form);
       (c) the latency preset through StreamingRollout.run (cli.run_stream):
-          one scenario, STREAM_LATENCY_SEGMENTS segments.
+          one scenario, STREAM_LATENCY_SEGMENTS segments;
+      (d) the latency preset's fleet: the STREAM_FLEET scenarios through
+          make_chunked_stream_runner with STREAM_LATENCY_PLAN, its three
+          kernels over lanes (the column's lane form among them).
     Each: ms per segment and per token step, agent-steps/s (non-invalid
     10 Hz states after the history over wall time, as the JAX bench counts
     a stream's), agents ever alive, buckets, host reads, peak memory and
@@ -3145,33 +3275,46 @@ def check_stream(dev):
             "launched")
 
     # (b) the fleet through the chunked runner, over lanes
-    R, Hs = cfg.num_recurrent_steps_val, cfg.num_historical_steps
-    data = SyntheticDataset(cfg, size=STREAM_FLEET)
-    scens = [data[i] for i in range(STREAM_FLEET)]
-    runner = ST.make_chunked_stream_runner(cfg, *tok, segment_steps=R)
+    def fleet(c, tk, mdl, plan):
+        """The STREAM_FLEET synthetic scenarios of config c through the
+        chunked runner with `plan` (the runner kept on `fleet.runner`)."""
+        data = SyntheticDataset(c, size=STREAM_FLEET)
+        fleet.runner = ST.make_chunked_stream_runner(
+            c, *tk, segment_steps=c.num_recurrent_steps_val)
+        return fleet.runner(mdl, [data[i] for i in range(STREAM_FLEET)],
+                            plan, c.seed)
+
+    def fleet_summary(c, plan, outs, used, seconds, runner):
+        """(the fleet's summary, its stitched per-scenario results)."""
+        R, Hs = c.num_recurrent_steps_val, c.num_historical_steps
+        host = [{k: v.detach().cpu().numpy() for k, v in o.items()}
+                for o in outs]
+        steps = float(sum((o["pred_state"][..., Hs:] != INVALID_STATE).sum()
+                          for o in host))
+        results = [
+            ST.stitch_stream_outputs({k: v[i] for k, v in o.items()}, Hs)
+            for o in host for i in range(STREAM_FLEET)]
+        per_chunk = np.array([r["state"].shape[0] for r in results]
+                             ).reshape(len(host), STREAM_FLEET)
+        n_seg = sum(n for _, n in plan)
+        require(all(a in (plan_a, c.max_agents)
+                    for a, (plan_a, _) in zip(used, plan)),
+                f"stream fleet: buckets {used} for the plan {plan}")
+        return dict(
+            scenarios=STREAM_FLEET, plan=[list(x) for x in plan],
+            buckets=used, segments=n_seg, segment_steps=R,
+            ms_per_segment=seconds * 1e3 / n_seg,
+            ms_per_token_step=seconds * 1e3 / (n_seg * R // SHIFT),
+            agents_ever_alive=runner.agents_ever_alive,
+            agents_per_chunk=per_chunk.tolist(),
+            agent_steps=steps, agent_steps_per_s=steps / seconds,
+            host_reads=runner.host_reads), results
+
     (outs, used), seconds, launches, peak = _stream_run(
-        dev, lambda: runner(model, scens, STREAM_PLAN, cfg.seed))
-    host = [{k: v.detach().cpu().numpy() for k, v in o.items()}
-            for o in outs]
-    steps = float(sum((o["pred_state"][..., Hs:] != INVALID_STATE).sum()
-                      for o in host))
-    results = [ST.stitch_stream_outputs({k: v[i] for k, v in o.items()}, Hs)
-               for o in host for i in range(STREAM_FLEET)]
-    per_chunk = np.array([r["state"].shape[0] for r in results]).reshape(
-        len(host), STREAM_FLEET)
-    n_seg = sum(n for _, n in STREAM_PLAN)
-    keep("fleet", dict(
-        scenarios=STREAM_FLEET, plan=[list(x) for x in STREAM_PLAN],
-        buckets=used, segments=n_seg, segment_steps=R,
-        ms_per_segment=seconds * 1e3 / n_seg,
-        ms_per_token_step=seconds * 1e3 / (n_seg * R // SHIFT),
-        agents_ever_alive=runner.agents_ever_alive,
-        agents_per_chunk=per_chunk.tolist(),
-        agent_steps=steps, agent_steps_per_s=steps / seconds,
-        host_reads=runner.host_reads), seconds, launches, peak, results)
-    require(all(a in (plan_a, cfg.max_agents)
-                for a, (plan_a, _) in zip(used, STREAM_PLAN)),
-            f"stream fleet: buckets {used} for the plan {STREAM_PLAN}")
+        dev, lambda: fleet(cfg, tok, model, STREAM_PLAN))
+    summary, results = fleet_summary(cfg, STREAM_PLAN, outs, used, seconds,
+                                     fleet.runner)
+    keep("fleet", summary, seconds, launches, peak, results)
     require(launches["seed_eval"] > 0, "stream fleet: seed_eval never "
             "launched")
 
@@ -3193,6 +3336,17 @@ def check_stream(dev):
                                           "motion_column"))
             and launches["seed_eval"] == 0,
             f"stream latency: launches {launches}")
+
+    # (d) the latency preset's fleet through the chunked runner
+    (outs, used), seconds, launches, peak = _stream_run(
+        dev, lambda: fleet(lat, ltok, lmodel, STREAM_LATENCY_PLAN))
+    summary, results = fleet_summary(lat, STREAM_LATENCY_PLAN, outs, used,
+                                     seconds, fleet.runner)
+    keep("latency_fleet", summary, seconds, launches, peak, results)
+    require(all(launches[k] > 0 for k in ("seed_eval_full", "refine",
+                                          "motion_column"))
+            and launches["seed_eval"] == 0,
+            f"stream latency_fleet: launches {launches}")
     emit("stream", configs={"flagship": os.path.relpath(FLAGSHIP, ROOT),
                             "latency": os.path.relpath(LATENCY, ROOT)},
          compute_dtype=cfg.compute_dtype,
@@ -3233,6 +3387,7 @@ def main():
     check_seed_eval_lanes(cfg, attr, dev)
     for lane_check in LANE_CHECKS.values():
         lane_check(cfg, attr, dev)
+    check_column_lanes(lat, attr, dev)
     checks = {"seed_eval": check_seed_eval(cfg, attr, dev),
               "seed_eval_full": check_seed_eval_full(lat, attr, dev),
               "refine": check_refine(lat, attr, dev),
@@ -3261,10 +3416,25 @@ def main():
     kernel_lanes_launches, kernel_served = check_serving(
         dev, "serving_kernels", LANE_KERNEL_FLAGS)
     require(kernel_served, "serving_kernels dispatched no batch of lanes")
-    served_kernel_lanes = {name: [lane_check(
+    served_kernel_lanes = {name: {(A, P, n): lane_check(
         cfg.replace(max_agents=A, max_map_tokens=P), attr, dev, n)
-        for A, P, n in kernel_served]
+        for A, P, n in kernel_served}
         for name, lane_check in LANE_CHECKS.items()}
+    # the latency preset served over lanes (the column's lane form), then
+    # its three lane forms at the shapes its batches gave them (a check
+    # already made at a shape is not made again)
+    latency_lanes_launches, latency_served = check_serving(
+        dev, "serving_latency", path=LATENCY)
+    require(latency_served, "serving_latency dispatched no batch of lanes")
+    served_kernel_lanes["motion_column"] = {}
+    for name, lane_check in (("seed_eval_full", check_seed_eval_full_lanes),
+                             ("refine", check_refine_lanes),
+                             ("motion_column", check_column_lanes)):
+        for A, P, n in latency_served:
+            if (A, P, n) not in served_kernel_lanes[name]:
+                served_kernel_lanes[name][A, P, n] = lane_check(
+                    lat.replace(max_agents=A, max_map_tokens=P), attr, dev,
+                    n)
     trainable = check_trainable_grad(cfg, dev)
     train = check_train(dev)
     scoring = check_scoring(dev)
@@ -3301,11 +3471,16 @@ def main():
                                lanes_launches["seed_eval"]),
                    scoring_launches=scoring["launches"]["seed_eval"])
     for entry in line:
-        if entry["name"] in served_kernel_lanes:
-            res = served_kernel_lanes[entry["name"]][-1]
+        name = entry["name"]
+        if name in served_kernel_lanes:
+            # the lane form at the last shape its own served path gave it
+            column = name == "motion_column"
+            res = served_kernel_lanes[name][
+                (latency_served if column else kernel_served)[-1]]
+            launched = (latency_lanes_launches if column
+                        else kernel_lanes_launches)[name]
             entry.update(lane_fields(res.get(main_dt, res[F32]),
-                                     "max_abs_err",
-                                     kernel_lanes_launches[entry["name"]]))
+                                     "max_abs_err", launched))
     rba = next(e for e in line if e["name"] == "r_biased_attention")
     rba.update(
         train_launches=train["launches"]["r_biased_attention"],

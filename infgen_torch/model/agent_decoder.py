@@ -11,8 +11,9 @@ the flax module's `__call__`) runs
 over the padded node set (agents + seed rows). The rollout methods
 (`motion_column`, `prefill_column`, `seed_key_chain`, `refine_column_sub`,
 the heads) serve rollout/closed_loop.py. `seed_column`,
-`seed_column_cached` and `refine_column` (the full-node-set forms the JAX
-tests hold the rollout's forms against) are not ported.
+`seed_column_cached` and `refine_column` are the full-node-set forms of
+one column that the rollout's forms are exact subsets of (the tests hold
+them against each other); the rollout does not call them.
 """
 
 import torch
@@ -492,9 +493,11 @@ class AgentDecoder(nn.Module):
         With `cfg.use_column_kernel` the whole column is one call of
         ops/column_kernel (the relation embeddings stay modules here), its
         parameters from `column_pack` (pack_column_params, built once per
-        rollout; packed here when None). n_rows: optional int32 device
-        scalar, the occupancy bound the kernel skips rows at; rows at or
-        above it must have every key masked. The module path ignores it.
+        rollout; packed here when None); with a lane axis one call takes
+        every lane's [B, A, ...] rows, the agent-agent keys within each
+        lane. n_rows: optional int32 device scalar ([B] with lanes), the
+        occupancy bound the kernel skips rows at; rows at or above it must
+        have every key masked. The module path ignores it.
 
         With `cfg.use_fused_block` (and not the column kernel, which takes
         precedence) each of the 3L sublayers is one call of
@@ -502,20 +505,7 @@ class AgentDecoder(nn.Module):
         (pack_column_blocks, built once per rollout; packed here when
         None); with a lane axis one call takes every lane's [B, A, ...]
         rows, the agent-agent keys within each lane.
-
-        The column kernel takes one scenario's [A, ...] rows: with a lane
-        axis it takes one lane (n_rows then [1]) and refuses more.
         """
-        if self.cfg.use_column_kernel and x_c.dim() == 3:
-            if x_c.shape[0] != 1:
-                raise ValueError("use_column_kernel: the kernel takes one "
-                                 f"lane, got {x_c.shape[0]}")
-            cols, out = self.motion_column(
-                x_c[0], key_stack[:, 0], t_r_raw[0], t_mask[0], a2a_r_raw[0],
-                a2a_mask[0], pl_keys[0], pl_r_raw[0], pl_mask[0],
-                n_rows=None if n_rows is None else n_rows[0],
-                column_pack=column_pack, fused_packs=fused_packs)
-            return cols[:, None], out[None]
         r_t = self.r_t_emb(t_r_raw)
         r_aa = self.r_a2a_emb(a2a_r_raw)
         r_pl = self.r_pt2a_emb(pl_r_raw)
@@ -600,6 +590,93 @@ class AgentDecoder(nn.Module):
             keys.append(ag)
             ag = self.a2sa_attn_layers[i].zero_agg(ag)
         return torch.stack(keys)
+
+    def seed_column(self, agent_col, seed_vec, occ_vec, pl_keys_mask, r_pl,
+                    a2sa_r_raw, a2sa_mask, x_pt):
+        """The insertion seed stack of one column over the full node set:
+        agent_col [A, D]; seed_vec [D]; occ_vec [G] binary occupancy;
+        pl_keys_mask [P]; r_pl [P, D] (embed_pl2sa_r); a2sa_r_raw [A, 3];
+        a2sa_mask [A]; x_pt [P, D]. The agent rows ride through every
+        sublayer with zero aggregate (no incident edges); returns the seed
+        feature [D]."""
+        cfg = self.cfg
+        r_sa = self.r_a2sa_emb(a2sa_r_raw)                       # [A, D]
+        occ_emb = self.embed_occ(occ_vec) if cfg.use_grid_token else None
+        ones = torch.ones(1, 1, dtype=torch.bool, device=agent_col.device)
+        ag, sd = agent_col, seed_vec
+        for i in range(cfg.num_seed_layers):
+            if occ_emb is not None:
+                sd = self.occ2sa_attn_layers[i](sd[None], occ_emb[None],
+                                                None, ones)[0]
+                ag = self.occ2sa_attn_layers[i].zero_agg(ag)
+            sd = self.pt2sa_attn_layers[i](sd[None], x_pt, r_pl,
+                                           pl_keys_mask[None])[0]
+            ag = self.pt2sa_attn_layers[i].zero_agg(ag)
+            sd = self.a2sa_attn_layers[i](sd[None], ag, r_sa,
+                                          a2sa_mask[None])[0]
+            ag = self.a2sa_attn_layers[i].zero_agg(ag)
+        return sd
+
+    def seed_column_cached(self, ag_keys, seed_vec, occ_vec, pl_keys_mask,
+                           r_pl, a2sa_r_raw, a2sa_mask, x_pt):
+        """seed_column from the agent rows' key snapshots (seed_key_chain,
+        [num_seed_layers, A, D]): only the seed row runs the stack. The
+        same math."""
+        cfg = self.cfg
+        r_sa = self.r_a2sa_emb(a2sa_r_raw)
+        occ_emb = self.embed_occ(occ_vec) if cfg.use_grid_token else None
+        ones = torch.ones(1, 1, dtype=torch.bool, device=seed_vec.device)
+        sd = seed_vec
+        for i in range(cfg.num_seed_layers):
+            if occ_emb is not None:
+                sd = self.occ2sa_attn_layers[i](sd[None], occ_emb[None],
+                                                None, ones)[0]
+            sd = self.pt2sa_attn_layers[i](sd[None], x_pt, r_pl,
+                                           pl_keys_mask[None])[0]
+            sd = self.a2sa_attn_layers[i](sd[None], ag_keys[i], r_sa,
+                                          a2sa_mask[None])[0]
+        return sd
+
+    def refine_column(self, x_col, query_onehot, pl_keys, pl_r_raw, pl_mask,
+                      a2a_idx, a2a_r_raw, a2a_mask, x_pt):
+        """The heading/offset refine of one column over the full node set,
+        on the trunk's layers 0..num_seed_layers-1: x_col [A, D];
+        query_onehot [A] bool (the inserted agent); pl_keys [A, Km] map key
+        ids; pl_r_raw [A, Km, 3]; pl_mask [A, Km]; a2a_idx [A, Ka] agent
+        key ids; a2a_r_raw [A, Ka, 3]; a2a_mask [A, Ka]; x_pt [P, D]. Only
+        the query row has keys: every other row passes with zero
+        aggregate. Returns [A, D]; refine_column_sub is the query row's.
+
+        With `cfg.use_fused_block` each sublayer is one call of
+        ops/fused_block at all A rows, keys per query (the map keys
+        x_pt[pl_keys], then the agent keys x[a2a_idx] of the running
+        column), fp32 throughout, as the JAX package's fused branch."""
+        r_pl = self.r_pt2a_emb(pl_r_raw)                    # [A, Km, D]
+        r_aa = self.r_a2a_emb(a2a_r_raw)                    # [A, Ka, D]
+        pl_m = pl_mask & query_onehot[:, None]
+        aa_m = a2a_mask & query_onehot[:, None]
+        x = x_col
+        if self.cfg.use_fused_block:
+            f32, H = torch.float32, self.cfg.num_heads
+            x = x.to(f32).contiguous()
+            r_pl, r_aa = r_pl.to(f32).contiguous(), r_aa.to(f32).contiguous()
+            x_pt = x_pt.to(f32)
+            for i in range(self.cfg.num_seed_layers):
+                x = FB.fused_attention_block(
+                    FB.pack_fused_block(self.pt2a_attn_layers[i]), x,
+                    x_pt[pl_keys].contiguous(), r_pl, pl_m, H)
+                x = FB.fused_attention_block(
+                    FB.pack_fused_block(self.a2a_attn_layers[i]), x,
+                    x[a2a_idx].contiguous(), r_aa, aa_m, H)
+            return x
+        for i in range(self.cfg.num_seed_layers):
+            x = self.pt2a_attn_layers[i](
+                x[:, None, :], x_pt[pl_keys], r_pl[:, None],
+                pl_m[:, None])[:, 0, :]
+            x = self.a2a_attn_layers[i](
+                x[:, None, :], x[a2a_idx], r_aa[:, None],
+                aa_m[:, None])[:, 0, :]
+        return x
 
     def refine_column_sub(self, x_sub, pl_keys, pl_r_raw, pl_mask,
                           a2a_r_raw, a2a_mask):

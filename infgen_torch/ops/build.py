@@ -83,6 +83,7 @@ def _declare(lib):
                                  ("infgen_seed_eval_full", 20, 9),
                                  ("infgen_refine", 12, 7),
                                  ("infgen_motion_column", 14, 7),
+                                 ("infgen_motion_column_lanes", 14, 8),
                                  ("infgen_fused_block", 6, 7),
                                  ("infgen_r_biased_attention", 9, 6)):
         fn = getattr(lib, name)

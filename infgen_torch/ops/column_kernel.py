@@ -15,15 +15,22 @@ csrc/motion_column.cu, whose header states its bound and design).
                            tensors, takes the plain version for CPU tensors,
                            raises otherwise
 
+Lanes: every array may carry a lane axis B (one scenario each, as `jax.vmap`
+batches the TPU kernel): x0 [B, A, D], key_stack [L, B, A, W, D] (the
+layout AgentDecoder.motion_column carries), the other inputs [B, ...],
+n_rows [B], the output [L, B, A, D]. Each lane is the call on its own
+arrays: its agent-agent keys are its own rows, its bound its own.
+
 Rounding follows the TPU kernel, not the per-module path: the key and
 relation inputs arrive in the compute dtype (the caller casts them once),
 the running column stays fp32 through all 3L sublayers, and the caller casts
 the [L, A, D] fp32 output to the compute dtype.
 
-Occupancy bound `n_rows` (a device int32 scalar, read by the kernel, never
-by the host): rows at or above it must have every key masked (inactive agent
-slots); their attention is skipped and they take the zero-aggregate
-epilogue, which is what the full computation gives them, bit for bit.
+Occupancy bound `n_rows` (a device int32 scalar, one per lane with a lane
+axis; read by the kernel, never by the host): rows at or above it must have
+every key masked (inactive agent slots); their attention is skipped and
+they take the zero-aggregate epilogue, which is what the full computation
+gives them, bit for bit.
 """
 
 from dataclasses import dataclass
@@ -179,19 +186,20 @@ def column_tiles(w: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def scratch_floats(dtype, L: int, A: int, W: int, K: int, D: int) -> int:
-    """fp32 scratch of one call (csrc/motion_column.cu's Scratch rows):
+    """fp32 scratch of one lane (csrc/motion_column.cu's Scratch rows):
     five [A, D] hand-over rows; bf16 also the agent-agent aggregate and the
     pair projections, per layer and query row k and v rows for up to W
-    temporal, K map and A agent keys (its pair_layer)."""
+    temporal, K map and A agent keys (its pair_layer). A call over B lanes
+    takes B times this."""
     if dtype != torch.bfloat16:
         return 5 * A * D
     return 6 * A * D + L * A * (W + K + A) * 2 * D
 
 
 def launches_per_call(dtype, L: int) -> int:
-    """Kernel launches of one call: per layer a row and an agent-agent
-    kernel; bf16: the pair-projection kernel before them and per layer the
-    agent-agent attention kernel between them."""
+    """Kernel launches of one call, with or without lanes: per layer a row
+    and an agent-agent kernel; bf16: the pair-projection kernel before them
+    and per layer the agent-agent attention kernel between them."""
     return 3 * L + 1 if dtype == torch.bfloat16 else 2 * L
 
 
@@ -265,7 +273,16 @@ def motion_column_reference(pack: ColumnPack, x0, key_stack, r_t, t_mask,
     Returns [L, A, D] fp32 (row l = layer l's output). With layer_inputs
     [L, A, D] (another run's outputs), layer l > 0 starts from
     layer_inputs[l - 1] instead of this run's layer l - 1: one layer at a
-    time, on the same inputs as that run's."""
+    time, on the same inputs as that run's. With a lane axis (x0 [B, A, D],
+    the module docstring's shapes; layer_inputs [L, B, A, D]) each lane is
+    the call on its own arrays, into [L, B, A, D]."""
+    if x0.dim() == 3:
+        return torch.stack([motion_column_reference(
+            pack, x0[b], key_stack[:, b], r_t[b], t_mask[b], pl_keys[b],
+            r_pl[b], pl_mask[b], r_aa[b], aa_mask[b], num_heads, head_dim,
+            None if n_rows is None else n_rows[b],
+            None if layer_inputs is None else layer_inputs[:, b])
+            for b in range(x0.shape[0])], 1)
     x = x0.to(torch.float32)
     A = x.shape[0]
     live = None if n_rows is None else \
@@ -292,19 +309,39 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
     r_t [A, W, D], pl_keys / r_pl [A, K, D] and r_aa [A, A, D] in the
     pack's compute dtype; t_mask [A, W], pl_mask [A, K], aa_mask [A, A]
     bool; n_rows an int32 scalar tensor on the same device, or None (all
-    rows). Returns [L, A, D] fp32. CUDA tensors launch
-    csrc/motion_column.cu on the current stream (launches_per_call kernels,
-    counted once in `motion_column_kernel.launches`); CPU tensors take
-    motion_column_reference."""
+    rows). Returns [L, A, D] fp32. With a lane axis (the module docstring's
+    shapes) n_rows is [B] or None and the output [L, B, A, D]; the width
+    limits (kernel_accepts) hold per lane. CUDA tensors launch
+    csrc/motion_column.cu on the current stream (launches_per_call kernels
+    for every lane, counted once in `motion_column_kernel.launches`); CPU
+    tensors take motion_column_reference."""
     dev = x0.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"motion_column_kernel: unsupported device {dev}")
+    L, D, cdt = pack.L, pack.D, pack.dtype
+    lead = tuple(x0.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("motion_column_kernel takes x0 [A, D] or [B, A, D],"
+                         f" got {tuple(x0.shape)}")
+    A, W, K = x0.shape[-2], key_stack.shape[-2], pl_keys.shape[-2]
+    _check("x0", x0, torch.float32, (*lead, A, D), dev)
+    _check("key_stack", key_stack, cdt, (L, *lead, A, W, D), dev)
+    _check("r_t", r_t, cdt, (*lead, A, W, D), dev)
+    _check("t_mask", t_mask, torch.bool, (*lead, A, W), dev)
+    _check("pl_keys", pl_keys, cdt, (*lead, A, K, D), dev)
+    _check("r_pl", r_pl, cdt, (*lead, A, K, D), dev)
+    _check("pl_mask", pl_mask, torch.bool, (*lead, A, K), dev)
+    _check("r_aa", r_aa, cdt, (*lead, A, A, D), dev)
+    _check("aa_mask", aa_mask, torch.bool, (*lead, A, A), dev)
+    if n_rows is not None:
+        _check("n_rows", n_rows, torch.int32,
+               lead if lead else n_rows.shape, dev)
+        if not lead and n_rows.numel() != 1:
+            raise ValueError("n_rows must hold one value")
     if dev.type == "cpu":
         return motion_column_reference(pack, x0, key_stack, r_t, t_mask,
                                        pl_keys, r_pl, pl_mask, r_aa,
                                        aa_mask, num_heads, head_dim, n_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"motion_column_kernel: unsupported device {dev}")
-    L, D, cdt = pack.L, pack.D, pack.dtype
-    A, W, K = x0.shape[0], key_stack.shape[2], pl_keys.shape[1]
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"motion_column_kernel: compute dtype {cdt} "
                          "unsupported")
@@ -314,19 +351,6 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
             "(bf16: D = 128, head_dim 16) and at most 256 keys per query, "
             f"got D={D}, {num_heads} heads of {head_dim}, "
             f"{max(A, W, K)} keys")
-    _check("x0", x0, torch.float32, (A, D), dev)
-    _check("key_stack", key_stack, cdt, (L, A, W, D), dev)
-    _check("r_t", r_t, cdt, (A, W, D), dev)
-    _check("t_mask", t_mask, torch.bool, (A, W), dev)
-    _check("pl_keys", pl_keys, cdt, (A, K, D), dev)
-    _check("r_pl", r_pl, cdt, (A, K, D), dev)
-    _check("pl_mask", pl_mask, torch.bool, (A, K), dev)
-    _check("r_aa", r_aa, cdt, (A, A, D), dev)
-    _check("aa_mask", aa_mask, torch.bool, (A, A), dev)
-    if n_rows is not None:
-        _check("n_rows", n_rows, torch.int32, n_rows.shape, dev)
-        if n_rows.numel() != 1:
-            raise ValueError("n_rows must hold one value")
     _check("weights", pack.weights, cdt, pack.weights.shape, dev)
     _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
     if cdt == torch.bfloat16:
@@ -334,15 +358,16 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
 
     from infgen_torch.ops.build import library
     lib = library()
+    B = lead[0] if lead else 1
     f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((L, A, D), **f32)
-    # per-layer hand-over from the row kernel to the agent-agent kernel:
-    # x after the map sublayer, its normalised query / key rows, q, k, v;
-    # bf16: also the agent-agent aggregate and every layer's pair
-    # projections (scratch_floats)
-    scratch = torch.empty((scratch_floats(cdt, L, A, W, K, D),), **f32)
+    out = torch.empty((L, *lead, A, D), **f32)
+    # per lane and layer the hand-over from the row kernel to the
+    # agent-agent kernel: x after the map sublayer, its normalised query /
+    # key rows, q, k, v; bf16: also the agent-agent aggregate and every
+    # layer's pair projections (scratch_floats)
+    scratch = torch.empty((B * scratch_floats(cdt, L, A, W, K, D),), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.infgen_motion_column(
+    err = lib.infgen_motion_column_lanes(
         _DTYPE_CODE[cdt], x0.data_ptr(), key_stack.data_ptr(),
         r_t.data_ptr(), t_mask.data_ptr(), pl_keys.data_ptr(),
         r_pl.data_ptr(), pl_mask.data_ptr(), r_aa.data_ptr(),
@@ -350,7 +375,7 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
         ctypes.addressof(pack.ptrs),
         0 if cdt != torch.bfloat16 else pack.tiles.data_ptr(),
         out.data_ptr(), scratch.data_ptr(),
-        L, A, W, K, D, num_heads, head_dim, stream)
+        L, A, W, K, D, num_heads, head_dim, B, stream)
     if err != 0:
         raise RuntimeError(f"motion_column kernel launch failed: cudaError "
                            f"{err}")

@@ -16,6 +16,13 @@
 // The running column stays fp32 in shared memory within a launch and in
 // global memory between launches; row l of the output is layer l's result.
 //
+// Lanes (what jax.vmap of the TPU kernel computes): a call may take B
+// scenarios at once, each launch's grid gaining a second dimension, one
+// lane per blockIdx.y, so a call launches as many kernels as without lanes.
+// A block reads and writes its own lane's arrays, occupancy bound and
+// scratch only (at_lane): agent-agent keys never cross lanes, and each
+// lane computes what the call on its arrays alone computes, bit for bit.
+//
 // Rounding follows the TPU kernel: key and relation inputs arrive in the
 // compute dtype T, the running column stays fp32 through all 3L sublayers,
 // and every matmul operand is rounded to T with fp32 sums. Occupancy bound:
@@ -101,26 +108,55 @@ namespace {
 // (bf16: AGG, the agent-agent attention's aggregate, from aa_attend_kernel)
 enum Scratch { XMID, DNAA, QAA, KSH, VSH, AGG };
 
+// The arrays of a call over B lanes (one scenario each; B = 1 without a
+// lane axis). A kernel's blockIdx.y is its lane: at_lane moves the pointers
+// to that lane's arrays, and layer l of the key stack and of the output is
+// at layer_rows(p, l) rows, past every lane's earlier layers.
 struct Params {
-  const float* x0;         // [A, D]
-  const void* key_stack;   // [L, A, W, D] T
-  const void* r_t;         // [A, W, D] T
-  const uint8_t* t_mask;   // [A, W]
-  const void* pl_keys;     // [A, K, D] T
-  const void* r_pl;        // [A, K, D] T
-  const uint8_t* pl_mask;  // [A, K]
-  const void* r_aa;        // [A, A, D] T
-  const uint8_t* aa_mask;  // [A, A]
-  const int* n_rows;       // [1] or null (every row)
+  const float* x0;         // [B, A, D]
+  const void* key_stack;   // [L, B, A, W, D] T
+  const void* r_t;         // [B, A, W, D] T
+  const uint8_t* t_mask;   // [B, A, W]
+  const void* pl_keys;     // [B, A, K, D] T
+  const void* r_pl;        // [B, A, K, D] T
+  const uint8_t* pl_mask;  // [B, A, K]
+  const void* r_aa;        // [B, A, A, D] T
+  const uint8_t* aa_mask;  // [B, A, A]
+  const int* n_rows;       // [B] or null (every row)
   const void* w[kNumArgs];
   const void* tiles;       // bf16: column_tiles [3L, 17, D, D]; fp32: null
-  float* out;              // [L, A, D]
-  float* scratch;          // [5, A, D]
-  int L, A, W, K, D, H, Hd, nmax;
+  float* out;              // [L, B, A, D]
+  float* scratch;          // [B, lane_scratch]
+  size_t lane_scratch;     // fp32: 5 A D; bf16: 6 A D + L pair_layer
+  int L, B, A, W, K, D, H, Hd, nmax;
 };
 
 __device__ __forceinline__ Sub sub(const Params& p, int j) {
   return Sub{p.w, j, p.D, p.H, p.Hd};
+}
+
+// Lane b's view of the call: its own rows, keys, masks, bound and scratch.
+template <typename T>
+__device__ __forceinline__ Params at_lane(Params p, int b) {
+  const size_t A = p.A, AD = A * p.D;
+  p.x0 += b * AD;
+  p.key_stack = static_cast<const T*>(p.key_stack) + b * AD * p.W;
+  p.r_t = static_cast<const T*>(p.r_t) + b * AD * p.W;
+  p.t_mask += b * A * p.W;
+  p.pl_keys = static_cast<const T*>(p.pl_keys) + b * AD * p.K;
+  p.r_pl = static_cast<const T*>(p.r_pl) + b * AD * p.K;
+  p.pl_mask += b * A * p.K;
+  p.r_aa = static_cast<const T*>(p.r_aa) + b * AD * A;
+  p.aa_mask += b * A * A;
+  if (p.n_rows) p.n_rows += b;
+  p.out += b * AD;
+  p.scratch += b * p.lane_scratch;
+  return p;
+}
+
+// Rows before layer l in the key stack and the output: l B A.
+__device__ __forceinline__ size_t layer_rows(const Params& p, int l) {
+  return (size_t)l * p.B * p.A;
 }
 
 __device__ __forceinline__ bool live_row(const Params& p, int a) {
@@ -130,14 +166,15 @@ __device__ __forceinline__ bool live_row(const Params& p, int a) {
 // Layer l, row blockIdx.x: the temporal and map sublayers, then the
 // agent-agent sublayer's prologue, handed over through `scratch`.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) row_kernel(Params p, int l) {
+__global__ void __launch_bounds__(kThreads, 1) row_kernel(Params p0, int l) {
   extern __shared__ float smem[];
+  const Params p = at_lane<T>(p0, blockIdx.y);
   const Smem s = carve(smem, p.D, p.H, p.nmax);
   const int a = blockIdx.x, A = p.A, D = p.D, tid = threadIdx.x;
   const int bd = blockDim.x;
   const bool live = live_row(p, a);
   const float* x_in = l == 0 ? p.x0 + (size_t)a * D
-                             : p.out + ((size_t)(l - 1) * A + a) * D;
+                             : p.out + (layer_rows(p, l - 1) + a) * D;
   for (int i = tid; i < D; i += bd) s.x[i] = x_in[i];
   __syncthreads();
 
@@ -147,7 +184,7 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(Params p, int l) {
   if (live)
     row_attend<T, T>(u,
                      static_cast<const T*>(p.key_stack) +
-                         ((size_t)l * A + a) * p.W * D,
+                         (layer_rows(p, l) + a) * p.W * D,
                      static_cast<const T*>(p.r_t) + (size_t)a * p.W * D,
                      p.t_mask + (size_t)a * p.W, p.W, nullptr, nullptr, s);
   else
@@ -184,8 +221,9 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(Params p, int l) {
 // Layer l, row blockIdx.x: attention over the other rows' shared keys with
 // the pair relations, the epilogue, and the layer's output row.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) aa_kernel(Params p, int l) {
+__global__ void __launch_bounds__(kThreads, 1) aa_kernel(Params p0, int l) {
   extern __shared__ float smem[];
+  const Params p = at_lane<T>(p0, blockIdx.y);
   const Smem s = carve(smem, p.D, p.H, p.nmax);
   const int a = blockIdx.x, A = p.A, D = p.D, tid = threadIdx.x;
   const int bd = blockDim.x;
@@ -206,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 1) aa_kernel(Params p, int l) {
   else
     zero(s.agg, D);
   row_epilogue<T>(u, s);
-  float* out = p.out + ((size_t)l * A + a) * D;
+  float* out = p.out + (layer_rows(p, l) + a) * D;
   for (int i = tid; i < D; i += bd) out[i] = s.x[i];
 }
 
@@ -220,11 +258,12 @@ int launch(Params& p, cudaStream_t stream) {
   err = cudaFuncSetAttribute(
       aa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.A, p.B);
   for (int l = 0; l < p.L; ++l) {
-    row_kernel<T><<<p.A, kThreads, bytes, stream>>>(p, l);
+    row_kernel<T><<<grid, kThreads, bytes, stream>>>(p, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    aa_kernel<T><<<p.A, kThreads, bytes, stream>>>(p, l);
+    aa_kernel<T><<<grid, kThreads, bytes, stream>>>(p, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -488,8 +527,9 @@ __host__ __device__ inline int pair_blocks(int A) {
 // valid (row, key) pairs of its live rows in order, and gives each warp
 // tiles of 16 pairs: LayerNorm, rounded to bf16 into the warp's operand
 // tiles, [16, D] x [D, D] products, fp32 rows stored.
-__global__ void __launch_bounds__(kCThreads, 1) pair_kernel(Params p) {
+__global__ void __launch_bounds__(kCThreads, 1) pair_kernel(Params p0) {
   extern __shared__ __align__(128) unsigned char smem_c[];
+  const Params p = at_lane<bf16>(p0, blockIdx.y);
   __shared__ uint64_t bar;
   __shared__ int offs[kCR + 1];
   const int A = p.A, nb = (A + kCR - 1) / kCR;
@@ -523,7 +563,7 @@ __global__ void __launch_bounds__(kCThreads, 1) pair_kernel(Params p) {
       kind == 0 ? p.r_t : kind == 1 ? p.r_pl : p.r_aa);
   const bf16* src = static_cast<const bf16*>(kind == 0 ? p.key_stack
                                                        : p.pl_keys);
-  if (kind == 0) src += (size_t)l * A * p.W * kCD;
+  if (kind == 0) src += layer_rows(p, l) * p.W * kCD;
   const uint8_t* mask = kind == 0 ? p.t_mask : kind == 1 ? p.pl_mask
                                                          : p.aa_mask;
   const int nlive = live_rows(p);
@@ -840,8 +880,9 @@ __device__ void col_pairs(const Params& p, const ColSmem& s, int l, int kind,
 // eight warps folds every eighth batch of eight valid keys, their states
 // merged in a fixed order; the aggregate goes to scratch AGG (rows at or
 // above the occupancy bound: zero, no key read).
-__global__ void __launch_bounds__(kCThreads) aa_attend_kernel(Params p,
+__global__ void __launch_bounds__(kCThreads) aa_attend_kernel(Params p0,
                                                               int l) {
+  const Params p = at_lane<bf16>(p0, blockIdx.y);
   __shared__ uint8_t kidx[kMaxKeys];
   __shared__ float sm[kCWarps][32], sden[kCWarps][32];
   __shared__ float4 sacc[kCWarps][32];
@@ -987,9 +1028,10 @@ __device__ void col_epilogue(const Sub& u, const ColSmem& s, Ring& ring) {
 
 // Layer l, rows [16 blockIdx.x, +16): the temporal and map sublayers, then
 // the agent-agent sublayer's prologue, handed over through `scratch`.
-__global__ void __launch_bounds__(kCThreads, 1) row_kernel_bf16(Params p,
+__global__ void __launch_bounds__(kCThreads, 1) row_kernel_bf16(Params p0,
                                                                 int l) {
   extern __shared__ __align__(128) unsigned char smem_c[];
+  const Params p = at_lane<bf16>(p0, blockIdx.y);
   __shared__ uint64_t bars[kSlots];
   const ColSmem s = col_carve(smem_c);
   const int A = p.A, a0 = blockIdx.x * kCR, nr = min(kCR, A - a0);
@@ -1002,7 +1044,7 @@ __global__ void __launch_bounds__(kCThreads, 1) row_kernel_bf16(Params p,
   Ring ring{static_cast<const bf16*>(p.tiles), s.slot, bars, l, 0, kRowSeq,
             0, 0, 0};
   ring_top_up(ring);
-  const float* x_in = l == 0 ? p.x0 : p.out + (size_t)(l - 1) * A * kCD;
+  const float* x_in = l == 0 ? p.x0 : p.out + layer_rows(p, l - 1) * kCD;
   for (int i = tid; i < kRowF; i += bd)
     s.xs[i] = i / kCD < nr ? x_in[(size_t)a0 * kCD + i] : 0.f;
   __syncthreads();
@@ -1047,9 +1089,10 @@ __global__ void __launch_bounds__(kCThreads, 1) row_kernel_bf16(Params p,
 
 // Layer l, rows [16 blockIdx.x, +16): the agent-agent sublayer's epilogue
 // on aa_attend_kernel's aggregates, and the layer's rows.
-__global__ void __launch_bounds__(kCThreads, 1) aa_kernel_bf16(Params p,
+__global__ void __launch_bounds__(kCThreads, 1) aa_kernel_bf16(Params p0,
                                                                int l) {
   extern __shared__ __align__(128) unsigned char smem_c[];
+  const Params p = at_lane<bf16>(p0, blockIdx.y);
   __shared__ uint64_t bars[kSlots];
   const ColSmem s = col_carve(smem_c);
   const int A = p.A, a0 = blockIdx.x * kCR, nr = min(kCR, A - a0);
@@ -1073,7 +1116,7 @@ __global__ void __launch_bounds__(kCThreads, 1) aa_kernel_bf16(Params p,
   }
   __syncthreads();
   col_epilogue(sub(p, 3 * l + 2), s, ring);
-  float* out = p.out + ((size_t)l * A + a0) * kCD;
+  float* out = p.out + (layer_rows(p, l) + a0) * kCD;
   for (int i = tid; i < nr * kCD; i += bd) out[i] = s.xs[i];
 }
 
@@ -1088,15 +1131,16 @@ int launch_bf16(Params& p, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(aa_kernel_bf16, kColSmem, done_a);
   if (err != cudaSuccess) return (int)err;
-  pair_kernel<<<p.L * pair_blocks(p.A), kCThreads, kPairSmem, stream>>>(p);
+  pair_kernel<<<dim3(p.L * pair_blocks(p.A), p.B), kCThreads, kPairSmem,
+                stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int grid = (p.A + kCR - 1) / kCR;
+  const dim3 grid((p.A + kCR - 1) / kCR, p.B);
   for (int l = 0; l < p.L; ++l) {
     row_kernel_bf16<<<grid, kCThreads, kColSmem, stream>>>(p, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    aa_attend_kernel<<<p.A, kCThreads, 0, stream>>>(p, l);
+    aa_attend_kernel<<<dim3(p.A, p.B), kCThreads, 0, stream>>>(p, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     aa_kernel_bf16<<<grid, kCThreads, kColSmem, stream>>>(p, l);
@@ -1111,15 +1155,17 @@ int launch_bf16(Params& p, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16 (keys, relations and packed matrices;
 // D = 128 with 8 heads of 16, column_kernel.py::kernel_accepts). ptrs: host
 // array of kNumArgs device pointers. tiles: bf16, the pack's column_tiles
-// (null for fp32). n_rows: device int or null.
-// scratch: fp32 [5, A, D]. Returns a cudaError_t; 0 on successful launches.
-extern "C" int infgen_motion_column(
+// (null for fp32). Over B lanes (Params): n_rows a device int per lane or
+// null; scratch fp32, column_kernel.py::scratch_floats per lane. The width
+// limits hold per lane. Returns a cudaError_t; 0 on successful launches.
+extern "C" int infgen_motion_column_lanes(
     int dtype, const float* x0, const void* key_stack, const void* r_t,
     const uint8_t* t_mask, const void* pl_keys, const void* r_pl,
     const uint8_t* pl_mask, const void* r_aa, const uint8_t* aa_mask,
     const int* n_rows, const uint64_t* ptrs, const void* tiles, float* out,
-    float* scratch, int L, int A, int W, int K, int D, int H, int Hd,
+    float* scratch, int L, int A, int W, int K, int D, int H, int Hd, int B,
     void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   Params p;
   p.x0 = x0;
   p.key_stack = key_stack;
@@ -1137,14 +1183,32 @@ extern "C" int infgen_motion_column(
   p.out = out;
   p.scratch = scratch;
   p.L = L;
+  p.B = B;
   p.A = A;
   p.W = W;
   p.K = K;
   p.D = D;
   p.H = H;
   p.Hd = Hd;
+  p.lane_scratch = dtype == 1
+                       ? (size_t)6 * A * D + (size_t)L * pair_layer(A, W, K)
+                       : (size_t)5 * A * D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch_bf16(p, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The call without a lane axis (one lane; n_rows [1] or null).
+extern "C" int infgen_motion_column(
+    int dtype, const float* x0, const void* key_stack, const void* r_t,
+    const uint8_t* t_mask, const void* pl_keys, const void* r_pl,
+    const uint8_t* pl_mask, const void* r_aa, const uint8_t* aa_mask,
+    const int* n_rows, const uint64_t* ptrs, const void* tiles, float* out,
+    float* scratch, int L, int A, int W, int K, int D, int H, int Hd,
+    void* stream) {
+  return infgen_motion_column_lanes(dtype, x0, key_stack, r_t, t_mask,
+                                    pl_keys, r_pl, pl_mask, r_aa, aa_mask,
+                                    n_rows, ptrs, tiles, out, scratch, L, A,
+                                    W, K, D, H, Hd, 1, stream);
 }

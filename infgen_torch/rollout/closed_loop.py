@@ -18,10 +18,9 @@ generator of its own. A single scenario is one lane, the axis squeezed on
 output. Per lane the result is the single rollout's of that scenario with
 that generator. The insertion loop runs while any lane runs; a stopped
 lane is frozen by the select of the fixed-trip form, and only running lanes
-draw. The seed kernels, the refine kernel and the fused blocks take every
-lane in one launch (the seed and refine kernels skip the lanes that stopped
-or do not insert); the column kernel takes one scenario's rows: under its
-flag a rollout of more than one lane raises.
+draw. Every kernel takes every lane in one launch (the seed and refine
+kernels skip the lanes that stopped or do not insert; the column kernel
+skips each lane's rows past its own occupancy bound).
 
 The big rollout state (`RolloutCarry`) is updated in place, column by
 column; the small per-step insertion state is rebuilt functionally, so that
@@ -51,7 +50,8 @@ takes its plain twin for CPU tensors):
                         geometry embedding, the mask row and the occupancy bit
   use_refine_kernel     the per-insert refine pass (ops/refine_kernel)
   use_column_kernel     the whole trunk column (ops/column_kernel), with the
-                        occupancy bound n_rows computed on the device
+                        occupancy bound n_rows computed on the device, one
+                        per lane
   use_fused_block       each of the trunk's 3L sublayers as one call
                         (ops/fused_block); the column kernel takes
                         precedence
@@ -93,9 +93,6 @@ from infgen_torch.utils.geometry import (angle_between_2d_vectors,
 
 REFINE_A2SA_K = 24   # reference max_num_neighbors=24
 REFINE_PL2SA_K = 32  # 10 m radius holds far fewer map tokens
-# the flags whose kernels take one scenario's rows: a rollout of more than
-# one lane refuses them
-ONE_LANE_FLAGS = ("use_column_kernel",)
 
 
 class RolloutCarry(NamedTuple):
@@ -178,10 +175,9 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     data.features.build_model_inputs) and `generator` a torch.Generator on
     it. With a list of generators, one per lane, `scenario` and `inputs`
     are stacked along a leading lane axis (data.scenario.stack_scenarios,
-    data.features.build_model_inputs_batch) and every output gains it. A
-    rollout of more than one lane under one of ONE_LANE_FLAGS (the column
-    kernel's) raises ValueError; every other kernel takes the lanes in one
-    launch per call. force_insert=True makes every insertion iteration propose
+    data.features.build_model_inputs_batch) and every output gains it.
+    Every kernel takes the lanes in one launch per call.
+    force_insert=True makes every insertion iteration propose
     an agent whatever the seed-state head says (bounds the trained-model
     insertion cost for benchmarking). The returned function counts its
     host reads in `rollout.host_reads` (reset at each call).
@@ -226,7 +222,6 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     use_refk = (cfg.use_refine_kernel and cfg.use_head_token
                 and cfg.use_grid_token)
     use_fused = cfg.use_fused_block and not cfg.use_column_kernel
-    one_lane = [f for f in ONE_LANE_FLAGS if getattr(cfg, f)]
 
     f32, i32 = torch.float32, torch.int32
     token_traj_all = torch.as_tensor(np.stack(
@@ -274,9 +269,6 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                                 for t in (scenario, inputs))
             generator = [generator]
         B = len(generator)
-        if B > 1 and one_lane:
-            raise ValueError(f"{one_lane[0]}: its kernel takes one scenario;"
-                             f" a rollout of {B} lanes needs it off")
         if inputs.slot_mask.shape[0] != B:
             raise ValueError(f"{B} generators for "
                              f"{inputs.slot_mask.shape[0]} lanes")

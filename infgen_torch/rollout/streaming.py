@@ -278,9 +278,7 @@ class StreamingRollout:
     `run_batch` streams many at once, each segment dispatched through
     `RolloutServer.rollout_batch`, so scenarios sharing a capacity bucket
     run as lanes of one rollout and re-bucket independently as their live
-    counts drift. Under use_column_kernel (closed_loop.ONE_LANE_FLAGS) a
-    batch of more than one lane raises, as the rollout does; every other
-    kernel flag runs its lanes in one launch per call.
+    counts drift. Every kernel flag runs its lanes in one launch per call.
 
     Results are numpy arrays over [G, F] (G = agents ever alive, F = 10 Hz
     frames). `host_reads` holds the last run's rollout host reads.
@@ -497,9 +495,7 @@ def make_chunked_stream_runner(cfg, attr, motion_tok, map_vocab,
     last call's rollout host reads; `run.agents_ever_alive` holds, per lane,
     the agents it simulated: the gids its chunks' stitched registries hold
     together less the survivors each chunk took over from the one before,
-    counted on the device (`_new_gids`) and read once at the end. Under
-    use_column_kernel (closed_loop.ONE_LANE_FLAGS) a fleet of more than one
-    scenario raises, as the rollout does.
+    counted on the device (`_new_gids`) and read once at the end.
     """
     fns = {}
 

@@ -32,7 +32,7 @@ and the rollout's lane axis, on the CPU.
   `jax.jit(jax.vmap(...))` of the JAX package's rollout (PARITY.md's
   protocol; the JAX side traces and compiles in a process of its own,
   started by its module fixture, while the port-only tests run). The
-  column kernel's flag still refuses lanes.
+  column kernel's lanes: tests/test_torch_column_lanes.py.
 """
 
 import json
@@ -923,23 +923,6 @@ def test_lane_flags_serve_lanes(stop_apart, flag):
         _same(lane, single, pose_tol=LANE_POSE_TOL["beam1"])
         np.testing.assert_array_equal(lane["next_token_idx"].numpy(),
                                       plain["next_token_idx"].numpy())
-
-
-@pytest.mark.parametrize("flag", CL.ONE_LANE_FLAGS)
-def test_one_lane_flags_refuse_lanes(tiny, flag):
-    """The column kernel's flag, the one left in ONE_LANE_FLAGS, refuses a
-    rollout of more than one lane."""
-    assert CL.ONE_LANE_FLAGS == ("use_column_kernel",)
-    cfg, (attr, mt, mv), model = tiny
-    c = cfg.replace(**{flag: True})
-    fn = CL.make_rollout_fn(model, c, attr, mt, mv)
-    scens = [make_synthetic_scenario(cfg, seed=s, num_agents=4)
-             for s in (0, 1)]
-    batch = S.to_device(S.stack_scenarios(scens), "cpu")
-    gens = [torch.Generator().manual_seed(i) for i in range(2)]
-    inputs = build_model_inputs_batch(c, mt, attr, batch, gens)
-    with pytest.raises(ValueError, match=flag):
-        fn(batch, inputs, gens)
 
 
 def test_chunked_fleet_under_lane_flags(tiny):

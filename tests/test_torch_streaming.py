@@ -21,9 +21,8 @@ the long rollout's prefix; a stream is deterministic; `run_batch` equals
 `run`; `continuation_device` equals `continuation_scenario` bit for bit; the
 device loop equals the host loop without compaction; the stitched registry's
 invariants, and lane 0 of a fleet equal to the single stream; the chunked
-runner's planned re-bucket and its fallback to full capacity; a one-lane
-kernel flag streams one lane and refuses a fleet; a compacting server
-streams the same; `cli stream` writes its npz files, and without a GPU
+runner's planned re-bucket and its fallback to full capacity; a compacting
+server streams the same; `cli stream` writes its npz files, and without a GPU
 raises unless asked for the CPU.
 """
 
@@ -539,28 +538,6 @@ def test_chunked_runner_counts_agents_ever_alive(tiny):
     # live slots plus insertions would count the left agent's slot twice
     assert int(np.asarray(ag.slot_mask).sum()) + inserted[1] > want[1]
     assert runner.agents_ever_alive == want.tolist()
-
-
-def test_one_lane_flag_streams_one_lane(tiny):
-    """Under the one-lane kernel flag (use_column_kernel, the only one in
-    closed_loop.ONE_LANE_FLAGS) a single stream runs; a fleet of two raises
-    as the rollout does, in run_batch, the device loop and the chunked
-    runner."""
-    cfg0, tok, model = tiny
-    cfg = cfg0.replace(use_column_kernel=True)
-    scens = [make_synthetic_scenario(cfg, seed=0, num_agents=6),
-             make_synthetic_scenario(cfg, seed=1, num_agents=5)]
-    fn = ST.make_stream_fn(model, cfg, *tok, segment_steps=10, n_segments=2)
-    assert fn(scens[0], 1)["pred_state"].shape[0] == 2
-    with pytest.raises(ValueError, match="use_column_kernel"):
-        fn(stack_scenarios(scens), [1, 2])
-    srv = RolloutServer(cfg, *tok, agent_buckets=(16,),
-                        num_recurrent_steps=10)
-    with pytest.raises(ValueError, match="use_column_kernel"):
-        ST.StreamingRollout(srv, 10).run_batch(model, scens, [1, 2], 10)
-    runner = ST.make_chunked_stream_runner(cfg, *tok, segment_steps=10)
-    with pytest.raises(ValueError, match="use_column_kernel"):
-        runner(model, scens, ((16, 1),), 1)
 
 
 TINY_YAML = os.path.join(os.path.dirname(__file__), "..", "configs",
