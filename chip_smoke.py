@@ -48,8 +48,9 @@ before the last line):
            use_fused_block + use_seed_kernel_full + use_refine_kernel, and
            with the latency preset's three kernel flags
   serving  the flagship at full width serving 8 synthetic scenarios
-           through RolloutServer.rollout_batch (agent buckets 32 / 64 /
-           128), in batches of up to 8 lanes and one scenario at a time,
+           (150 frames each) through RolloutServer.rollout_batch (agent
+           buckets 32 / 64 / 128), in batches of up to 8 lanes and one
+           scenario at a time,
            unforced and forced: ms per batched token step, agent-steps/s,
            launches, host reads and peak memory; `serving_kernels` the
            same with use_fused_block, use_seed_kernel_full and
@@ -72,6 +73,24 @@ before the last line):
            launches and backward calls of 15 eligible sublayers per
            scenario forward (remat recompute included); then one fp32 step
            without dropout with the kernel path against the plain one
+  train_configs  every YAML under configs/ (13) at its own full width:
+           init, 2 steps at batch 2 (use_pallas_attention on the agent
+           decoder's configs), finite losses and gradient norms, init and
+           step ms, peak memory, and per step exactly r_biased_attention's
+           launches and backward calls (train_step_counts);
+           then one step of ours_standard_decode_occ.yaml (the occupancy
+           decoder) on the card against the CPU, fp32
+  open_loop  validate_open_loop of the flagship with use_pallas_attention
+           over 8 synthetic scenarios, bf16: ms per scenario, exactly 2
+           forwards x 15 launches per scenario; two scenarios in fp32 on
+           the card against the CPU (logs within OPEN_LOOP_TOL, accuracies
+           equal or apart only by certified near-tie flips)
+  check_inputs  the flagship's tokenised inputs of 8 scenarios: state
+           accuracy and grid overlap counts equal card to CPU
+  warm_start  the flagship trained 2 steps into a checkpoint (cli.run_train),
+           `cli rollout --ckpt-path` from it (70 frames, seed_eval launched)
+           making the decisions of the trainer's in-memory weights, and
+           ours_standard.yaml warm-started from it (`--pretrain-ckpt`)
   scoring  the scored closed loop (cli.run_validate): the flagship at full
            width and depth, production beams (motion 5, insertion 10),
            bf16, seed_eval, over 4 synthetic scenarios (seeds 0-3):
@@ -116,7 +135,9 @@ then the summary line of every kernel ({"kernels": [...]}; every entry but
 r_biased_attention's also carries its lane form's time, bound and
 launches in the served batches (`serving`, `serving_kernels`,
 `serving_latency`), each kernel that `stream` launched its
-`stream_launches`) and, last, the device line {"ok": true, "device":
+`stream_launches`; seed_eval's `warm_start_launches`, r_biased_attention's
+`train_configs_launches`, `train_configs_backward_calls` and
+`open_loop_launches`) and, last, the device line {"ok": true, "device":
 {...}}. Without CUDA it exits non-zero
 and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
 """
@@ -235,6 +256,10 @@ POSE_TOL = 1e-3          # parity poses: fp32 reduction order only
 PARITY_FRAMES = 70       # 14 token steps: Ti = 16 columns > W = 12
 SEED_LANES, SEED_LANES_OFF = 8, (2, 5)   # the lane check's lanes, masked
 SERVING_SCENARIOS = 8    # synthetic scenarios (seeds 0..7) of `serving`
+# frames each served scenario rolls out, cut from the configs' 300 (the
+# plain flagship served one scenario at a time was a sixth of the run) to
+# keep the whole run within its time beside the training phases
+SERVING_FRAMES = 150
 SERVING_BUCKETS = (32, 64, 128)
 REFINE_ROWS, REFINE_AGENTS = 32, 24   # the rollout's refine neighbourhood
 
@@ -2053,12 +2078,32 @@ GRAD_TOL = 1e-4
 
 def train_eligible(cfg):
     """Sublayers of one scenario's training forward that reach
-    r_biased_attention_trainable: per agent layer the temporal and the
-    agent-agent one, per seed layer the a2sa one (the JAX package's
+    r_biased_attention_trainable: per agent layer the temporal (T queries)
+    and the agent-agent one (A + S), per seed layer the a2sa one (S seed
+    queries), each where it has at least 8 queries (the JAX package's
     eligibility rule; pt2a, pt2sa, occ2sa, the refine pass's and the map
     encoder's calls are 4-D, share r or have one query). 15 at the
-    flagship's 6 agent and 3 seed layers."""
-    return 2 * cfg.num_agent_layers + cfg.num_seed_layers
+    flagship's 6 agent and 3 seed layers (T = 18, A + S = 138, S = 10)."""
+    A, S, T = cfg.max_agents, cfg.num_seed_feature, cfg.num_token_steps
+    return (cfg.num_agent_layers * ((T >= 8) + (A + S >= 8))
+            + cfg.num_seed_layers * (S >= 8))
+
+
+def train_step_counts(cfg, batch):
+    """(r_biased_attention launches, backward calls) of one training step
+    at `batch`: each eligible sublayer launches in the forward; those whose
+    outputs reach a loss run the recompute backward, and under remat their
+    forward again. The agent layers' reach the motion, state and occupancy
+    losses; the seed layers' a2sa only the state and insertion heads
+    (predict_state). The map pre-training config trains neither."""
+    A, S, T = cfg.max_agents, cfg.num_seed_feature, cfg.num_token_steps
+    agent = cfg.num_agent_layers * ((T >= 8) + (A + S >= 8))
+    seed = cfg.num_seed_layers * (S >= 8)
+    trained = (agent * (cfg.predict_motion or cfg.predict_state
+                        or cfg.predict_occ)
+               + seed * cfg.predict_state)
+    launches = train_eligible(cfg) + (trained if cfg.remat_attention else 0)
+    return batch * launches, batch * trained
 
 
 def train_shapes(cfg):
@@ -2241,6 +2286,394 @@ def check_train(dev, path=FLAGSHIP):
     require(max(gap.values()) <= TRAIN_PARITY_TOL,
             f"train: the kernel path and the plain path differ by {gap}")
     return res
+
+
+# --------------------------------------------------------------------- #
+# every experiment config, open-loop validation, input checks, warm starts
+# --------------------------------------------------------------------- #
+
+CONFIG_DIR = os.path.join(ROOT, "configs")
+CONFIG_STEPS = 2
+OCC_CONFIG = "ours_standard_decode_occ.yaml"
+# the occupancy step card against CPU, fp32, TF32 off: loss, logs and
+# grad_norm relative, summation order only
+OCC_PARITY_TOL = 1e-4
+OPEN_LOOP_SCENARIOS, OPEN_LOOP_PARITY = 8, 2
+# open_loop's fp32 card against CPU: each mean log relative (fp32 sums of
+# the two forwards in another order); a top-1 decision may differ only
+# where the CPU's two best logits lie within NEAR_TIE and the card chose
+# the other of them (PARITY.md's certified flip)
+OPEN_LOOP_TOL = 1e-4
+NEAR_TIE = 5e-3
+CHECK_INPUTS_SCENARIOS = 8
+WARM_START_DIR = os.path.join(ROOT, "build", "warm_start")
+
+
+def config_files():
+    """Every YAML under configs/, recursively, sorted."""
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(CONFIG_DIR)
+                  for f in fs if f.endswith(".yaml"))
+
+
+def _zero_counts():
+    from infgen_torch.cli import KERNELS
+    from infgen_torch.ops import pallas_attention as PA
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    PA.r_biased_attention_trainable.backward_calls = 0
+
+
+def _batch(cfg, dev):
+    from infgen_torch.data.scenario import stack_scenarios, to_device
+    from infgen_torch.train.loop import SyntheticDataset
+
+    data = SyntheticDataset(cfg, size=len(TRAIN_SEEDS))
+    return to_device(stack_scenarios([data[s] for s in TRAIN_SEEDS]), dev)
+
+
+def check_occ_parity(path, dev):
+    """One Trainer step of the occupancy config at full width, fp32, on the
+    card and on the CPU from the same weights (init_params from cfg.seed)
+    and draws (numpy-seeded selections and map uniforms): loss, logs and
+    grad_norm within OCC_PARITY_TOL; the largest per-parameter gradient gap
+    relative to that parameter's max |g| is reported."""
+    from infgen_torch.config import load_config
+    from infgen_torch.model.occ_decoder import AGENT_LIMIT, PT_LIMIT
+    from infgen_torch.train.train_step import Trainer
+
+    cfg = load_config(path).replace(compute_dtype="float32")
+    rng = np.random.default_rng(31)
+    A, P = cfg.max_agents, cfg.max_map_tokens
+    draws = [dict(sel_a=rng.permutation(A)[:AGENT_LIMIT],
+                  sel_p=rng.permutation(P)[:PT_LIMIT],
+                  pt_uniform=rng.uniform(size=P).astype(np.float32))
+             for _ in TRAIN_SEEDS]
+    logs, grads = {}, {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        tr = Trainer(cfg, d)
+        tr.init_state(torch.Generator().manual_seed(cfg.seed))
+        lg = tr.train_step(_batch(cfg, d), draws=[
+            {k: torch.as_tensor(v, device=d) for k, v in dr.items()}
+            for dr in draws])
+        logs[key] = {k: float(v) for k, v in lg.items()}
+        grads[key] = {n: p.grad.detach().cpu()
+                      for n, p in tr.model.named_parameters()}
+        del tr
+    gap = {k: abs(logs["card"][k] - v) / max(abs(v), 1e-30)
+           for k, v in logs["cpu"].items()}
+    grad_gap = max(float((grads["card"][n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                   for n, g in grads["cpu"].items())
+    return dict(card=logs["card"], cpu=logs["cpu"], relative_gap=gap,
+                max_grad_gap=grad_gap, tolerance=OCC_PARITY_TOL)
+
+
+def check_train_configs(dev):
+    """Every YAML under configs/ at its own full width on the card: the
+    Trainer built and initialised (init_params from cfg.seed), then
+    CONFIG_STEPS steps at batch 2 (synthetic seeds TRAIN_SEEDS) with the
+    agent decoder's configs under use_pallas_attention. Each config's
+    counts are set to 0 before its steps and read after each: per step
+    r_biased_attention launches and its trainable form's recompute backward
+    runs exactly as train_step_counts says (the flagship: 2 (remat) x 15 x
+    batch launches, 15 x batch backward calls); no other kernel launches;
+    the occupancy decoder launches none. Per config: init ms, ms and loss and grad_norm per
+    step, peak memory. Then check_occ_parity. Returns the launches and
+    backward calls summed over the configs."""
+    from infgen_torch.cli import KERNELS
+    from infgen_torch.config import load_config
+    from infgen_torch.ops import pallas_attention as PA
+    from infgen_torch.train.train_step import Trainer
+
+    rba = KERNELS["r_biased_attention"]
+    rows, totals = {}, dict(launches=0, backward_calls=0)
+    for path in config_files():
+        name = os.path.relpath(path, CONFIG_DIR)
+        cfg = load_config(path)
+        occ = cfg.decoder_type == "occ_decoder"
+        if not occ:
+            cfg = cfg.replace(use_pallas_attention=True)
+        want, want_bwd = (0, 0) if occ else train_step_counts(
+            cfg, len(TRAIN_SEEDS))
+        batch = _batch(cfg, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, dev)
+        trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        _zero_counts()
+        steps = []
+        for _ in range(CONFIG_STEPS):
+            n0 = rba.launches
+            b0 = PA.r_biased_attention_trainable.backward_calls
+            t0 = time.perf_counter()
+            logs = {k: float(v) for k, v in
+                    trainer.train_step(batch, gen).items()}   # waits
+            torch.cuda.synchronize()
+            steps.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, loss=logs["loss"],
+                grad_norm=logs["grad_norm"], launches=rba.launches - n0,
+                backward_calls=(PA.r_biased_attention_trainable.backward_calls
+                                - b0)))
+        others = {k: fn.launches for k, fn in KERNELS.items()
+                  if fn is not rba and fn.launches}
+        rows[name] = dict(
+            decoder=cfg.decoder_type, D=cfg.hidden_dim,
+            agent_layers=cfg.num_agent_layers,
+            seed_layers=cfg.num_seed_layers, map_layers=cfg.num_map_layers,
+            A=cfg.max_agents, P=cfg.max_map_tokens,
+            compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+            remat=cfg.remat_attention, use_pallas_attention=not occ,
+            parameters=sum(p.numel() for p in trainer.model.parameters()),
+            init_ms=init_ms, steps=steps,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            expected_launches_per_step=want,
+            expected_backward_calls_per_step=want_bwd, other_launches=others)
+        totals["launches"] += sum(s["launches"] for s in steps)
+        totals["backward_calls"] += sum(s["backward_calls"] for s in steps)
+        del trainer, batch
+        torch.cuda.empty_cache()
+        require(all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                    for s in steps), f"train_configs {name}: {steps}")
+        require(all(s["launches"] == want and s["backward_calls"] == want_bwd
+                    for s in steps) and not others,
+                f"train_configs {name}: launches {steps}, others {others}, "
+                f"not {want} / {want_bwd} per step")
+    occ = check_occ_parity(os.path.join(CONFIG_DIR, OCC_CONFIG), dev)
+    emit("train_configs", configs=rows, batch=len(TRAIN_SEEDS),
+         steps=CONFIG_STEPS, launches=totals, occ_parity=occ)
+    require(len(rows) == 13, f"train_configs: {len(rows)} configs, not 13")
+    require(max(occ["relative_gap"].values()) <= OCC_PARITY_TOL,
+            f"train_configs: the occupancy step card against CPU {occ}")
+    return totals
+
+
+def _top1_decisions(trainer, scen, draws):
+    """The open-loop accuracy forward's (loop.accuracy_forward) evaluation
+    masks, and the two best logits' indices and gap per cell (numpy)."""
+    from infgen_torch.train.loop import accuracy_forward
+
+    with torch.no_grad():
+        logits, _, masks = accuracy_forward(trainer, scen, None, draws)
+        out = {}
+        for name in ("token", "state"):
+            top = logits[name].float().topk(2, -1)
+            out[name] = dict(
+                mask=masks[name].cpu().numpy(),
+                top2=top.indices.cpu().numpy(),
+                gap=(top.values[..., 0] - top.values[..., 1]).cpu().numpy())
+    return out
+
+
+def certify_flips(card, cpu):
+    """Cells whose top-1 choice differs card to CPU: (count, certified),
+    certified when each lies within NEAR_TIE on the CPU and the card chose
+    the CPU's second best."""
+    n, ok = 0, True
+    for name in ("token", "state"):
+        c, g = card[name], cpu[name]
+        m = c["mask"] & g["mask"]
+        diff = m & (c["top2"][..., 0] != g["top2"][..., 0])
+        n += int(diff.sum())
+        ok &= bool((g["gap"][diff] < NEAR_TIE).all()
+                   and (c["top2"][..., 0][diff] == g["top2"][..., 1][diff])
+                   .all())
+    return n, ok
+
+
+def check_open_loop(dev):
+    """validate_open_loop of the flagship with use_pallas_attention at full
+    width, bf16, on OPEN_LOOP_SCENARIOS synthetic scenarios (weights from
+    cfg.seed): ms per scenario (host clock to the read), peak memory and,
+    counts set to 0 just before, r_biased_attention's launches, exactly 2
+    forwards x train_eligible per scenario (no remat without gradients).
+    Then OPEN_LOOP_PARITY scenarios in fp32 on the card and the CPU from the
+    same weights and draws (numpy-seeded): every mean log within
+    OPEN_LOOP_TOL relative, token and state accuracy equal or apart only by
+    certified flips (certify_flips on the accuracy forward's decisions).
+    Returns the launches."""
+    from infgen_torch.cli import KERNELS
+    from infgen_torch.config import load_config
+    from infgen_torch.data.scenario import to_device
+    from infgen_torch.train.loop import SyntheticDataset, validate_open_loop
+    from infgen_torch.train.train_step import Trainer
+
+    quiet = lambda msg: None
+    cfg = load_config(FLAGSHIP).replace(use_pallas_attention=True)
+    data = SyntheticDataset(cfg, size=OPEN_LOOP_SCENARIOS)
+    trainer = Trainer(cfg, dev)
+    trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    validate_open_loop(trainer, data, 1, quiet)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = validate_open_loop(trainer, data, OPEN_LOOP_SCENARIOS, quiet)
+    ms = (time.perf_counter() - t0) * 1e3 / OPEN_LOOP_SCENARIOS
+    launches = KERNELS["r_biased_attention"].launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = 2 * train_eligible(cfg) * OPEN_LOOP_SCENARIOS
+    del trainer
+
+    c32 = cfg.replace(compute_dtype="float32")
+    rng = np.random.default_rng(41)
+    A, T, P = c32.max_agents, c32.num_token_steps, c32.max_map_tokens
+    draw = lambda: dict(pt_uniform=rng.uniform(size=P),
+                        sa_uniform=rng.uniform(size=(A, T)))
+    draws = [dict(loss=draw(), accuracy=draw())
+             for _ in range(OPEN_LOOP_PARITY)]
+    res, decisions = {}, {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        on = lambda x: torch.as_tensor(x, dtype=torch.float32, device=d)
+        dd = [{k: {n: on(v) for n, v in part.items()}
+               for k, part in per.items()} for per in draws]
+        tr = Trainer(c32, d)
+        tr.init_state(torch.Generator().manual_seed(cfg.seed))
+        res[key] = validate_open_loop(tr, data, OPEN_LOOP_PARITY, quiet, dd)
+        tr.model.eval()
+        decisions[key] = [_top1_decisions(tr, to_device(data[i], d),
+                                             dd[i]["accuracy"])
+                             for i in range(OPEN_LOOP_PARITY)]
+        del tr
+    gap = {k: abs(res["card"][k] - v) / max(abs(v), 1e-30)
+           for k, v in res["cpu"].items() if not k.endswith("_accuracy")}
+    flips = [certify_flips(c, g) for c, g in zip(decisions["card"],
+                                                 decisions["cpu"])]
+    n_flips = sum(n for n, _ in flips)
+    emit("open_loop", config=os.path.relpath(FLAGSHIP, ROOT),
+         use_pallas_attention=True, compute_dtype=cfg.compute_dtype,
+         scenarios=OPEN_LOOP_SCENARIOS, results=out, ms_per_scenario=ms,
+         max_memory_allocated=peak, launches=launches,
+         launches_per_scenario=launches / OPEN_LOOP_SCENARIOS,
+         expected_launches=want,
+         fp32_parity=dict(scenarios=OPEN_LOOP_PARITY, card=res["card"],
+                          cpu=res["cpu"], relative_gap=gap,
+                          tolerance=OPEN_LOOP_TOL, flips=n_flips,
+                          near_tie=NEAR_TIE))
+    require(all(np.isfinite(v) for v in out.values()),
+            f"open_loop: non-finite results {out}")
+    require(launches == want, f"open_loop: r_biased_attention launched "
+            f"{launches} times, not {want}")
+    require(max(gap.values()) <= OPEN_LOOP_TOL,
+            f"open_loop: card and CPU logs differ by {gap}")
+    require(all(ok for _, ok in flips), f"open_loop: uncertified top-1 "
+            f"flips between card and CPU {flips}")
+    require(n_flips > 0 or all(
+        res["card"][k] == res["cpu"][k]
+        for k in ("token_accuracy", "state_accuracy")),
+        f"open_loop: accuracies differ without a flip {res}")
+    return launches
+
+
+def check_check_inputs(dev):
+    """check_inputs of the flagship config on CHECK_INPUTS_SCENARIOS
+    synthetic scenarios on the card and on the CPU: every count equal;
+    ms on the card."""
+    from infgen_torch.config import load_config
+    from infgen_torch.train.loop import SyntheticDataset, check_inputs
+
+    cfg = load_config(FLAGSHIP)
+    data = SyntheticDataset(cfg, size=CHECK_INPUTS_SCENARIOS)
+    quiet = lambda msg: None
+    check_inputs(cfg, data, 1, quiet, dev)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = check_inputs(cfg, data, CHECK_INPUTS_SCENARIOS, quiet, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = check_inputs(cfg, data, CHECK_INPUTS_SCENARIOS, quiet, "cpu")
+    equal = card[0] == cpu[0] and all(
+        np.array_equal(card[1][k], cpu[1][k]) for k in cpu[1])
+    emit("check_inputs", config=os.path.relpath(FLAGSHIP, ROOT),
+         scenarios=CHECK_INPUTS_SCENARIOS, state_accuracy=card[0],
+         grid_overlap={k: int(v.sum()) for k, v in card[1].items()},
+         ms=ms, equal_to_cpu=equal)
+    require(equal, f"check_inputs: card {card} against CPU {cpu}")
+
+
+def check_warm_start(dev):
+    """The port's own checkpoints on the card: `cli.run_train` trains the
+    flagship (use_pallas_attention) for 2 steps at batch 2 into
+    WARM_START_DIR/ckpt; `cli rollout --ckpt-path` rolls out from it
+    (PARITY_FRAMES frames, forced insertion, counts set to 0 just before:
+    seed_eval launches), and the same rollout of a model that took the
+    trainer's in-memory weights must make the same decisions; then
+    ours_standard.yaml warm-starts from the checkpoint (`--pretrain-ckpt`)
+    for one step, and the tensors it kept from its own init are counted.
+    Returns seed_eval's launches in the command line's rollout."""
+    import contextlib
+    import io
+    import shutil
+
+    from infgen_torch import cli
+    from infgen_torch.config import load_config
+
+    shutil.rmtree(WARM_START_DIR, ignore_errors=True)
+    quiet = lambda msg: None
+    cfg = load_config(FLAGSHIP).replace(use_pallas_attention=True)
+    trainer, train_summary = cli.run_train(cfg, dev, steps=2, batch=2,
+                                           save_dir=WARM_START_DIR,
+                                           log_fn=quiet)
+    ckpt = os.path.join(WARM_START_DIR, "ckpt")
+    _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["rollout", "--synthetic", "--config", FLAGSHIP,
+                  "--device", dev.type, "--ckpt-path", ckpt,
+                  "--num-recurrent-steps",
+                  str(PARITY_FRAMES), "--force-insert"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    launches = cli.kernel_launches()["seed_eval"]
+
+    roll = load_config(FLAGSHIP)
+    tok = cli.build_tokenizers(roll)
+    in_memory = cli.build_model(roll, tok[0], dev)
+    in_memory.load_state_dict(trainer.model.state_dict())
+    del trainer
+    outs = {}
+    for name, model in (("checkpoint", cli.build_model(roll, tok[0], dev,
+                                                       ckpt_path=ckpt)),
+                        ("in_memory", in_memory)):
+        out, _ = cli.run_rollouts(roll, dev, 1, True, None, PARITY_FRAMES,
+                                  model=model, tokenizers=tok)
+        outs[name] = {k: v.detach().cpu().numpy() for k, v in out[0].items()}
+    a, b = outs["checkpoint"], outs["in_memory"]
+    mismatched = [k for k in PARITY_EXACT if not np.array_equal(a[k], b[k])]
+    pose_gap = max(float(np.abs(a[k] - b[k]).max()) for k in PARITY_CLOSE)
+
+    lines = []
+    std = load_config(os.path.join(CONFIG_DIR, "ours_standard.yaml"))
+    _, std_summary = cli.run_train(std, dev, steps=1, batch=2,
+                                   log_fn=lines.append, pretrain_ckpt=ckpt)
+    warm = [json.loads(x) for x in lines if x.startswith('{"warm_started"')]
+    from infgen_torch.train.train_step import Trainer
+    n_tensors = len(Trainer(std, "cpu").model.state_dict())
+    shutil.rmtree(WARM_START_DIR, ignore_errors=True)
+    emit("warm_start", config=os.path.relpath(FLAGSHIP, ROOT),
+         train=dict(steps=train_summary["steps"],
+                    last_loss=train_summary["last_loss"],
+                    ms_per_step=train_summary["ms_per_step"],
+                    r_biased_attention=train_summary["kernel_launches"][
+                        "r_biased_attention"]),
+         rollout_frames=PARITY_FRAMES, cli_rollout=dict(
+             agents_inserted=line["agents_inserted"],
+             ms_per_token_step=line["ms_per_token_step"],
+             kernel_launches=line["kernel_launches"]),
+         seed_eval_launches=launches, decisions_mismatched=mismatched,
+         max_pose_gap=pose_gap,
+         standard_warm_start=dict(
+             kept=warm[0]["kept"] if warm else None, tensors=n_tensors,
+             first_loss=std_summary["first_loss"]))
+    require(launches > 0, "warm_start: the rollout from the checkpoint "
+            "launched no seed_eval")
+    require(not mismatched, f"warm_start: the checkpoint's rollout and the "
+            f"in-memory weights' differ in {mismatched}")
+    require(bool(warm) and np.isfinite(std_summary["first_loss"]),
+            f"warm_start: ours_standard.yaml did not warm-start {lines[:3]}")
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -2448,7 +2881,7 @@ def check_parity_serving(dev):
 def check_serving(dev, phase="serving", flags=None, path=FLAGSHIP):
     """The served main path: the config at `path` (the flagship,
     configs/ours_long_term.yaml, by default; with `flags` replaced on it)
-    at full width serving SERVING_SCENARIOS
+    at full width, SERVING_FRAMES frames, serving SERVING_SCENARIOS
     synthetic scenarios through RolloutServer.rollout_batch (the command
     line's --batch), in batches of up to SERVING_SCENARIOS lanes and, on
     the same scenarios, one at a time; unforced (the seed head's "enter"
@@ -2466,7 +2899,8 @@ def check_serving(dev, phase="serving", flags=None, path=FLAGSHIP):
     from infgen_torch.config import SHIFT, load_config
 
     flags = flags or {}
-    cfg = load_config(path).replace(**flags)
+    cfg = load_config(path).replace(num_recurrent_steps_val=SERVING_FRAMES,
+                                    **flags)
     n_steps = cfg.num_recurrent_steps_val // SHIFT
     every_run = [k for k in served_kernels(cfg) if k != "refine"]
     tokenizers = build_tokenizers(cfg)
@@ -3362,6 +3796,9 @@ def main():
               "a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # train() starts a wandb run where the package is installed: none here
+    # (no process of its own, nothing written beside the checkout)
+    os.environ.setdefault("WANDB_MODE", "disabled")
     from infgen_torch.cli import build_tokenizers
     from infgen_torch.config import load_config
     from infgen_torch.ops.build import build
@@ -3437,6 +3874,10 @@ def main():
                     n)
     trainable = check_trainable_grad(cfg, dev)
     train = check_train(dev)
+    configs = check_train_configs(dev)
+    open_loop_launches = check_open_loop(dev)
+    check_check_inputs(dev)
+    warm_start_launches = check_warm_start(dev)
     scoring = check_scoring(dev)
     stream_launches = check_stream(dev)
     missing = [k for k in checks if launches[k] == 0]
@@ -3469,7 +3910,8 @@ def main():
     lane = served_lanes[-1].get(main_dt, served_lanes[-1][F32])
     line[0].update(lane_fields(lane, "raw_max_abs_err",
                                lanes_launches["seed_eval"]),
-                   scoring_launches=scoring["launches"]["seed_eval"])
+                   scoring_launches=scoring["launches"]["seed_eval"],
+                   warm_start_launches=warm_start_launches)
     for entry in line:
         name = entry["name"]
         if name in served_kernel_lanes:
@@ -3484,6 +3926,9 @@ def main():
     rba = next(e for e in line if e["name"] == "r_biased_attention")
     rba.update(
         train_launches=train["launches"]["r_biased_attention"],
+        train_configs_launches=configs["launches"],
+        train_configs_backward_calls=configs["backward_calls"],
+        open_loop_launches=open_loop_launches,
         train_shapes_ms={k: r["ms"] for k, r in trainable.items()},
         train_shapes_bound_ms={k: r["bound_ms"] for k, r in
                                trainable.items()},

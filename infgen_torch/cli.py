@@ -1,13 +1,15 @@
-"""Command line of the PyTorch port: the `rollout`, `stream`, `validate` and
-`train` sub-commands.
+"""Command line of the PyTorch port: the `rollout`, `stream`, `validate`,
+`train` and `check-inputs` sub-commands.
 
   python -m infgen_torch.cli rollout --config configs/ours_long_term.yaml \
       --synthetic [--device cuda|cpu] [--force-insert] [--num-scenarios N] \
       [--batch B] [--params converted.npz] [--fused-block] \
       [--pallas-attention]
 
-Weights come from `cfg.seed` through a torch.Generator, or from a flax
-params tree converted with `convert.save_npz`. The command runs
+Weights come from `cfg.seed` through a torch.Generator, from a flax
+params tree converted with `convert.save_npz` (`--params`), or from the
+port's own checkpoint directory (`--ckpt-path D/ckpt` after `train
+--save-dir D`; `rollout`, `stream` and `validate`). The command runs
 `--num-scenarios` closed-loop rollouts on synthetic scenarios and prints one
 JSON summary line: one scenario after another, or with `--batch B` through
 the occupancy-bucketed server (`rollout/serving.RolloutServer.
@@ -21,13 +23,30 @@ INFGEN_BENCH_FUSED / INFGEN_BENCH_PALLAS).
 
   python -m infgen_torch.cli train --synthetic [--config ...] \
       [--pallas-attention] [--steps N] [--batch B] [--device cuda|cpu] \
-      [--save-dir D]
+      [--save-dir D] [--overfit] [--pretrain-ckpt P] [--ckpt-path C]
 
 trains from weights drawn from `cfg.seed` on synthetic scenarios (seeds 0,
-1, ...; B per step, default the config's train_batch_size) for N steps
+1, ...; B per step, default the config's train_batch_size; `--overfit`
+repeats the first batch for at least 100 epochs) for N steps
 (train/loop.train: one JSON line of logs per step, a checkpoint in
-D/ckpt with --save-dir), then prints a summary line: steps, the last loss,
-ms per step (median after two warm-up steps) and each kernel's launches.
+D/ckpt with --save-dir, resumed from D/ckpt or C; `--pretrain-ckpt`
+warm-starts the weights non-strictly; open-loop validation on the
+held-out seeds [10000 - val_num_scenarios, 10000) every
+val_every_n_epochs epochs, the best five in D/ckpt_best), then prints a
+summary line: steps, the last loss, ms per step (median after two warm-up
+steps) and each kernel's launches. Every YAML under configs/ trains,
+`decoder_type: occ_decoder` through model/occ_decoder.py.
+
+  python -m infgen_torch.cli validate --open-loop --synthetic \
+      [--config ...] [--num-scenarios N] [--ckpt-path C | --params ...]
+  python -m infgen_torch.cli check-inputs --synthetic [--config ...] \
+      [--num-scenarios N]
+
+`validate --open-loop` (or a config with val_open_loop) prints the
+open-loop losses and top-1 token / state accuracy of N synthetic scenarios
+(default 8; train/loop.validate_open_loop); `check-inputs` the state
+accuracy and grid overlap of their tokenised ground truth
+(train/loop.check_inputs).
 
   python -m infgen_torch.cli validate --synthetic [--config ...] \
       [--num-scenarios N] [--device cuda|cpu] [--save-dir D] \
@@ -106,6 +125,7 @@ from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
+from infgen_torch.train.checkpoint import CheckpointManager
 from infgen_torch.utils.device import resolve_device
 
 
@@ -150,16 +170,36 @@ def build_tokenizers(cfg: Config):
 
 
 def build_model(cfg: Config, attr: AttrTokenizer, device,
-                params: Optional[str] = None) -> InfGenModel:
+                params: Optional[str] = None,
+                ckpt_path: Optional[str] = None) -> InfGenModel:
     """InfGenModel on `device`: weights from a converted .npz when `params`
-    is given, else drawn from `cfg.seed` (on the CPU, so one seed gives the
-    same weights on every device)."""
+    is given, from the port's own latest checkpoint in the directory
+    `ckpt_path` (load_checkpoint_weights), else drawn from `cfg.seed` (on
+    the CPU, so one seed gives the same weights on every device)."""
+    if params and ckpt_path:
+        raise ValueError("weights from --params or --ckpt-path, not both")
     model = InfGenModel(cfg, attr.grid, attr.grid_size, attr.angle_size)
     if params:
         load_flax_params(model, load_npz(params))
+    elif ckpt_path:
+        load_checkpoint_weights(model, ckpt_path)
     else:
         init_params(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device).eval()
+
+
+def load_checkpoint_weights(model: torch.nn.Module, ckpt_path: str) -> int:
+    """Load the model entries of the latest checkpoint that `cli train`
+    (train/loop.train) wrote in the directory `ckpt_path` (its
+    save_dir/ckpt) into `model`, strictly, cast to the model's dtype.
+    Returns the checkpoint's step."""
+    if not os.path.isdir(ckpt_path):
+        raise FileNotFoundError(f"no checkpoint directory {ckpt_path}")
+    raw = CheckpointManager(ckpt_path).restore_raw()
+    if raw is None:
+        raise FileNotFoundError(f"no step_*.pt checkpoint in {ckpt_path}")
+    model.load_state_dict(raw["model"])
+    return raw["step"]
 
 
 def _sync(device):
@@ -286,36 +326,114 @@ def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
     return outputs, summary
 
 
+class _ValOffset:
+    """The last `k` items of a dataset: held-out synthetic seeds [size - k,
+    size) for the validation during training (training takes seeds 0, 1,
+    ...)."""
+
+    def __init__(self, dataset, k: int):
+        self._dataset = dataset
+        self._base = len(dataset) - k
+        self._k = k
+
+    def __len__(self):
+        return self._k
+
+    def __getitem__(self, i: int):
+        return self._dataset[self._base + i]
+
+
 def run_train(cfg: Config, device=None, steps: int = 8,
               batch: Optional[int] = None, save_dir: Optional[str] = None,
-              log_fn=print):
+              log_fn=print, overfit: bool = False,
+              pretrain_ckpt: Optional[str] = None,
+              ckpt_path: Optional[str] = None):
     """`steps` training steps on synthetic scenarios (train/loop.train),
-    `batch` scenarios per step. Returns (trainer, summary)."""
-    from infgen_torch.train.loop import SyntheticDataset, train
+    `batch` scenarios per step (seeds 0, 1, ...; with `overfit` the first
+    batch, repeated, for at least 100 epochs), validated open-loop on the
+    held-out seeds [10000 - val_num_scenarios, 10000) every
+    val_every_n_epochs epochs; `pretrain_ckpt` warm-starts the weights,
+    `ckpt_path` is the checkpoint directory to resume from. Returns
+    (trainer, summary)."""
+    from infgen_torch.train.loop import OverfitDataset, SyntheticDataset, train
 
     device = resolve_device(device)
     if batch:
         cfg = cfg.replace(train_batch_size=batch)
     B = max(cfg.train_batch_size, 1)
+    if overfit:
+        dataset = OverfitDataset(SyntheticDataset(cfg, size=B), B)
+        cfg = cfg.replace(max_epochs=max(cfg.max_epochs, 100))
+    else:
+        dataset = SyntheticDataset(cfg, size=B * steps)
+    val = (_ValOffset(SyntheticDataset(cfg, size=10_000),
+                      cfg.val_num_scenarios)
+           if cfg.val_every_n_epochs > 0 else None)
     launches0 = kernel_launches()
     backward0 = PA.r_biased_attention_trainable.backward_calls
-    trainer, history = train(cfg, SyntheticDataset(cfg, size=B * steps),
-                             save_dir, max_steps=steps, device=device,
-                             log_fn=log_fn)
+    trainer, history = train(cfg, dataset, save_dir, max_steps=steps,
+                             device=device, log_fn=log_fn,
+                             pretrain_ckpt=pretrain_ckpt, val_dataset=val,
+                             ckpt_path=ckpt_path)
     ms = sorted(h["ms"] for h in history[2:] or history)
     summary = dict(
         device=str(device),
         device_name=(torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
-        compute_dtype=cfg.compute_dtype,
+        decoder_type=cfg.decoder_type,
+        compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
         use_pallas_attention=cfg.use_pallas_attention,
-        steps=len(history), batch=B,
+        steps=len(history), batch=B, overfit=overfit,
         first_loss=history[0]["loss"], last_loss=history[-1]["loss"],
         ms_per_step=ms[len(ms) // 2],
         **_launch_counts(launches0),
         rba_backward_calls=(PA.r_biased_attention_trainable.backward_calls
                             - backward0))
     return trainer, summary
+
+
+def run_validate_open_loop(cfg: Config, device=None, num_scenarios: int = 8,
+                           params: Optional[str] = None,
+                           ckpt_path: Optional[str] = None, log_fn=print):
+    """Open-loop validation (train/loop.validate_open_loop) of the weights
+    from cfg.seed, a converted .npz (`params`) or the port's checkpoint
+    (`ckpt_path`) on synthetic scenarios 0 .. num_scenarios - 1. Returns
+    a summary: its results, ms per scenario (host clock to the read) and
+    each kernel's launches."""
+    from infgen_torch.train.loop import SyntheticDataset, validate_open_loop
+    from infgen_torch.train.train_step import Trainer
+
+    if params and ckpt_path:
+        raise ValueError("weights from --params or --ckpt-path, not both")
+    trainer = Trainer(cfg, device)
+    trainer.init_state()
+    if params:
+        load_flax_params(trainer.model, load_npz(params))
+    elif ckpt_path:
+        load_checkpoint_weights(trainer.model, ckpt_path)
+    dataset = SyntheticDataset(cfg, size=num_scenarios)
+    launches0 = kernel_launches()
+    _sync(trainer.device)
+    t0 = time.perf_counter()
+    out = validate_open_loop(trainer, dataset, num_scenarios, log_fn)
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(_summary_head(cfg, trainer.device, len(dataset), 0, False),
+                open_loop=out, ms_per_scenario=ms / len(dataset),
+                **_launch_counts(launches0))
+
+
+def run_check_inputs(cfg: Config, device=None, num_scenarios: int = 8,
+                     log_fn=print):
+    """check_inputs (train/loop.py) on synthetic scenarios 0 ..
+    num_scenarios - 1; returns a summary of its counts."""
+    from infgen_torch.train.loop import SyntheticDataset, check_inputs
+
+    device = resolve_device(device)
+    totals, overlap = check_inputs(cfg, SyntheticDataset(
+        cfg, size=num_scenarios), num_scenarios, log_fn, device)
+    return dict(device=str(device), scenarios=num_scenarios,
+                state_accuracy=totals,
+                grid_overlap={k: int(v.sum()) for k, v in overlap.items()})
 
 
 def run_stream(cfg: Config, device=None, num_scenarios: int = 1,
@@ -671,7 +789,7 @@ def score_rollouts(cfg: Config, outputs, save_dir: str, device=None,
 def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch")
     p.add_argument("mode", choices=["rollout", "stream", "validate",
-                                    "train"])
+                                    "train", "check-inputs"])
     p.add_argument("--config", default="configs/ours_long_term.yaml",
                    help="YAML config path")
     p.add_argument("--synthetic", action="store_true",
@@ -681,7 +799,9 @@ def main(argv=None):
                    help="cuda (default) or cpu; no fallback between them")
     p.add_argument("--force-insert", action="store_true",
                    help="every insertion iteration proposes an agent")
-    p.add_argument("--num-scenarios", type=int, default=1)
+    p.add_argument("--num-scenarios", type=int, default=None,
+                   help="scenarios to roll out, stream or validate (default "
+                        "1; check-inputs and validate --open-loop: 8)")
     p.add_argument("--batch", type=int, default=None,
                    help="rollout: serve the scenarios through RolloutServer."
                         "rollout_batch, at most this many lanes per batch; "
@@ -714,6 +834,22 @@ def main(argv=None):
                    help="10 Hz frames to roll out (default from the config)")
     p.add_argument("--params", default=None,
                    help="converted flax params (.npz from convert.save_npz)")
+    p.add_argument("--ckpt-path", default=None,
+                   help="the port's own checkpoint directory (cli train's "
+                        "<save-dir>/ckpt; its latest step_*.pt): the weights "
+                        "of rollout, stream and validate; train resumes "
+                        "from it")
+    p.add_argument("--pretrain-ckpt", default=None,
+                   help="train: warm-start the weights from this checkpoint "
+                        "directory, non-strictly (entries missing or of "
+                        "another shape keep their init)")
+    p.add_argument("--overfit", action="store_true",
+                   help="train: one batch, repeated, for at least 100 "
+                        "epochs (the reference's OVERFIT debug mode)")
+    p.add_argument("--open-loop", action="store_true",
+                   help="validate: open-loop losses and token / state "
+                        "accuracy instead of scored rollouts (also when the "
+                        "config sets val_open_loop)")
     add_variant_flags(p)
     args = p.parse_args(argv)
     if not args.synthetic:
@@ -721,33 +857,51 @@ def main(argv=None):
     if args.mode == "rollout" and args.batch and args.save_dir:
         p.error("--save-dir scores one-lane rollouts: served rollouts come "
                 "back repadded to their bucket and compacted; drop --batch")
+    if args.params and args.ckpt_path:
+        p.error("give --params or --ckpt-path, not both")
     cfg = apply_variant_flags(load_config(args.config), args)
+    open_loop = args.mode == "validate" and (args.open_loop
+                                             or cfg.val_open_loop)
+    if args.mode == "check-inputs" or open_loop:
+        n = args.num_scenarios or 8
+        summary = (run_check_inputs(cfg, args.device, n) if not open_loop
+                   else run_validate_open_loop(cfg, args.device, n,
+                                               args.params, args.ckpt_path))
+        print(json.dumps(summary))
+        return
+    n = args.num_scenarios or 1
+    model = tokenizers = None
+    if args.ckpt_path and args.mode != "train":
+        tokenizers = build_tokenizers(cfg)
+        model = build_model(cfg, tokenizers[0], resolve_device(args.device),
+                            ckpt_path=args.ckpt_path)
     if args.mode == "validate":
-        run_validate(cfg, args.device, args.num_scenarios,
-                     args.save_dir or "runs/default", args.params,
-                     args.log_features, args.dump_rollouts,
-                     args.num_recurrent_steps)
+        run_validate(cfg, args.device, n, args.save_dir or "runs/default",
+                     args.params, args.log_features, args.dump_rollouts,
+                     args.num_recurrent_steps, model, tokenizers)
         return
     if args.mode == "stream":
         results, summary = run_stream(
-            cfg, args.device, args.num_scenarios, args.total_steps,
-            args.segment_steps, args.fused_stream, args.params,
-            args.save_dir or "runs/default")
+            cfg, args.device, n, args.total_steps, args.segment_steps,
+            args.fused_stream, args.params, args.save_dir or "runs/default",
+            model, tokenizers)
         for i, r in enumerate(results):
             print(f"scenario {i}: {r['state'].shape[1]} frames "
                   f"({len(r['segments'])} segments), {r['state'].shape[0]} "
                   f"agents ever alive, buckets {summary['buckets'][i]}")
     elif args.mode == "train":
         _, summary = run_train(cfg, args.device, args.steps, args.batch,
-                               args.save_dir)
+                               args.save_dir, overfit=args.overfit,
+                               pretrain_ckpt=args.pretrain_ckpt,
+                               ckpt_path=args.ckpt_path)
     elif args.batch:
         outputs, summary = run_batched(
-            cfg, args.device, args.num_scenarios, args.batch,
-            args.force_insert, args.params, args.num_recurrent_steps)
+            cfg, args.device, n, args.batch, args.force_insert, args.params,
+            args.num_recurrent_steps, model, tokenizers)
     else:
         outputs, summary = run_rollouts(
-            cfg, args.device, args.num_scenarios, args.force_insert,
-            args.params, args.num_recurrent_steps)
+            cfg, args.device, n, args.force_insert, args.params,
+            args.num_recurrent_steps, model, tokenizers)
     if args.mode == "rollout" and args.save_dir:
         # after the timed window
         wosac = score_rollouts(cfg, outputs, args.save_dir, args.device)

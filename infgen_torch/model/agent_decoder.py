@@ -201,6 +201,14 @@ class AgentDecoder(nn.Module):
                                   shape_t, tok.state_idx, grid_emb)
         return feat, head_vec
 
+    def invalid_shape(self, *size, device):
+        """The seeds' shape input, INVALID_SHAPE_VALUE, in the dtype of the
+        shape embedding's weights: the JAX package's constant is weakly
+        typed and takes the dtype it meets, so bf16-stored weights
+        (param_dtype) embed it in bf16."""
+        return torch.full(size, INVALID_SHAPE_VALUE, device=device,
+                          dtype=self.shape_emb.Dense_0.weight.dtype)
+
     def embed_seeds(self, num_seed: int, T: int):
         """Seed-slot features [S, T, D]: invalid-state agents at the
         origin."""
@@ -215,7 +223,7 @@ class AgentDecoder(nn.Module):
                            device=dev)
         motion, head_vec = E.build_motion_vectors(pos, head, state)
         type_t = torch.full((S, T), SEED_TYPE, dtype=torch.long, device=dev)
-        shape_t = torch.full((S, T, 3), INVALID_SHAPE_VALUE, device=dev)
+        shape_t = self.invalid_shape(S, T, 3, device=dev)
         return self.fuse_features(token_emb, motion, head_vec, type_t,
                                   shape_t, state, grid_emb)
 

@@ -11,7 +11,10 @@ converted flax tree fills these modules by name (convert.py):
 Compute-dtype policy (ops/precision.py): with `dtype=bfloat16` a Dense casts
 its input, weight and bias to bf16 (fp32 accumulation inside the matmul,
 the product rounded to bf16 before the bias is added, as flax does);
-with `dtype=None` it computes in the promotion of its input and float32.
+with `dtype=None` it computes in the promotion of its input and its
+weight (float32 for an fp32 input, or for any input with fp32 weights; a
+bf16 input meets bf16-stored weights, `param_dtype`, in bf16, as flax's
+promotion has it).
 LayerNorm statistics are fp32 with eps 1e-6 (flax's default, not torch's
 1e-5), the output cast to the module dtype; a bf16 sigmoid rounds as XLA's
 does (`sigmoid`). Attention scores and softmax are
@@ -29,9 +32,12 @@ from torch.utils.checkpoint import checkpoint
 LN_EPS = 1e-6
 
 
-def _out_dtype(x, dtype):
+def _out_dtype(x, dtype, param_dtype=torch.float32):
+    """The module's compute dtype, else the promotion of its input and its
+    parameters (flax's promote_dtype: bf16-stored weights, param_dtype,
+    keep an fp32 input fp32 and a bf16 one bf16)."""
     return dtype if dtype is not None else torch.promote_types(x.dtype,
-                                                               torch.float32)
+                                                               param_dtype)
 
 
 def sigmoid(x):
@@ -66,7 +72,7 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        dt = _out_dtype(x, self.dtype)
+        dt = _out_dtype(x, self.dtype, self.weight.dtype)
         w = self.weight.to(dt)
         if self.bias is None or dt == torch.float32:
             # fp32: one kernel; the fused bias equals flax's separate add
@@ -97,7 +103,7 @@ class LayerNorm(nn.Module):
                           min=0.0)
         mul = torch.rsqrt(var + LN_EPS) * self.weight.float()
         y = (x32 - mean) * mul + self.bias.float()
-        return y.to(_out_dtype(x, dtype or self.dtype))
+        return y.to(_out_dtype(x, dtype or self.dtype, self.weight.dtype))
 
 
 class Embed(nn.Module):
@@ -243,7 +249,11 @@ class DenseAttention(nn.Module):
         self.ff_postnorm = LayerNorm(D, dtype)
 
     def _cast(self, w):
-        return w.to(self.dtype) if self.dtype is not None else w
+        """A raw weight in the compute dtype; without one, promoted as jnp
+        promotes it against fp32 inputs (a bf16-stored weight computes in
+        fp32, param_dtype)."""
+        return w.to(self.dtype if self.dtype is not None else
+                    torch.promote_types(w.dtype, torch.float32))
 
     def forward(self, x_dst, x_src=None, r=None, mask=None, generator=None):
         keep = (None, None)

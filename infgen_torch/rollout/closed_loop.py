@@ -822,7 +822,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             tables["no_token"][None],
             torch.full((1, 2), E.INVALID_MOTION_VALUE, device=device),
             vec(1.0, 0.0)[None], vec(SEED_TYPE, dtype=i32),
-            torch.full((1, 3), INVALID_SHAPE_VALUE, device=device),
+            dec.invalid_shape(1, 3, device=device),
             vec(INVALID_STATE, dtype=i32),
             tables["grid_table"][G // 2][None])[0]
 

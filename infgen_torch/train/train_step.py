@@ -25,6 +25,8 @@ from infgen_torch.data.features import build_model_inputs
 from infgen_torch.data.scenario import lane_of
 from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.model.layers import init_params
+from infgen_torch.model.occ_decoder import OccDecoder, occ_decoder_loss
+from infgen_torch.ops.precision import cast_params_for_compute
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
@@ -44,11 +46,19 @@ def lr_schedule(cfg: Config):
     return fn
 
 
+# elements per partial norm of global_norm
+NORM_CHUNK = 1 << 16
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), as
-    the norm of the per-tensor norms."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm([t.float() for t in tensors])))
+    the norm of the norms of NORM_CHUNK-element pieces: a CPU fp32 norm of
+    one tensor of 38M elements (the occupancy decoder's point head) reads
+    0.26% low, of 65,536 about 1e-7 (one multi-tensor kernel on a card
+    either way)."""
+    pieces = [p for t in tensors for p in t.float().reshape(-1).split(
+        NORM_CHUNK)]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(pieces)))
 
 
 class OptaxAdamW:
@@ -63,6 +73,11 @@ class OptaxAdamW:
       mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu;  n <- n + 1
       u  <- (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps) + wd p
       p  <- p + (-lr(n - 1)) u
+    one op at a time in the parameters' dtype, every scalar (and the clip's
+    norm) cast to that dtype first, as optax computes on bf16 leaves: every
+    product and sum rounds to bf16 under param_dtype bfloat16. The global
+    norm is summed in fp32 (global_norm), where optax sums bf16 leaves'
+    squares in bf16 (ROADMAP Queue 3).
     With every_k > 1 the gradients are accumulated as a running mean
     (acc += (g - acc) / (i + 1)) and the update above runs on every k-th
     call only; the other calls leave p unchanged."""
@@ -75,7 +90,14 @@ class OptaxAdamW:
         self.schedule, self.max_norm, self.every_k = schedule, max_norm, \
             every_k
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+        (self.dtype,) = {p.dtype for p in self.params}
         self.reset()
+
+    def _scalar(self, x: float) -> float:
+        """`x` as optax applies a Python scalar to a leaf: in the leaf's
+        dtype (a bf16 value under param_dtype bfloat16; fp32 leaves
+        compute with it in fp32 either way)."""
+        return float(torch.tensor(x, dtype=self.dtype))
 
     def reset(self):
         self.count = 0          # inner updates made
@@ -105,23 +127,30 @@ class OptaxAdamW:
                 return False
             grads = self.acc
         norm = global_norm(grads)
-        clip = torch._foreach_div(grads, norm)
-        torch._foreach_mul_(clip, self.max_norm)
         keep = norm < self.max_norm
+        clip = torch._foreach_div(grads, norm.to(self.dtype))
+        torch._foreach_mul_(clip, self._scalar(self.max_norm))
         clip = [torch.where(keep, g, c) for g, c in zip(grads, clip)]
         lr = self.schedule(self.count)
         self.count += 1
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, clip, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, clip, clip, value=1.0 - self.b2)
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
+        torch._foreach_mul_(self.mu, self._scalar(self.b1))
+        torch._foreach_add_(self.mu, torch._foreach_mul(
+            clip, self._scalar(1.0 - self.b1)))
+        sq = torch._foreach_mul(clip, clip)
+        torch._foreach_mul_(sq, self._scalar(1.0 - self.b2))
+        torch._foreach_mul_(self.nu, self._scalar(self.b2))
+        torch._foreach_add_(self.nu, sq)
+        denom = torch._foreach_div(
+            self.nu, self._scalar(1.0 - self.b2 ** self.count))
         torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        u = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
+        torch._foreach_add_(denom, self._scalar(self.eps))
+        u = torch._foreach_div(self.mu,
+                               self._scalar(1.0 - self.b1 ** self.count))
         torch._foreach_div_(u, denom)
-        torch._foreach_add_(u, self.params, alpha=self.wd)
-        torch._foreach_add_(self.params, u, alpha=-lr)
+        torch._foreach_add_(u, torch._foreach_mul(self.params,
+                                                  self._scalar(self.wd)))
+        torch._foreach_mul_(u, self._scalar(-lr))
+        torch._foreach_add_(self.params, u)
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
         return True
@@ -145,7 +174,9 @@ class OptaxAdamW:
 
 class Trainer:
     """The model, tokenizers, optimizer and step of one device (the card
-    unless `device` says "cpu"; without CUDA the default raises).
+    unless `device` says "cpu"; without CUDA the default raises). The
+    model is InfGenModel, or OccDecoder under `decoder_type: occ_decoder`;
+    its parameters are stored in `param_dtype`.
 
     `loss_fn` is one scenario's training forward and losses; `batch_loss`
     their mean over a stacked batch (the JAX vmap's mean, here a loop);
@@ -155,15 +186,9 @@ class Trainer:
     `train.backward` and `train.optimizer` (trace_train.py)."""
 
     def __init__(self, cfg: Config, device=None):
-        if cfg.decoder_type == "occ_decoder":
-            raise NotImplementedError("the occupancy decoder is not ported "
-                                      "(ROADMAP Queue 1 item 7)")
         if cfg.mesh_shape.get("model", 1) > 1 or \
                 cfg.mesh_shape.get("data", 0) > 1:
             raise NotImplementedError("data and tensor parallelism are not "
-                                      "ported (ROADMAP Queue 1 item 8)")
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError("param_dtype other than float32 is not "
                                       "ported (ROADMAP Queue 1 item 8)")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -171,8 +196,14 @@ class Trainer:
                                   cfg.pl2seed_radius, cfg.angle_interval)
         self.motion_tok = MotionTokenizer()
         map_vocab = load_map_vocab()
-        self.model = InfGenModel(cfg, self.attr.grid, self.attr.grid_size,
-                                 self.attr.angle_size).to(self.device)
+        self.is_occ_decoder = cfg.decoder_type == "occ_decoder"
+        if self.is_occ_decoder:
+            model = OccDecoder(cfg, self.attr.grid_size)
+        else:
+            model = InfGenModel(cfg, self.attr.grid, self.attr.grid_size,
+                                self.attr.angle_size)
+        self.model = cast_params_for_compute(model, cfg.param_dtype).to(
+            self.device)
         self.agent_vocab = {k: torch.as_tensor(v, device=self.device)
                             for k, v in self.motion_tok.vocab.items()}
         self.map_traj = torch.as_tensor(map_vocab["traj_src"],
@@ -183,8 +214,10 @@ class Trainer:
         self.step = 0
 
     def init_state(self, generator: Optional[torch.Generator] = None):
-        """Fresh weights (init_params from `generator`, default cfg.seed)
-        and a fresh optimizer state."""
+        """Fresh weights (init_params from `generator`, default cfg.seed;
+        rounded to `param_dtype` when it is not float32, as the JAX
+        package casts its init) and a fresh optimizer state, whose moments
+        take the parameters' dtype as optax's do."""
         generator = generator or torch.Generator().manual_seed(self.cfg.seed)
         init_params(self.model, generator)
         self.optimizer.reset()
@@ -196,11 +229,18 @@ class Trainer:
         trainer's device) in the model's current mode. `draws` may give the
         random inputs the JAX package draws from its key: `pt_uniform` [P]
         (the map-token mask), `hist_drop` [A, 10] and `sa_uniform` [A, T];
-        the rest come from `generator`."""
+        for the occupancy decoder `sel_a` / `sel_p` (its drawn agent slots
+        and map tokens); the rest come from `generator`."""
         draws = draws or {}
         inputs = build_model_inputs(self.cfg, self.motion_tok, self.attr,
                                     scenario, generator,
                                     pt_uniform=draws.get("pt_uniform"))
+        if self.is_occ_decoder:
+            pred = self.model(inputs, scenario.map.position,
+                              scenario.map.orientation, generator,
+                              sel_a=draws.get("sel_a"),
+                              sel_p=draws.get("sel_p"))
+            return occ_decoder_loss(pred)
         pred = self.model(inputs, scenario.map, self.agent_vocab,
                           self.map_traj, generator,
                           hist_drop=draws.get("hist_drop"),

@@ -28,6 +28,9 @@ def test_port_imports_no_jax():
         "targets", "losses", "train_step", "loop", "checkpoint")} <= names
     assert {f"infgen_torch/metrics/{m}.py" for m in METRICS} <= names
     assert "infgen_torch/rollout/streaming.py" in names
+    assert {"infgen_torch/model/occ_decoder.py", "infgen_torch/data/loader.py",
+            "infgen_torch/utils/logging.py", "infgen_torch/utils/backup.py",
+            "infgen_torch/utils/profiling.py"} <= names
     bad = {str(p.relative_to(ROOT)): sorted(
         {m for m in _imported(p) if m.split(".")[0] in FORBIDDEN})
         for p in FILES}
@@ -43,6 +46,8 @@ def test_train_modules_import_without_jax():
     code = ("import sys\n"
             f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
             "import infgen_torch.train.loop, infgen_torch.cli\n"
+            "import infgen_torch.model.occ_decoder, infgen_torch.data.loader\n"
+            "import infgen_torch.utils.profiling\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
