@@ -7,7 +7,8 @@ Phases, each printing one JSON line (a failure raises and exits non-zero
 before the last line):
 
   device   the card's name and power limit (nvidia-smi), torch and CUDA
-  build    seconds to compile every kernel under infgen_torch/ops/csrc
+  build    seconds to compile every kernel under infgen_torch/ops/csrc,
+           and the data pipeline's native helper (g++)
   kernels  each hand-written kernel (seed_eval, seed_eval_full, refine,
            motion_column, fused_attention_block, r_biased_attention)
            against its plain PyTorch version on the card at the flagship
@@ -38,7 +39,8 @@ before the last line):
            rows, keys per query, one query row's keys)
   parity   a small closed-loop rollout (70 frames, past the temporal
            window) on the card (through the kernels) equal to the same
-           rollout on the CPU (through the plain versions), with the
+           rollout on the CPU (through the plain versions), both from one
+           set of model inputs built on the CPU, with the
            flagship's flags and, as `parity_latency`, `parity_fused` and
            `parity_pallas`, with the latency preset's three kernel flags,
            with use_fused_block, with use_pallas_attention;
@@ -91,6 +93,19 @@ before the last line):
            `cli rollout --ckpt-path` from it (70 frames, seed_eval launched)
            making the decisions of the trainer's in-memory weights, and
            ours_standard.yaml warm-started from it (`--pretrain-ckpt`)
+  womd     the WOMD input pipeline at the flagship's full width: synthetic
+           WOMD tfrecords from a seeded generator (8 scenarios of 60-120
+           agents and more than 6 km of map, one more of 132 agents),
+           preprocessed by two spawned workers, WaymoDataset's meta filter
+           (the 132-agent scenario dropped) and truncation to A and P;
+           `cli rollout --data-dir` one scenario at a time and with
+           --batch 8 (agent-steps/s per agent bucket), `cli train
+           --data-dir --pallas-attention` (2 steps at batch 2, two spawned
+           loader workers: ms per step and the input wait), `cli validate
+           --data-dir` on one scenario at production beams, each kernel
+           count set to 0 before and read after; `parity_womd` one
+           preprocessed scenario at parity_config, card against CPU; the
+           numpy splitter's token ids against the native ones
   scoring  the scored closed loop (cli.run_validate): the flagship at full
            width and depth, production beams (motion 5, insertion 10),
            bf16, seed_eval, over 4 synthetic scenarios (seeds 0-3):
@@ -135,11 +150,11 @@ then the summary line of every kernel ({"kernels": [...]}; every entry but
 r_biased_attention's also carries its lane form's time, bound and
 launches in the served batches (`serving`, `serving_kernels`,
 `serving_latency`), each kernel that `stream` launched its
-`stream_launches`; seed_eval's `warm_start_launches`, r_biased_attention's
-`train_configs_launches`, `train_configs_backward_calls` and
-`open_loop_launches`) and, last, the device line {"ok": true, "device":
-{...}}. Without CUDA it exits non-zero
-and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
+`stream_launches`; seed_eval's `warm_start_launches` and `womd_launches`,
+r_biased_attention's `train_configs_launches`,
+`train_configs_backward_calls`, `open_loop_launches` and `womd_launches`)
+and, last, the device line {"ok": true, "device": {...}}. Without CUDA it
+exits non-zero and prints no result. fp32 checks run with TF32 off for matmuls and cuDNN.
 """
 
 import json
@@ -2677,6 +2692,203 @@ def check_warm_start(dev):
 
 
 # --------------------------------------------------------------------- #
+# the WOMD input pipeline
+# --------------------------------------------------------------------- #
+
+WOMD_DIR = os.path.join(ROOT, "build", "womd")
+WOMD_SEED = 14
+WOMD_FILES, WOMD_PER_FILE = 2, 4
+WOMD_AGENTS = (60, 120)      # vehicle / pedestrian / cyclist tracks
+WOMD_MAP_M = 6000.0          # > 1,024 x 5 m of polyline: P = 1024 truncates
+WOMD_FILTERED = 132          # one more scenario, >= buffer_size: dropped
+WOMD_FRAMES = 150            # rollouts and validation (30 token steps)
+WOMD_TRAIN_WORKERS = 2
+
+
+def _cli_line(argv):
+    """cli.main(argv) with its printed lines kept apart: its last line,
+    parsed."""
+    import contextlib
+    import io
+
+    from infgen_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def numpy_split_token_gap(data):
+    """Token ids of one pickle's map split by the numpy splitter against
+    the cached ones (the native splitter's): (ids that differ, tokens)."""
+    from infgen_torch.data import preprocess
+    from infgen_torch.tokenizers import map_tokenizer as MT
+
+    native_split = MT.interpolate_polyline
+    MT.interpolate_polyline = lambda *a, **k: native_split(
+        *a, **{**k, "use_native": False})
+    try:
+        ids = preprocess.tokenize_pkl_map(data, MT.MapTokenizer())["token_idx"]
+    finally:
+        MT.interpolate_polyline = native_split
+    cached = np.asarray(data["map_token"]["token_idx"])
+    if ids.shape != cached.shape:
+        return max(len(ids), len(cached)), len(cached)
+    return int((ids != cached).sum()), len(cached)
+
+
+def check_womd(dev, smi):
+    """The port's WOMD input pipeline at the flagship's full width. A numpy
+    generator seeded WOMD_SEED writes WOMD_FILES tfrecord files of
+    WOMD_PER_FILE scenarios (data/womd_synthetic.py: 91 steps, WOMD_AGENTS
+    tracks with invalid gaps, three "other" tracks, lights, a map of more
+    than WOMD_MAP_M metres) and one more of WOMD_FILTERED agents; they are
+    preprocessed with two spawned workers (data/preprocess.py) and loaded
+    by WaymoDataset, whose meta filter drops that one. Then, counts set to
+    0 before each: `cli rollout --data-dir` one scenario at a time and
+    with `--batch 8` (agent-steps/s per agent bucket, seed_eval launched),
+    `cli train --data-dir --pallas-attention` for 2 steps at batch 2 fed
+    by WOMD_TRAIN_WORKERS spawned loader workers (ms per step, the input
+    wait's share, r_biased_attention launched), `cli validate --data-dir`
+    on one scenario at production beams, and a parity rollout of one
+    preprocessed scenario at parity_config (card kernels against the CPU's
+    plain versions). The numpy splitter's token ids are counted against
+    the native ones on every map. Returns the launches of seed_eval and
+    r_biased_attention in the phase."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from infgen_torch import cli
+    from infgen_torch.config import load_config
+    from infgen_torch.data import preprocess, womd_synthetic
+    from infgen_torch.data.waymo import WaymoDataset
+
+    shutil.rmtree(WOMD_DIR, ignore_errors=True)
+    raw, pkl = os.path.join(WOMD_DIR, "raw"), os.path.join(WOMD_DIR, "pkl")
+    t0 = time.perf_counter()
+    womd_synthetic.write_womd_files(
+        raw, WOMD_SEED, WOMD_FILES, WOMD_PER_FILE, WOMD_AGENTS, WOMD_MAP_M,
+        extra_agents=(WOMD_FILTERED,))
+    write_s = time.perf_counter() - t0
+    written = WOMD_FILES * WOMD_PER_FILE + 1
+    t0 = time.perf_counter()
+    meta = preprocess.main(["--input-dir", raw, "--output-dir", pkl,
+                            "--num-workers", "2"])
+    preprocess_ms = (time.perf_counter() - t0) * 1e3 / written
+    require(len(meta) == written, f"womd: preprocessed {len(meta)} of "
+            f"{written} scenarios")
+    agents, tokens, split_gap = {}, {}, [0, 0]
+    for sid in sorted(meta):
+        with open(os.path.join(pkl, f"{sid}.pkl"), "rb") as f:
+            data = pickle.load(f)
+        agents[sid] = int(data["agent"]["num_nodes"])
+        tokens[sid] = int(len(data["map_token"]["token_idx"]))
+        gap = numpy_split_token_gap(data)
+        split_gap = [split_gap[0] + gap[0], split_gap[1] + gap[1]]
+
+    cfg = load_config(FLAGSHIP)
+    ds = WaymoDataset(pkl, cfg, training=False)
+    t0 = time.perf_counter()
+    scens = [ds[i] for i in range(len(ds))]
+    load_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    kept = [f.split(".")[0] for f in ds.files]
+    dropped = sorted(set(meta) - set(kept))
+    require(len(kept) == written - 1 and
+            [agents[s] for s in dropped] == [WOMD_FILTERED],
+            f"womd: the meta filter kept {kept} (agents {agents})")
+    require(all(tokens[s] > cfg.max_map_tokens for s in kept)
+            and all(bool(s.map.mask.all()) for s in scens),
+            "womd: a map did not fill P = max_map_tokens")
+
+    common = ["--data-dir", pkl, "--config", FLAGSHIP, "--device", dev.type,
+              "--num-recurrent-steps", str(WOMD_FRAMES)]
+    _zero_counts()
+    one = _cli_line(["rollout", *common, "--num-scenarios", "1"])
+    _zero_counts()
+    served = _cli_line(["rollout", *common, "--num-scenarios",
+                        str(len(kept)), "--batch", "8"])
+    for what, line in (("one lane", one), ("--batch 8", served)):
+        require(line["kernel_launches"]["seed_eval"] > 0,
+                f"womd: cli rollout ({what}) launched no seed_eval")
+
+    _zero_counts()
+    lines = []
+    train_cfg = cfg.replace(use_pallas_attention=True,
+                            num_workers=WOMD_TRAIN_WORKERS)
+    torch.cuda.reset_peak_memory_stats()
+    _, train = cli.run_train(train_cfg, dev, steps=2, batch=2,
+                             log_fn=lines.append, data_dir=pkl)
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    steps = [json.loads(x) for x in lines if x.startswith('{"step"')]
+    require(len(steps) == 2 and all(np.isfinite(s["loss"]) for s in steps),
+            f"womd: cli train gave {lines}")
+    require(train["kernel_launches"]["r_biased_attention"] > 0,
+            "womd: cli train launched no r_biased_attention")
+
+    _zero_counts()
+    with tempfile.TemporaryDirectory() as save:
+        val, _ = cli.run_validate(cfg, dev, 1, save, log_fn=lambda m: None,
+                                  num_recurrent_steps=WOMD_FRAMES,
+                                  dataset=ds)
+    require(val["scored"] == 1 and np.isfinite(val["realism_meta_metric"]),
+            f"womd: cli validate scored {val['scored']}")
+
+    check_parity(dev, "parity_womd", scen=WaymoDataset(
+        pkl, parity_config(), training=False)[0])
+
+    launches = {"seed_eval": (one["kernel_launches"]["seed_eval"]
+                              + served["kernel_launches"]["seed_eval"]
+                              + val["kernel_launches"]["seed_eval"]),
+                "r_biased_attention":
+                    train["kernel_launches"]["r_biased_attention"]}
+    emit("womd", nvidia_smi=smi, config=os.path.relpath(FLAGSHIP, ROOT),
+         seed=WOMD_SEED, scenarios_written=written, scenarios_kept=len(kept),
+         dropped_by_meta_filter={s: agents[s] for s in dropped},
+         agents_before_truncation=[agents[s] for s in kept],
+         map_tokens_before_truncation=[tokens[s] for s in kept],
+         max_agents=cfg.max_agents, max_map_tokens=cfg.max_map_tokens,
+         write_s=write_s, preprocess_ms_per_scenario=preprocess_ms,
+         load_ms_per_scenario=load_ms,
+         numpy_split_token_ids_differing=split_gap[0],
+         map_tokens_compared=split_gap[1],
+         rollout_frames=WOMD_FRAMES,
+         one_lane=dict(ms_per_token_step=one["ms_per_token_step"],
+                       agents_inserted=one["agents_inserted"],
+                       seed_eval=one["kernel_launches"]["seed_eval"]),
+         served=dict(batches=served["batches"],
+                     ms_per_batched_token_step=served[
+                         "ms_per_batched_token_step"],
+                     agent_steps_per_s=served["agent_steps_per_s"],
+                     agent_steps_per_s_by_bucket={
+                         A: b["agent_steps_per_s"]
+                         for A, b in served["by_bucket"].items()},
+                     agents_inserted=served["agents_inserted"],
+                     seed_eval=served["kernel_launches"]["seed_eval"],
+                     host_reads=served["host_reads"]),
+         train=dict(workers=WOMD_TRAIN_WORKERS, batch=2,
+                    ms_per_step=[s["ms"] for s in steps],
+                    input_ms=[s["input_ms"] for s in steps],
+                    input_share_step2=steps[1]["input_ms"] / steps[1]["ms"],
+                    losses=[s["loss"] for s in steps],
+                    r_biased_attention=train["kernel_launches"][
+                        "r_biased_attention"],
+                    max_memory_allocated=train_peak),
+         validate=dict(n_rollouts=val["n_rollouts"],
+                       motion_beam_size=cfg.motion_beam_size,
+                       insert_beam_size=cfg.insert_beam_size,
+                       ms_rollout=val["ms_rollout"],
+                       ms_features=val["ms_features"],
+                       ms_scoring=val["ms_scoring"],
+                       realism_meta_metric=val["realism_meta_metric"],
+                       seed_eval=val["kernel_launches"]["seed_eval"]),
+         launches=launches)
+    shutil.rmtree(WOMD_DIR, ignore_errors=True)
+    return launches
+
+
+# --------------------------------------------------------------------- #
 # rollouts
 # --------------------------------------------------------------------- #
 
@@ -2746,11 +2958,27 @@ PARITY_FLAGS = {
     "parity_pallas": dict(use_pallas_attention=True)}
 
 
-def check_parity(dev, phase):
+def logged_extent(scen):
+    """The largest |coordinate| (m) of a scenario's valid logged
+    positions."""
+    ag = scen.agents
+    return float(np.abs(np.asarray(ag.position)[np.asarray(ag.valid)]).max())
+
+
+def check_parity(dev, phase, scen=None):
     """A small rollout on the card (kernels in fp32) against the same
-    rollout on the CPU (plain versions): beam 1 makes both deterministic, so
-    token, state and insertion decisions must be equal and poses agree
-    within POSE_TOL. `phase` names the kernel flags (PARITY_FLAGS)."""
+    rollout on the CPU (plain versions), both from one set of model inputs
+    built on the CPU: beam 1 makes both deterministic, so token, state and
+    insertion decisions must be equal and poses agree within POSE_TOL, on
+    every row. The readings give each key's largest error, the largest
+    position error of each token column and the scenario's logged_extent
+    (the error grows with both, ROADMAP Queue 3), and, not held, the rows
+    whose logged tokens differ when the card builds the inputs itself
+    (its contour matching meets near ties, ROADMAP Queue 3). `phase`
+    names the kernel flags (PARITY_FLAGS; a name not there: the
+    flagship's); `scen` a scenario at parity_config's shapes (default:
+    synthetic, 10 agents), which must insert agents unless it fills every
+    slot."""
     from infgen_torch.cli import (KERNELS, build_model, build_tokenizers,
                                   kernel_launches)
     from infgen_torch.data.features import build_model_inputs
@@ -2758,36 +2986,50 @@ def check_parity(dev, phase):
     from infgen_torch.data.synthetic import make_synthetic_scenario
     from infgen_torch.rollout.closed_loop import make_rollout_fn
 
-    flags = PARITY_FLAGS[phase]
+    flags = PARITY_FLAGS.get(phase, {})
     cfg = parity_config(**flags)
     attr, mt, mv = build_tokenizers(cfg)
-    scen = make_synthetic_scenario(cfg, seed=2, num_agents=10)
+    if scen is None:
+        scen = make_synthetic_scenario(cfg, seed=2, num_agents=10)
     uniform = np.random.default_rng(5).uniform(size=cfg.max_map_tokens)
+
+    def inputs_on(d):
+        return build_model_inputs(
+            cfg, mt, attr, to_device(scen, d),
+            pt_uniform=torch.as_tensor(uniform, dtype=torch.float32,
+                                       device=d))
+
+    cpu_inputs = inputs_on("cpu")
+    card_ids = inputs_on(dev).tokens.token_idx.cpu()
     outs = {}
     for fn in KERNELS.values():
         fn.launches = 0
     for d in ("cpu", dev):
         model = build_model(cfg, attr, d)
-        s = to_device(scen, d)
-        inputs = build_model_inputs(
-            cfg, mt, attr, s,
-            pt_uniform=torch.as_tensor(uniform, dtype=torch.float32,
-                                       device=d))
         fn = make_rollout_fn(model, cfg, attr, mt, mv, force_insert=True)
-        out = fn(s, inputs, torch.Generator(device=d).manual_seed(0))
+        out = fn(to_device(scen, d), to_device(cpu_inputs, d),
+                 torch.Generator(device=d).manual_seed(0))
         outs[str(d)] = {k: v.detach().cpu().numpy() for k, v in out.items()}
     launches = kernel_launches()
     cpu, gpu = outs["cpu"], outs[str(dev)]
-    exact, close = PARITY_EXACT, PARITY_CLOSE
-    mismatched = [k for k in exact if not np.array_equal(cpu[k], gpu[k])]
-    pose_err = max(float(np.abs(cpu[k] - gpu[k]).max()) for k in close)
+    mismatched = [k for k in PARITY_EXACT if not np.array_equal(cpu[k],
+                                                                gpu[k])]
+    err = {k: float(np.abs(cpu[k] - gpu[k]).max()) for k in PARITY_CLOSE}
+    pose_err = max(err.values())
+    differ = (card_ids != cpu_inputs.tokens.token_idx).any(1)
     emit(phase, config=PARITY_DESC,
          flags=flags, launches={k: n for k, n in launches.items() if n},
+         agents=int(scen.agents.slot_mask.sum()),
          inserted=int(gpu["n_inserted"]), mismatched=mismatched,
-         max_pose_err=pose_err, tolerance=POSE_TOL)
+         max_pose_err=pose_err, tolerance=POSE_TOL, max_err=err,
+         pos_err_by_column=np.abs(cpu["pos_a"] - gpu["pos_a"]).max(
+             axis=(0, 2)).tolist(),
+         logged_extent=logged_extent(scen),
+         card_input_rows_differing=torch.nonzero(differ).flatten().tolist())
     require(not mismatched, f"cuda and cpu rollouts differ in {mismatched}")
     require(pose_err <= POSE_TOL, f"pose error {pose_err} > {POSE_TOL}")
-    require(int(gpu["n_inserted"]) > 0, "parity run inserted no agent")
+    require(int(gpu["n_inserted"]) > 0 or scen.agents.slot_mask.all(),
+            "parity run inserted no agent")
     for flag, kernel in (("use_fused_block", "fused_attention_block"),
                          ("use_pallas_attention", "r_biased_attention")):
         require(not flags.get(flag) or launches[kernel] > 0,
@@ -3817,7 +4059,9 @@ def main():
          name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    emit("build", seconds=build(force=True, verbose=True))
+    from infgen_torch.data import native
+    emit("build", seconds=build(force=True, verbose=True),
+         native_seconds=native.build(force=True))
 
     cfg, lat = load_config(FLAGSHIP), load_config(LATENCY)
     attr = build_tokenizers(cfg)[0]
@@ -3878,6 +4122,7 @@ def main():
     open_loop_launches = check_open_loop(dev)
     check_check_inputs(dev)
     warm_start_launches = check_warm_start(dev)
+    womd_launches = check_womd(dev, smi)
     scoring = check_scoring(dev)
     stream_launches = check_stream(dev)
     missing = [k for k in checks if launches[k] == 0]
@@ -3911,7 +4156,8 @@ def main():
     line[0].update(lane_fields(lane, "raw_max_abs_err",
                                lanes_launches["seed_eval"]),
                    scoring_launches=scoring["launches"]["seed_eval"],
-                   warm_start_launches=warm_start_launches)
+                   warm_start_launches=warm_start_launches,
+                   womd_launches=womd_launches["seed_eval"])
     for entry in line:
         name = entry["name"]
         if name in served_kernel_lanes:
@@ -3929,6 +4175,7 @@ def main():
         train_configs_launches=configs["launches"],
         train_configs_backward_calls=configs["backward_calls"],
         open_loop_launches=open_loop_launches,
+        womd_launches=womd_launches["r_biased_attention"],
         train_shapes_ms={k: r["ms"] for k, r in trainable.items()},
         train_shapes_bound_ms={k: r["bound_ms"] for k, r in
                                trainable.items()},

@@ -6,11 +6,20 @@
       [--batch B] [--params converted.npz] [--fused-block] \
       [--pallas-attention]
 
+Scenarios come from `--data-dir D`, a directory of WOMD pickles written by
+`python -m infgen_torch.data.preprocess --input-dir <tfrecords>
+--output-dir D` (data/waymo.WaymoDataset: every mode; `train` trains on
+them and validates on the same directory in eval mode), or, with
+`--synthetic` or without a data directory, from the synthetic generator
+(seeds 0, 1, ...), the JAX package's choice of source. Each mode takes the
+first min(--num-scenarios, the dataset's size) scenarios; a data directory
+that yields none is an error.
+
 Weights come from `cfg.seed` through a torch.Generator, from a flax
 params tree converted with `convert.save_npz` (`--params`), or from the
 port's own checkpoint directory (`--ckpt-path D/ckpt` after `train
 --save-dir D`; `rollout`, `stream` and `validate`). The command runs
-`--num-scenarios` closed-loop rollouts on synthetic scenarios and prints one
+`--num-scenarios` closed-loop rollouts and prints one
 JSON summary line: one scenario after another, or with `--batch B` through
 the occupancy-bucketed server (`rollout/serving.RolloutServer.
 rollout_batch`, at most B lanes per batched rollout; the JAX package's
@@ -21,11 +30,14 @@ steps / wall time). `--fused-block` and `--pallas-attention` turn on
 package's `scripts/profile_rollout.py --fused` and bench.py's
 INFGEN_BENCH_FUSED / INFGEN_BENCH_PALLAS).
 
-  python -m infgen_torch.cli train --synthetic [--config ...] \
-      [--pallas-attention] [--steps N] [--batch B] [--device cuda|cpu] \
-      [--save-dir D] [--overfit] [--pretrain-ckpt P] [--ckpt-path C]
+  python -m infgen_torch.cli train --synthetic | --data-dir D \
+      [--config ...] [--pallas-attention] [--steps N] [--batch B] \
+      [--device cuda|cpu] [--save-dir D] [--overfit] [--pretrain-ckpt P] \
+      [--ckpt-path C]
 
-trains from weights drawn from `cfg.seed` on synthetic scenarios (seeds 0,
+trains from weights drawn from `cfg.seed` on WOMD scenarios (training
+mode: train agents scored, perception clipped; validated open-loop on the
+directory in eval mode) or synthetic ones (seeds 0,
 1, ...; B per step, default the config's train_batch_size; `--overfit`
 repeats the first batch for at least 100 epochs) for N steps
 (train/loop.train: one JSON line of logs per step, a checkpoint in
@@ -43,7 +55,7 @@ steps) and each kernel's launches. Every YAML under configs/ trains,
       [--num-scenarios N]
 
 `validate --open-loop` (or a config with val_open_loop) prints the
-open-loop losses and top-1 token / state accuracy of N synthetic scenarios
+open-loop losses and top-1 token / state accuracy of N scenarios
 (default 8; train/loop.validate_open_loop); `check-inputs` the state
 accuracy and grid overlap of their tokenised ground truth
 (train/loop.check_inputs).
@@ -52,15 +64,14 @@ accuracy and grid overlap of their tokenised ground truth
       [--num-scenarios N] [--device cuda|cpu] [--save-dir D] \
       [--log-features total_features.npz] [--dump-rollouts] [--params ...]
 
-rolls out N synthetic scenarios (n_rollout_close_val rollouts each, as
+rolls out N scenarios (n_rollout_close_val rollouts each, as
 lanes of one batched rollout) and scores them with the WOSAC metrics
 (`run_validate`): the logged features of the scenario set (or of
 --log-features) make the histograms, each rollout's features are scored
 against them on the device, and the aggregated realism metametric, its
 buckets and the validation metrics go to D/rollout_metrics.json and three
 printed lines. `rollout --save-dir D` scores its rollouts the same way
-after its timed window and adds the metametric to its summary line. The
-Waymo loader belongs to a later slice of the port.
+after its timed window and adds the metametric to its summary line.
 
   python -m infgen_torch.cli stream --synthetic [--config ...] \
       [--total-steps 900] [--segment-steps R] [--fused-stream] \
@@ -92,7 +103,7 @@ from infgen_torch.config import INVALID_STATE, SHIFT, Config, load_config
 from infgen_torch.convert import load_flax_params, load_npz
 from infgen_torch.data.features import build_model_inputs
 from infgen_torch.data.scenario import stack_scenarios, to_device
-from infgen_torch.data.synthetic import make_synthetic_scenario
+from infgen_torch.data.waymo import make_dataset
 from infgen_torch.metrics import train_metrics as TM
 from infgen_torch.metrics.features import concat_features
 from infgen_torch.metrics.map_distance import packed_road_edges
@@ -122,7 +133,6 @@ from infgen_torch.rollout.serving import RolloutServer
 from infgen_torch.rollout.streaming import (StreamingRollout, make_stream_fn,
                                             seed_of, stitch_stream_outputs)
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
-from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
 from infgen_torch.train.checkpoint import CheckpointManager
@@ -210,13 +220,13 @@ def _sync(device):
 def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
                  force_insert: bool = False, params: Optional[str] = None,
                  num_recurrent_steps: Optional[int] = None, model=None,
-                 tokenizers=None):
-    """Closed-loop rollouts of `num_scenarios` synthetic scenarios (seeds
-    0, 1, ...). Returns (outputs, summary): the rollout dicts and one
-    summary of wall time per token step, inserted agents, the launches of
-    every kernel (`kernel_launches`, by name; `seed_kernel_launches` sums
-    the two seed-evaluation kernels) and host reads. `model` / `tokenizers`
-    reuse built ones."""
+                 tokenizers=None, dataset=None):
+    """Closed-loop rollouts of the first `num_scenarios` scenarios of
+    `dataset` (default: synthetic seeds 0, 1, ...). Returns (outputs,
+    summary): the rollout dicts and one summary of wall time per token
+    step, inserted agents, the launches of every kernel (`kernel_launches`,
+    by name; `seed_kernel_launches` sums the two seed-evaluation kernels)
+    and host reads. `model` / `tokenizers` reuse built ones."""
     device = resolve_device(device)
     attr, motion_tok, map_vocab = tokenizers or build_tokenizers(cfg)
     model = model or build_model(cfg, attr, device, params)
@@ -225,12 +235,13 @@ def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
                               force_insert=force_insert)
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     n_steps = R // SHIFT
-    map_tok = MapTokenizer(map_vocab)
+    if dataset is None:
+        dataset = make_dataset(cfg, num_scenarios=num_scenarios)
+    num_scenarios = min(num_scenarios, len(dataset))
     launches0 = kernel_launches()
     outputs, ms_per_step, inserted, host_reads = [], [], [], 0
     for i in range(num_scenarios):
-        scenario = to_device(make_synthetic_scenario(
-            cfg, seed=i, map_tokenizer=map_tok), device)
+        scenario = to_device(dataset[i], device)
         gen = torch.Generator(device=device).manual_seed(cfg.seed + i)
         inputs = build_model_inputs(cfg, motion_tok, attr, scenario, gen)
         _sync(device)
@@ -271,24 +282,19 @@ def _launch_counts(launches0):
                                       + launches["seed_eval_full"]))
 
 
-def agent_steps(out, cfg: Config) -> float:
-    """Active agents x token steps of one rollout: its non-invalid 10 Hz
-    states after the history (as the JAX bench counts them), over SHIFT."""
-    state = out["pred_state"][..., cfg.num_historical_steps:]
-    return float((state != INVALID_STATE).sum()) / SHIFT
-
-
 def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
                 batch: int = 1, force_insert: bool = False,
                 params: Optional[str] = None,
                 num_recurrent_steps: Optional[int] = None, model=None,
-                tokenizers=None, agent_buckets=(32, 64, 128)):
-    """The `num_scenarios` synthetic scenarios (seeds 0, 1, ...) through
-    RolloutServer.rollout_batch with at most `batch` lanes per batched
-    rollout. Returns (outputs, summary): one rollout dict per scenario and
-    a summary of the dispatch (bucket, lanes and real scenarios of each
-    batch), wall time, ms per batched token step, agent-steps and
-    agent-steps/s, inserted agents, kernel launches and host reads."""
+                tokenizers=None, agent_buckets=(32, 64, 128), dataset=None):
+    """The first `num_scenarios` scenarios of `dataset` (default: synthetic
+    seeds 0, 1, ...) through RolloutServer.rollout_batch with at most
+    `batch` lanes per batched rollout. Returns (outputs, summary): one
+    rollout dict per scenario and a summary of the dispatch (bucket, lanes
+    and real scenarios of each batch), wall time, ms per batched token
+    step, agent-steps and agent-steps/s (also per agent bucket, from the
+    server's per-batch times: `by_bucket`), inserted agents, kernel
+    launches and host reads."""
     device = resolve_device(device)
     attr, motion_tok, map_vocab = tokenizers or build_tokenizers(cfg)
     model = model or build_model(cfg, attr, device, params)
@@ -298,9 +304,10 @@ def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
                            force_insert=force_insert)
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     n_steps = R // SHIFT
-    map_tok = MapTokenizer(map_vocab)
-    scenarios = [make_synthetic_scenario(cfg, seed=i, map_tokenizer=map_tok)
-                 for i in range(num_scenarios)]
+    if dataset is None:
+        dataset = make_dataset(cfg, num_scenarios=num_scenarios)
+    num_scenarios = min(num_scenarios, len(dataset))
+    scenarios = [dataset[i] for i in range(num_scenarios)]
     launches0 = kernel_launches()
     _sync(device)
     t0 = time.perf_counter()
@@ -308,8 +315,19 @@ def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
                                    max_batch=batch)
     _sync(device)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    batches = server.last_dispatch["batches"]
-    steps = sum(agent_steps(o, cfg) for o in outputs)
+    dispatch = server.last_dispatch
+    batches = dispatch["batches"]
+    by_bucket = {}
+    for (A, _, _, k), ms, steps in zip(batches, dispatch["batch_ms"],
+                                       dispatch["batch_agent_steps"]):
+        b = by_bucket.setdefault(A, dict(scenarios=0, wall_ms=0.0,
+                                         agent_steps=0.0))
+        b["scenarios"] += k
+        b["wall_ms"] += ms
+        b["agent_steps"] += steps
+    for b in by_bucket.values():
+        b["agent_steps_per_s"] = b["agent_steps"] / (b["wall_ms"] / 1e3)
+    steps = sum(dispatch["batch_agent_steps"])
     summary = dict(
         _summary_head(cfg, device, num_scenarios, n_steps, force_insert),
         batch=batch,
@@ -319,9 +337,10 @@ def run_batched(cfg: Config, device=None, num_scenarios: int = 1,
         ms_per_batched_token_step=wall_ms / (len(batches) * n_steps),
         agent_steps=steps,
         agent_steps_per_s=steps / (wall_ms / 1e3),
+        by_bucket=by_bucket,
         agents_inserted=[int(o["n_inserted"]) for o in outputs],
         **_launch_counts(launches0),
-        host_reads=server.last_dispatch["host_reads"],
+        host_reads=dispatch["host_reads"],
     )
     return outputs, summary
 
@@ -347,12 +366,15 @@ def run_train(cfg: Config, device=None, steps: int = 8,
               batch: Optional[int] = None, save_dir: Optional[str] = None,
               log_fn=print, overfit: bool = False,
               pretrain_ckpt: Optional[str] = None,
-              ckpt_path: Optional[str] = None):
-    """`steps` training steps on synthetic scenarios (train/loop.train),
-    `batch` scenarios per step (seeds 0, 1, ...; with `overfit` the first
-    batch, repeated, for at least 100 epochs), validated open-loop on the
-    held-out seeds [10000 - val_num_scenarios, 10000) every
-    val_every_n_epochs epochs; `pretrain_ckpt` warm-starts the weights,
+              ckpt_path: Optional[str] = None,
+              data_dir: Optional[str] = None):
+    """`steps` training steps (train/loop.train), `batch` scenarios per
+    step, on the WOMD pickles under `data_dir` in training mode, validated
+    open-loop on the same directory in eval mode, or without `data_dir` on
+    synthetic scenarios (seeds 0, 1, ...), validated on the held-out seeds
+    [10000 - val_num_scenarios, 10000); validation every
+    val_every_n_epochs epochs. With `overfit` the first batch, repeated,
+    for at least 100 epochs; `pretrain_ckpt` warm-starts the weights,
     `ckpt_path` is the checkpoint directory to resume from. Returns
     (trainer, summary)."""
     from infgen_torch.train.loop import OverfitDataset, SyntheticDataset, train
@@ -361,14 +383,23 @@ def run_train(cfg: Config, device=None, steps: int = 8,
     if batch:
         cfg = cfg.replace(train_batch_size=batch)
     B = max(cfg.train_batch_size, 1)
+    dataset = make_dataset(cfg, data_dir, B if overfit else B * steps,
+                           training=True)
     if overfit:
-        dataset = OverfitDataset(SyntheticDataset(cfg, size=B), B)
+        dataset = OverfitDataset(dataset, B)
         cfg = cfg.replace(max_epochs=max(cfg.max_epochs, 100))
+    if cfg.val_every_n_epochs <= 0:
+        val = None
+    elif data_dir:
+        from infgen_torch.data.waymo import WaymoDataset
+
+        # the JAX package catches any exception here; only "no scenario
+        # there" means "no validation"
+        val = WaymoDataset(data_dir, cfg, training=False)
+        val = val if len(val) else None
     else:
-        dataset = SyntheticDataset(cfg, size=B * steps)
-    val = (_ValOffset(SyntheticDataset(cfg, size=10_000),
-                      cfg.val_num_scenarios)
-           if cfg.val_every_n_epochs > 0 else None)
+        val = _ValOffset(SyntheticDataset(cfg, size=10_000),
+                         cfg.val_num_scenarios)
     launches0 = kernel_launches()
     backward0 = PA.r_biased_attention_trainable.backward_calls
     trainer, history = train(cfg, dataset, save_dir, max_steps=steps,
@@ -394,13 +425,14 @@ def run_train(cfg: Config, device=None, steps: int = 8,
 
 def run_validate_open_loop(cfg: Config, device=None, num_scenarios: int = 8,
                            params: Optional[str] = None,
-                           ckpt_path: Optional[str] = None, log_fn=print):
+                           ckpt_path: Optional[str] = None, log_fn=print,
+                           dataset=None):
     """Open-loop validation (train/loop.validate_open_loop) of the weights
     from cfg.seed, a converted .npz (`params`) or the port's checkpoint
-    (`ckpt_path`) on synthetic scenarios 0 .. num_scenarios - 1. Returns
-    a summary: its results, ms per scenario (host clock to the read) and
-    each kernel's launches."""
-    from infgen_torch.train.loop import SyntheticDataset, validate_open_loop
+    (`ckpt_path`) on the first `num_scenarios` scenarios of `dataset`
+    (default: synthetic seeds 0, 1, ...). Returns a summary: its results,
+    ms per scenario (host clock to the read) and each kernel's launches."""
+    from infgen_torch.train.loop import validate_open_loop
     from infgen_torch.train.train_step import Trainer
 
     if params and ckpt_path:
@@ -411,26 +443,32 @@ def run_validate_open_loop(cfg: Config, device=None, num_scenarios: int = 8,
         load_flax_params(trainer.model, load_npz(params))
     elif ckpt_path:
         load_checkpoint_weights(trainer.model, ckpt_path)
-    dataset = SyntheticDataset(cfg, size=num_scenarios)
+    if dataset is None:
+        dataset = make_dataset(cfg, num_scenarios=num_scenarios)
+    n = min(num_scenarios, len(dataset))
     launches0 = kernel_launches()
     _sync(trainer.device)
     t0 = time.perf_counter()
-    out = validate_open_loop(trainer, dataset, num_scenarios, log_fn)
+    out = validate_open_loop(trainer, dataset, n, log_fn)
     ms = (time.perf_counter() - t0) * 1e3
-    return dict(_summary_head(cfg, trainer.device, len(dataset), 0, False),
-                open_loop=out, ms_per_scenario=ms / len(dataset),
+    return dict(_summary_head(cfg, trainer.device, n, 0, False),
+                open_loop=out, ms_per_scenario=ms / n,
                 **_launch_counts(launches0))
 
 
 def run_check_inputs(cfg: Config, device=None, num_scenarios: int = 8,
-                     log_fn=print):
-    """check_inputs (train/loop.py) on synthetic scenarios 0 ..
-    num_scenarios - 1; returns a summary of its counts."""
-    from infgen_torch.train.loop import SyntheticDataset, check_inputs
+                     log_fn=print, dataset=None):
+    """check_inputs (train/loop.py) on the first `num_scenarios` scenarios
+    of `dataset` (default: synthetic seeds 0, 1, ...); returns a summary of
+    its counts."""
+    from infgen_torch.train.loop import check_inputs
 
     device = resolve_device(device)
-    totals, overlap = check_inputs(cfg, SyntheticDataset(
-        cfg, size=num_scenarios), num_scenarios, log_fn, device)
+    if dataset is None:
+        dataset = make_dataset(cfg, num_scenarios=num_scenarios)
+    num_scenarios = min(num_scenarios, len(dataset))
+    totals, overlap = check_inputs(cfg, dataset, num_scenarios, log_fn,
+                                   device)
     return dict(device=str(device), scenarios=num_scenarios,
                 state_accuracy=totals,
                 grid_overlap={k: int(v.sum()) for k, v in overlap.items()})
@@ -439,9 +477,11 @@ def run_check_inputs(cfg: Config, device=None, num_scenarios: int = 8,
 def run_stream(cfg: Config, device=None, num_scenarios: int = 1,
                total_steps: int = 900, segment_steps: Optional[int] = None,
                fused: bool = False, params: Optional[str] = None,
-               save_dir: Optional[str] = None, model=None, tokenizers=None):
-    """Stream `num_scenarios` synthetic scenarios (seeds 0, 1, ...; stream
-    seed `seed_of(cfg.seed, i)`) for `total_steps` future 10 Hz frames in
+               save_dir: Optional[str] = None, model=None, tokenizers=None,
+               dataset=None):
+    """Stream the first `num_scenarios` scenarios of `dataset` (default:
+    synthetic seeds 0, 1, ...; stream seed `seed_of(cfg.seed, i)`) for
+    `total_steps` future 10 Hz frames in
     segments of `segment_steps` (default num_recurrent_steps_val): through
     StreamingRollout over a RolloutServer with agent buckets 32, 64 and
     cfg.max_agents (the JAX package's `cli stream`), or with `fused`
@@ -454,8 +494,6 @@ def run_stream(cfg: Config, device=None, num_scenarios: int = 1,
     agent-steps (non-invalid 10 Hz states after the history, as the JAX
     bench counts a stream's) and agent-steps/s, and each kernel's
     launches."""
-    from infgen_torch.train.loop import SyntheticDataset
-
     device = resolve_device(device)
     attr, mt, mv = tokenizers or build_tokenizers(cfg)
     model = model or build_model(cfg, attr, device, params)
@@ -468,7 +506,9 @@ def run_stream(cfg: Config, device=None, num_scenarios: int = 1,
         streamer = StreamingRollout(RolloutServer(
             cfg, attr, mt, mv, num_recurrent_steps=R,
             agent_buckets=(32, 64, cfg.max_agents)), R)
-    dataset = SyntheticDataset(cfg, size=num_scenarios)
+    if dataset is None:
+        dataset = make_dataset(cfg, num_scenarios=num_scenarios)
+    num_scenarios = min(num_scenarios, len(dataset))
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     launches0 = kernel_launches()
@@ -652,16 +692,17 @@ class Scorer:
         return wosac, val
 
 
-def validation_inputs(cfg: Config, tokenizers, device, num_scenarios: int):
-    """The synthetic validation set (seeds 0, 1, ...): per scenario its
-    host arrays, its tensors on `device` and its model inputs (the map
-    mask's draw from its own generator)."""
-    from infgen_torch.train.loop import SyntheticDataset
-
+def validation_inputs(cfg: Config, tokenizers, device, num_scenarios: int,
+                      dataset=None):
+    """The validation set, the first `num_scenarios` scenarios of
+    `dataset` (default: synthetic seeds 0, 1, ...): per scenario its host
+    arrays, its tensors on `device` and its model inputs (the map mask's
+    draw from its own generator)."""
     attr, mt, _ = tokenizers
-    dataset = SyntheticDataset(cfg, size=num_scenarios)
+    if dataset is None:
+        dataset = make_dataset(cfg, num_scenarios=num_scenarios)
     items = []
-    for i in range(num_scenarios):
+    for i in range(min(num_scenarios, len(dataset))):
         scen = dataset[i]
         s = to_device(scen, device)
         gen = torch.Generator(device=device).manual_seed(
@@ -691,11 +732,13 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
                  log_features_path: Optional[str] = None,
                  dump_rollouts: bool = False,
                  num_recurrent_steps: Optional[int] = None, model=None,
-                 tokenizers=None, keep: bool = False, log_fn=print):
+                 tokenizers=None, keep: bool = False, log_fn=print,
+                 dataset=None):
     """Closed-loop validation with WOSAC scoring (the JAX package's `cli
     validate`), on the card unless `device` says cpu.
 
-    The logged features of the `num_scenarios` synthetic scenarios (or of
+    The logged features of the first `num_scenarios` scenarios of
+    `dataset` (default: synthetic seeds 0, 1, ...; or of
     `log_features_path`, an aggregated .npz) make the histograms. Each
     scenario is rolled out `cfg.n_rollout_close_val` times, as lanes of one
     batched rollout with a generator each; the rollouts' features are
@@ -716,7 +759,7 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
     n_roll = max(cfg.n_rollout_close_val, 1)
     rollout = make_rollout_fn(model, cfg, attr, mt, mv,
                               num_recurrent_steps=num_recurrent_steps)
-    items = validation_inputs(cfg, tokenizers, device, num_scenarios)
+    items = validation_inputs(cfg, tokenizers, device, num_scenarios, dataset)
     if log_features_path:
         log_feats = _load_features(log_features_path, device)
         log_fn(f"loaded aggregated log features from {log_features_path}")
@@ -754,7 +797,7 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
     wosac, val = scorer.finish(save_dir)
     R = num_recurrent_steps or cfg.num_recurrent_steps_val
     summary = dict(
-        _summary_head(cfg, device, num_scenarios, R // SHIFT, False),
+        _summary_head(cfg, device, len(items), R // SHIFT, False),
         n_rollouts=n_roll,
         scored=len(scorer.rows),
         ms_rollout=ms_rollout,
@@ -771,14 +814,14 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
 
 
 def score_rollouts(cfg: Config, outputs, save_dir: str, device=None,
-                   tokenizers=None, log_fn=print):
-    """Score the rollouts of synthetic scenarios 0, 1, ... (`outputs`, one
-    dict each, as run_rollouts returns them) against the set's
-    logged features; writes save_dir/rollout_metrics.json. Returns the
-    aggregated WOSAC dict."""
+                   tokenizers=None, log_fn=print, dataset=None):
+    """Score the rollouts of the first scenarios of `dataset` (default:
+    synthetic seeds 0, 1, ...; `outputs`, one dict each, as run_rollouts
+    returns them) against the set's logged features; writes
+    save_dir/rollout_metrics.json. Returns the aggregated WOSAC dict."""
     device = resolve_device(device)
     tokenizers = tokenizers or build_tokenizers(cfg)
-    items = validation_inputs(cfg, tokenizers, device, len(outputs))
+    items = validation_inputs(cfg, tokenizers, device, len(outputs), dataset)
     scorer = Scorer(cfg, tokenizers[0].grid_size, split_log_features(items),
                     log_fn)
     for i, ((scen, s, inputs), out) in enumerate(zip(items, outputs)):
@@ -793,8 +836,11 @@ def main(argv=None):
     p.add_argument("--config", default="configs/ours_long_term.yaml",
                    help="YAML config path")
     p.add_argument("--synthetic", action="store_true",
-                   help="use the synthetic scenario generator (the only "
-                        "data source of this port so far)")
+                   help="use the synthetic scenario generator (also the "
+                        "source when no --data-dir is given)")
+    p.add_argument("--data-dir", default=None,
+                   help="directory of preprocessed WOMD pickles "
+                        "(python -m infgen_torch.data.preprocess)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no fallback between them")
     p.add_argument("--force-insert", action="store_true",
@@ -852,8 +898,9 @@ def main(argv=None):
                         "config sets val_open_loop)")
     add_variant_flags(p)
     args = p.parse_args(argv)
-    if not args.synthetic:
-        p.error("only --synthetic scenarios are ported so far")
+    # the JAX package's choice of source: synthetic unless a data
+    # directory is given without --synthetic
+    data_dir = None if args.synthetic else args.data_dir
     if args.mode == "rollout" and args.batch and args.save_dir:
         p.error("--save-dir scores one-lane rollouts: served rollouts come "
                 "back repadded to their bucket and compacted; drop --batch")
@@ -864,12 +911,17 @@ def main(argv=None):
                                              or cfg.val_open_loop)
     if args.mode == "check-inputs" or open_loop:
         n = args.num_scenarios or 8
-        summary = (run_check_inputs(cfg, args.device, n) if not open_loop
+        dataset = make_dataset(cfg, data_dir, n)
+        summary = (run_check_inputs(cfg, args.device, n, dataset=dataset)
+                   if not open_loop
                    else run_validate_open_loop(cfg, args.device, n,
-                                               args.params, args.ckpt_path))
+                                               args.params, args.ckpt_path,
+                                               dataset=dataset))
         print(json.dumps(summary))
         return
     n = args.num_scenarios or 1
+    dataset = make_dataset(cfg, data_dir, n) if args.mode != "train" \
+        else None
     model = tokenizers = None
     if args.ckpt_path and args.mode != "train":
         tokenizers = build_tokenizers(cfg)
@@ -878,13 +930,14 @@ def main(argv=None):
     if args.mode == "validate":
         run_validate(cfg, args.device, n, args.save_dir or "runs/default",
                      args.params, args.log_features, args.dump_rollouts,
-                     args.num_recurrent_steps, model, tokenizers)
+                     args.num_recurrent_steps, model, tokenizers,
+                     dataset=dataset)
         return
     if args.mode == "stream":
         results, summary = run_stream(
             cfg, args.device, n, args.total_steps, args.segment_steps,
             args.fused_stream, args.params, args.save_dir or "runs/default",
-            model, tokenizers)
+            model, tokenizers, dataset=dataset)
         for i, r in enumerate(results):
             print(f"scenario {i}: {r['state'].shape[1]} frames "
                   f"({len(r['segments'])} segments), {r['state'].shape[0]} "
@@ -893,18 +946,19 @@ def main(argv=None):
         _, summary = run_train(cfg, args.device, args.steps, args.batch,
                                args.save_dir, overfit=args.overfit,
                                pretrain_ckpt=args.pretrain_ckpt,
-                               ckpt_path=args.ckpt_path)
+                               ckpt_path=args.ckpt_path, data_dir=data_dir)
     elif args.batch:
         outputs, summary = run_batched(
             cfg, args.device, n, args.batch, args.force_insert, args.params,
-            args.num_recurrent_steps, model, tokenizers)
+            args.num_recurrent_steps, model, tokenizers, dataset=dataset)
     else:
         outputs, summary = run_rollouts(
             cfg, args.device, n, args.force_insert, args.params,
-            args.num_recurrent_steps, model, tokenizers)
+            args.num_recurrent_steps, model, tokenizers, dataset=dataset)
     if args.mode == "rollout" and args.save_dir:
         # after the timed window
-        wosac = score_rollouts(cfg, outputs, args.save_dir, args.device)
+        wosac = score_rollouts(cfg, outputs, args.save_dir, args.device,
+                               dataset=dataset)
         summary["realism_meta_metric"] = wosac["wosac/realism_meta_metric"]
     print(json.dumps(summary))
 

@@ -7,6 +7,11 @@
 
     python -m infgen_torch.metrics.offline --dump-log --aggregate-log \
         --synthetic --num-scenarios 16 [--config ...] [--device cpu]
+    python -m infgen_torch.metrics.offline --dump-log --aggregate-log \
+        --data-dir <preprocessed WOMD pickles> [--config ...]
+
+`--dump-log` dumps every scenario of a data directory (WaymoDataset in eval
+mode), or `--num-scenarios` synthetic ones.
 
 Rollout dumps come from `python -m infgen_torch.cli validate
 --dump-rollouts`. The .npz files carry the JAX package's field names, so a
@@ -186,7 +191,10 @@ def main(argv=None):
     p.add_argument("--compute-metric", action="store_true")
     p.add_argument("--config", default=None)
     p.add_argument("--data-dir", default=None,
-                   help="WOMD data (not ported yet: give --synthetic)")
+                   help="--dump-log: directory of preprocessed WOMD pickles "
+                        "(python -m infgen_torch.data.preprocess), eval "
+                        "mode; without it, or with --synthetic, synthetic "
+                        "scenarios")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--log-dir", default="runs/log_features")
     p.add_argument("--rollout-dir", default="runs/default")
@@ -194,14 +202,13 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no fallback between them")
     args = p.parse_args(argv)
-    if args.data_dir and not args.synthetic:
-        p.error("the WOMD loader is not ported yet; use --synthetic")
     cfg = load_config(args.config) if args.config else Config()
 
     if args.dump_log:
-        from infgen_torch.train.loop import SyntheticDataset
-        dump_log_features(SyntheticDataset(cfg, size=args.num_scenarios),
-                          cfg, args.log_dir, args.device)
+        from infgen_torch.data.waymo import make_dataset
+        dump_log_features(make_dataset(
+            cfg, None if args.synthetic else args.data_dir,
+            args.num_scenarios), cfg, args.log_dir, args.device)
     if args.aggregate_log:
         aggregate_log_features(args.log_dir)
     if args.compute_metric:

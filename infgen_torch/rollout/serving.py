@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from infgen_torch.config import Config
+from infgen_torch.config import INVALID_STATE, SHIFT, Config
 from infgen_torch.data.features import (build_model_inputs,
                                         build_model_inputs_batch)
 from infgen_torch.data.scenario import (AgentData, MapData, Scenario,
@@ -154,7 +154,9 @@ class RolloutServer:
         self._fns: Dict[Tuple[int, int], Tuple] = {}
         # the last rollout / rollout_batch call's dispatch: one (A, P,
         # lanes, real scenarios) per batch, and the host reads of its
-        # rollouts
+        # rollouts; rollout_batch also records each batch's wall time
+        # (batch_ms, input building included) and the agent-steps of its
+        # real scenarios (batch_agent_steps)
         self.last_dispatch = dict(batches=[], host_reads=0)
 
     def bucket_for(self, scenario: Scenario) -> Tuple[int, int]:
@@ -303,7 +305,8 @@ class RolloutServer:
             groups.setdefault(self.bucket_for(s), []).append(i)
 
         results: list = [None] * n
-        self.last_dispatch = dict(batches=[], host_reads=0)
+        self.last_dispatch = dict(batches=[], host_reads=0, batch_ms=[],
+                                  batch_agent_steps=[])
         for (A, P), idxs in groups.items():
             if order_by_occupancy:
                 idxs = sorted(idxs, key=lambda i: -_live(scenarios[i]))
@@ -311,6 +314,8 @@ class RolloutServer:
             fn, cfg = self._get(model, A, P)
             for lo in range(0, len(idxs), chunk):
                 sub = idxs[lo:lo + chunk]
+                _sync(dev)
+                t0 = time.perf_counter()
                 B = 1 << (len(sub) - 1).bit_length()   # next power of two
                 pad = sub + [sub[-1]] * (B - len(sub))
                 batch = to_device(stack_scenarios(
@@ -320,6 +325,11 @@ class RolloutServer:
                     [_generator(dev, input_seeds[i]) for i in pad])
                 out = fn(batch, inputs, [_generator(dev, seeds[i])
                                          for i in pad])
+                steps = agent_steps(out["pred_state"][:len(sub)], cfg)
+                _sync(dev)
+                self.last_dispatch["batch_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                self.last_dispatch["batch_agent_steps"].append(steps)
                 self.last_dispatch["batches"].append((A, P, B, len(sub)))
                 self.last_dispatch["host_reads"] += fn.host_reads
                 for j, i in enumerate(sub):
@@ -329,6 +339,14 @@ class RolloutServer:
                             perms[i], A, _live(scenarios[i]))
                     results[i] = res
         return results
+
+
+def agent_steps(pred_state, cfg: Config) -> float:
+    """Active agents x token steps of rollouts' pred_state [..., A, T]: the
+    non-invalid 10 Hz states after the history (as the JAX bench counts
+    them), over SHIFT."""
+    state = pred_state[..., cfg.num_historical_steps:]
+    return float((state != INVALID_STATE).sum()) / SHIFT
 
 
 def _device_of(model) -> torch.device:

@@ -1,9 +1,13 @@
 """Map tokenization: raw polylines -> 5 m "pt tokens" matched to the map vocab.
 
-Port of infgen_tpu/tokenizers/map_tokenizer.py's host-side path: polyline
-splitting and vocab matching are numpy (offline preprocessing). The native
-C++ splitter of the JAX package and the training-time top-8 match noise are
-not part of this port.
+Port of infgen_tpu/tokenizers/map_tokenizer.py's host-side path (offline
+preprocessing): polyline splitting and vocab matching. The split runs in the
+port's native C++ helper (data/native.py, built with g++ at first use), as
+the JAX package's does where its library loads; `use_native=False` takes the
+numpy twin. The two agree only within 1e-4 (float64 resampling in another
+order, float32 output), so a segment near a tie between two vocab tokens
+can match another token: the port splits natively so that its token ids
+equal the JAX package's. The training-time top-8 match noise is not ported.
 """
 
 import math
@@ -15,16 +19,22 @@ from infgen_torch.tokenizers.vocab import load_map_vocab
 
 
 def interpolate_polyline(points: np.ndarray, headings: np.ndarray,
-                         distance: float = 0.5,
-                         split_distance: float = 5.0) -> Optional[np.ndarray]:
+                         distance: float = 0.5, split_distance: float = 5.0,
+                         use_native: bool = True) -> Optional[np.ndarray]:
     """Resample a polyline at `distance` m and split into 5 m 3-point segments.
 
     Returns [n_seg, 3, 3] (x, y, theta) or None. Mirrors
     interplating_polyline (preprocess.py:58-139): break the polyline where
     heading jumps or gaps occur, upsample each piece with linear interp,
     window into (split/distance+1)-point chunks, and keep every 5th point.
-
+    With `use_native` the C++ helper computes it (data/native.py; a failed
+    build raises), else numpy.
     """
+    if use_native:
+        from infgen_torch.data.native import interpolate_polyline_native
+        return interpolate_polyline_native(
+            np.asarray(points, np.float64), np.asarray(headings, np.float64),
+            distance, split_distance)
     points = np.asarray(points, np.float64)
     headings = np.asarray(headings, np.float64)
 

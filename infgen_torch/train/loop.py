@@ -90,8 +90,9 @@ def train(cfg: Config, dataset, save_dir: Optional[str] = "runs/default",
     cfg.seed, on `device` (the card unless it says "cpu").
 
     Every `log_every` steps `log_fn` (default: the run's logger) gets one
-    JSON line: step, epoch, ms (host clock to the read of the logs), every
-    loss and grad_norm. With a `save_dir`: the source tree is copied to
+    JSON line: step, epoch, ms (host clock to the read of the logs),
+    input_ms (of it, the wait for the next staged batch), every loss and
+    grad_norm. With a `save_dir`: the source tree is copied to
     save_dir/backup_source, the logged records and the validation records
     go to save_dir/metrics.jsonl, a checkpoint is saved at the end in
     save_dir/ckpt; `resume` restores the latest one there (or the latest
@@ -162,7 +163,7 @@ def train(cfg: Config, dataset, save_dir: Optional[str] = "runs/default",
     timer = StepTimer()
     profiler = contextlib.ExitStack()
     steps_this_run, history = 0, []
-    t_last = time.perf_counter()
+    t_last, input_last = time.perf_counter(), 0.0
     try:
         for epoch in range(cfg.max_epochs):
             batches = iter(staged(
@@ -183,9 +184,11 @@ def train(cfg: Config, dataset, save_dir: Optional[str] = "runs/default",
                 if trainer.step % log_every == 0:
                     logs = {k: float(v) for k, v in logs.items()}  # waits
                     now = time.perf_counter()
+                    waited = timer.totals["input"] - input_last
                     rec = dict(step=trainer.step, epoch=epoch,
-                               ms=(now - t_last) * 1e3 / log_every, **logs)
-                    t_last = now
+                               ms=(now - t_last) * 1e3 / log_every,
+                               input_ms=waited * 1e3 / log_every, **logs)
+                    t_last, input_last = now, timer.totals["input"]
                     history.append(rec)
                     log_fn(json.dumps(rec))
                     record(rec)

@@ -10,6 +10,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "infgen_tpu"}
 FILES = sorted((ROOT / "infgen_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 METRICS = ("features", "map_distance", "wosac", "train_metrics", "offline")
+DATA = ("womd_proto", "native", "preprocess", "waymo", "womd_synthetic")
 
 
 def _imported(path):
@@ -31,6 +32,9 @@ def test_port_imports_no_jax():
     assert {"infgen_torch/model/occ_decoder.py", "infgen_torch/data/loader.py",
             "infgen_torch/utils/logging.py", "infgen_torch/utils/backup.py",
             "infgen_torch/utils/profiling.py"} <= names
+    assert {f"infgen_torch/data/{m}.py" for m in DATA} <= names
+    assert {"infgen_torch/metrics/nms.py", "infgen_torch/ops/sampling.py"} \
+        <= names
     bad = {str(p.relative_to(ROOT)): sorted(
         {m for m in _imported(p) if m.split(".")[0] in FORBIDDEN})
         for p in FILES}
@@ -110,3 +114,35 @@ def test_streaming_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok [21, 10]", \
         out.stderr
+
+
+def test_data_modules_import_without_jax(tmp_path):
+    """The input pipeline imports, and preprocesses one synthetic WOMD
+    scenario into a WaymoDataset item, in a process where JAX, flax, optax
+    and the JAX package cannot be imported; preprocessing imports no
+    torch."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+            + "".join(f"import infgen_torch.data.{m}\n" for m in DATA
+                      if m != "waymo")
+            + "from infgen_torch.data import preprocess, womd_synthetic\n"
+            f"d = {str(tmp_path)!r}\n"
+            "womd_synthetic.write_womd_files(d + '/raw', files=1, "
+            "per_file=1, agents=(9, 9), map_length_m=100.0)\n"
+            "preprocess.main(['--input-dir', d + '/raw', '--output-dir', "
+            "d + '/pkl', '--num-workers', '1'])\n"
+            "no_torch = 'torch' not in sys.modules\n"
+            "import infgen_torch.metrics.nms, infgen_torch.ops.sampling\n"
+            "import infgen_torch.data.waymo as W\n"
+            "from infgen_torch.config import load_config\n"
+            "ds = W.WaymoDataset(d + '/pkl', load_config("
+            "'configs/tiny_smoke.yaml'))\n"
+            "print('ok', no_torch, len(ds), int(ds[0].agents.slot_mask.sum()))"
+            "\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and \
+        out.stdout.strip().splitlines()[-1] == "ok True 1 9", out.stderr

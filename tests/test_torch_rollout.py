@@ -28,24 +28,31 @@ import pytest
 import torch
 
 from infgen_tpu.config import Config as JConfig
+from infgen_tpu.data import preprocess as JPP
+from infgen_tpu.data.waymo import pkl_to_scenario as j_pkl_to_scenario
 from infgen_tpu.data.features import build_model_inputs as j_build_inputs
 from infgen_tpu.data.synthetic import make_synthetic_scenario as j_synthetic
 from infgen_tpu.model.infgen import InfGenModel as JModel
 from infgen_tpu.rollout.closed_loop import make_rollout_fn as j_rollout_fn
 from infgen_tpu.tokenizers.attr_tokenizer import AttrTokenizer as JAttr
+from infgen_tpu.tokenizers.map_tokenizer import MapTokenizer as JMapTok
 from infgen_tpu.tokenizers.motion_tokenizer import MotionTokenizer as JMotion
 from infgen_tpu.tokenizers.vocab import load_map_vocab as j_map_vocab
 
 from infgen_torch import cli
 from infgen_torch.config import Config
 from infgen_torch.convert import load_flax_params
+from infgen_torch.data import preprocess as PP
+from infgen_torch.data import womd_synthetic as WS
 from infgen_torch.data.features import build_model_inputs
 from infgen_torch.data.scenario import to_device
 from infgen_torch.data.synthetic import make_synthetic_scenario
+from infgen_torch.data.waymo import pkl_to_scenario
 from infgen_torch.model.infgen import InfGenModel
 from infgen_torch.rollout.closed_loop import make_rollout_fn
 from infgen_torch.rollout.serving import RolloutServer
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
+from infgen_torch.tokenizers.map_tokenizer import MapTokenizer
 from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
 from infgen_torch.utils.device import resolve_device
@@ -80,8 +87,8 @@ def both():
     jmv = j_map_vocab()
     jscen = j_synthetic(jcfg, seed=2, num_agents=10)
     key = jax.random.PRNGKey(0)
-    jinputs = jax.jit(lambda s, k: j_build_inputs(jcfg, jmt, jattr, s, k))(
-        jscen, key)
+    jbuild = jax.jit(lambda s, k: j_build_inputs(jcfg, jmt, jattr, s, k))
+    jinputs = jbuild(jscen, key)
     pt_uniform = np.array(jax.random.uniform(
         jax.random.split(key)[0], (jcfg.max_map_tokens,)))
     params = random_flax_params(jcfg, seed=0)
@@ -98,13 +105,14 @@ def both():
     load_flax_params(model, params)
     model.eval()
 
-    runs, logits = {}, {}
+    runs, logits, jfns = {}, {}, {}
     for mode, over, force in (("insert", {}, True),
                               ("motion", {"disable_insertion": True}, False)):
         jc, c = jcfg.replace(**over), cfg.replace(**over)
         jmodel = JModel(jc, jattr.grid, jattr.grid_size, jattr.angle_size)
         jfn = j_rollout_fn(jmodel, jc, jattr, jmt, jmv, jit=True,
                            force_insert=force)
+        jfns[mode] = (jfn, jmodel, jc)
         jout = jax.device_get(jfn(params, jscen, jinputs,
                                   jax.random.PRNGKey(7)))
         fn = make_rollout_fn(model, c, attr, mt, mv, force_insert=force)
@@ -114,7 +122,8 @@ def both():
                                      (params, jscen, jinputs))
     return dict(jscen=jscen, jinputs=jinputs, scen=scen, inputs=inputs,
                 runs=runs, logits=logits, model=model, cfg=cfg,
-                tok=(attr, mt, mv))
+                tok=(attr, mt, mv), jtok=(jattr, jmt, jmv), jfns=jfns,
+                jbuild=jbuild, params=params, pt_uniform=pt_uniform)
 
 
 def _debug_logits(jmodel, jcfg, jtok, force, args):
@@ -237,6 +246,42 @@ def test_model_inputs_match_jax(both):
         else:
             np.testing.assert_allclose(b, a, atol=1e-4, rtol=0,
                                        err_msg=name)
+
+
+def test_womd_scenario_matches_jax(both):
+    """A preprocessed WOMD scenario (data/womd_synthetic.py's bytes, 12
+    agents, through each package's preprocessing and pkl loader, padded to
+    CFG) rolled out by the JAX package and the port under PARITY.md, with
+    forced insertion. The fixture's jitted JAX rollout and input builder
+    run again at the same shapes: no new compile."""
+    cfg, jcfg = both["cfg"], JConfig(**CFG)
+    attr, mt, mv = both["tok"]
+    raw = WS.random_scenario(np.random.default_rng(5), "womd", 12,
+                             map_length_m=300.0)
+    jscen = j_pkl_to_scenario(JPP.scenario_to_pkl_dict(raw, JMapTok()), jcfg,
+                              JMapTok(), training=False)
+    scen = pkl_to_scenario(PP.scenario_to_pkl_dict(raw, MapTokenizer()), cfg,
+                           MapTokenizer(), training=False)
+    for part in ("agents", "map"):
+        for name in getattr(jscen, part)._fields:
+            np.testing.assert_array_equal(
+                getattr(getattr(scen, part), name),
+                getattr(getattr(jscen, part), name), err_msg=name)
+    jfn, jmodel, jc = both["jfns"]["insert"]
+    jinputs = both["jbuild"](jscen, jax.random.PRNGKey(0))
+    args = (both["params"], jscen, jinputs)
+    jout = jax.device_get(jfn(*args, jax.random.PRNGKey(7)))
+    s = to_device(scen, "cpu")
+    inputs = build_model_inputs(cfg, mt, attr, s, pt_uniform=torch.as_tensor(
+        both["pt_uniform"]))
+    out = make_rollout_fn(both["model"], cfg, attr, mt, mv,
+                          force_insert=True)(
+        s, inputs, torch.Generator().manual_seed(7))
+    out = {k: _np(v) for k, v in out.items()}
+    assert_matches_jax(out, jout, _debug_logits(jmodel, jc, both["jtok"],
+                                                True, args))
+    assert int(scen.agents.slot_mask.sum()) == 12
+    assert int(out["n_inserted"]) > 0
 
 
 def test_fixed_trip_matches_early_exit(both):

@@ -74,8 +74,8 @@ from infgen_torch.ops import seed_fast as SF
 from infgen_torch.ops import seed_kernel as SK
 from infgen_torch.rollout import closed_loop as CL
 from infgen_torch.rollout import streaming as ST
-from infgen_torch.rollout.serving import (RolloutServer, compact_scenario,
-                                          repad_scenario)
+from infgen_torch.rollout.serving import (RolloutServer, agent_steps,
+                                          compact_scenario, repad_scenario)
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
 
 from test_torch_column_kernel import Layers, attention_tree, mlp_tree
@@ -262,7 +262,10 @@ def test_capacity_invariant_rollout(tiny):
 
 def test_batched_dispatch_matches_single(tiny):
     """rollout_batch groups by bucket and pads to power-of-two batches;
-    every scenario must reproduce its single-dispatch result."""
+    every scenario must reproduce its single-dispatch result. Beside each
+    batch's (A, P, lanes, scenarios) it records its wall time and the
+    agent-steps of its real scenarios (what cli.run_batched's by_bucket
+    reads)."""
     cfg = tiny[0]
     scens = [make_synthetic_scenario(cfg, seed=s, num_agents=n)
              for s, n in [(0, 4), (1, 12), (2, 5)]]   # buckets 8, 16, 8
@@ -271,6 +274,12 @@ def test_batched_dispatch_matches_single(tiny):
     assert outs[0]["pred_traj"].shape[0] == 8
     assert outs[1]["pred_traj"].shape[0] == 16
     assert [b[2] for b in srv.last_dispatch["batches"]] == [2, 1]
+    assert len(srv.last_dispatch["batch_ms"]) == 2
+    assert min(srv.last_dispatch["batch_ms"]) > 0
+    steps = [agent_steps(o["pred_state"], cfg) for o in outs]
+    assert min(steps) > 0
+    assert srv.last_dispatch["batch_agent_steps"] == pytest.approx(
+        [steps[0] + steps[2], steps[1]])
     for scen, seed, out in zip(scens, [7, 8, 9], outs):
         _same(out, srv.rollout(tiny[2], scen, seed, input_seed=seed))
 
