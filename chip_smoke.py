@@ -137,6 +137,22 @@ before the last line):
            128 / 64): ms per segment and per token step, agent-steps/s,
            agents ever alive, buckets, host reads, peak memory, launches;
            the registries' invariants
+  export   the exported rollout (rollout/export.py) of the latency preset
+           and of the flagship, each at full width, bf16, forced
+           insertion, insertion_fixed_trip, SERVING_FRAMES (150) frames:
+           exported through the command line's function (cli.run_export)
+           into a file and loaded back in a spawned process per config,
+           started after `build` (tracing, saving and loading are
+           host-bound Python, minutes of it, beside the phases between);
+           at its turn this process runs the direct make_rollout_fn
+           rollout on the same inputs, then the artifact runs in its
+           process with a generator of the same seed: every output equal
+           bit for bit, each kernel's launches in the two runs equal and
+           above zero for the config's kernels (seed_eval_full, refine and
+           motion_column; seed_eval). Readings: seconds to export and to
+           load, bytes per program, ms per token step of each.
+           use_fused_block and use_pallas_attention are exported in the
+           CPU tests (tests/test_torch_export.py)
   rollout  the flagship rollout (configs/ours_long_term.yaml), its two
            variants (use_fused_block, use_pallas_attention: the command
            line's --fused-block / --pallas-attention) and the latency
@@ -150,7 +166,8 @@ then the summary line of every kernel ({"kernels": [...]}; every entry but
 r_biased_attention's also carries its lane form's time, bound and
 launches in the served batches (`serving`, `serving_kernels`,
 `serving_latency`), each kernel that `stream` launched its
-`stream_launches`; seed_eval's `warm_start_launches` and `womd_launches`,
+`stream_launches`, each kernel that `export`'s artifacts launched its
+`export_launches`; seed_eval's `warm_start_launches` and `womd_launches`,
 r_biased_attention's `train_configs_launches`,
 `train_configs_backward_calls`, `open_loop_launches` and `womd_launches`)
 and, last, the device line {"ok": true, "device": {...}}. Without CUDA it
@@ -4032,6 +4049,177 @@ def check_stream(dev):
     return total
 
 
+# --------------------------------------------------------------------- #
+# export
+# --------------------------------------------------------------------- #
+
+# the exported rollout (rollout/export.py) of the latency preset and the
+# flagship; the flagship with use_fused_block and with use_pallas_attention
+# are exported in the CPU tests (tests/test_torch_export.py): with them the
+# phase took 211-232 s and one whole run 1,173 s of its 1,200 (PERF.md)
+EXPORT_PATHS = (MAIN_PATHS[3], MAIN_PATHS[0])
+
+
+def _export_setup(path, flags, dev, frames):
+    """(cfg, tokenizers, model, scenario, inputs) of an export check: the
+    config at full width with insertion_fixed_trip and `frames` frames,
+    its seed's weights, synthetic scenario 0 and its inputs."""
+    from infgen_torch.cli import build_model, build_tokenizers
+    from infgen_torch.config import load_config
+    from infgen_torch.data.features import build_model_inputs
+    from infgen_torch.data.scenario import to_device
+    from infgen_torch.data.synthetic import make_synthetic_scenario
+
+    cfg = load_config(path).replace(
+        insertion_fixed_trip=True, num_recurrent_steps_val=frames, **flags)
+    tok = build_tokenizers(cfg)
+    model = build_model(cfg, tok[0], dev)
+    scen = to_device(make_synthetic_scenario(cfg, seed=0), dev)
+    inputs = build_model_inputs(
+        cfg, tok[1], tok[0], scen,
+        torch.Generator(device=dev).manual_seed(cfg.seed))
+    return cfg, tok, model, scen, inputs
+
+
+def _timed_run(fn, args, dev, n_steps):
+    """fn(*args, generator of seed 7): (its outputs on the host, its ms per
+    token step, its kernel launches)."""
+    from infgen_torch.cli import KERNELS, kernel_launches
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    for k in KERNELS.values():
+        k.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args, torch.Generator(device=dev).manual_seed(7))
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    return ({k: v.cpu().numpy() for k, v in out.items()}, ms,
+            kernel_launches())
+
+
+def export_artifact(path, flags, device, frames, conn):
+    """In a spawned process on `device`: the config's rollout exported
+    through the command line's function (cli.run_export, forced
+    insertion) into a file and loaded back; then, once `conn` says go, run
+    (_timed_run). Sends the readings, then the run's outputs and launches
+    (or the error's traceback)."""
+    import tempfile
+    import traceback
+
+    try:
+        from infgen_torch.cli import run_export
+        from infgen_torch.config import SHIFT
+        from infgen_torch.rollout.export import load_rollout_artifact
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(device)
+        cfg, tok, model, scen, inputs = _export_setup(path, flags, dev,
+                                                      frames)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            line = run_export(cfg, dev, os.path.join(tmp, "rollout.pt2"),
+                              force_insert=True, model=model, tokenizers=tok)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            served = load_rollout_artifact(line["artifact"])
+            load_s = time.perf_counter() - t0
+        conn.send(dict(export_s=export_s, bytes=line["bytes"], load_s=load_s,
+                       programs=served.header["programs"]))
+        conn.recv()
+        out, ms, launches = _timed_run(
+            served, (model.state_dict(), scen, inputs), dev, frames // SHIFT)
+        conn.send(dict(ms=ms, out=out, launches=launches))
+    except Exception:
+        conn.send(dict(error=traceback.format_exc()))
+
+
+def start_exports(dev, paths=EXPORT_PATHS):
+    """Start export_artifact for each config of `paths`, a spawned process
+    each, so that tracing, saving and loading (host-bound Python, about a
+    millisecond a graph node each) run beside the earlier phases; the
+    artifacts run only when check_export says go."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    jobs = []
+    for path, flags, _ in paths:
+        ours, theirs = ctx.Pipe()
+        proc = ctx.Process(target=export_artifact, daemon=True, args=(
+            path, flags, str(dev), SERVING_FRAMES, theirs))
+        proc.start()
+        jobs.append((proc, ours))
+    return jobs
+
+
+def _receive(conn, what):
+    require(conn.poll(1200), f"export: no word from {what}")
+    msg = conn.recv()
+    require("error" not in msg, f"export: {what} failed:\n"
+            f"{msg.get('error')}")
+    return msg
+
+
+def check_export(dev, jobs, paths=EXPORT_PATHS):
+    """Each config of `paths` at full width, bf16, exported for the card
+    with insertion_fixed_trip and forced insertion, written to a file and
+    loaded back in its process of start_exports; here the direct
+    make_rollout_fn rollout runs on the same inputs, then the artifact in
+    its process, one after the other (SERVING_FRAMES frames, one seed's
+    generator each). Every output of the artifact's run equals the direct
+    run's bit for bit, and each kernel's launches in the two runs are
+    equal, above zero for the kernels of the config's main path. Readings:
+    seconds to export (the command line's run_export, the file written)
+    and to load, bytes per program, ms per token step of each. Returns
+    {kernel: launches of the artifacts' runs}."""
+    from infgen_torch.config import SHIFT, load_config
+    from infgen_torch.rollout.closed_loop import make_rollout_fn
+
+    n_steps = SERVING_FRAMES // SHIFT
+    t_phase = time.perf_counter()
+    total = {}
+    try:
+        for (proc, conn), (path, flags, kernels) in zip(jobs, paths):
+            what = f"{os.path.basename(path)} {flags}"
+            res = _receive(conn, what)
+            cfg, tok, model, scen, inputs = _export_setup(path, flags, dev,
+                                                          SERVING_FRAMES)
+            d_out, d_ms, d_n = _timed_run(
+                make_rollout_fn(model, cfg, *tok, force_insert=True),
+                (scen, inputs), dev, n_steps)
+            conn.send("go")
+            run = _receive(conn, what)
+            a_out, a_n = run["out"], run["launches"]
+            require(set(a_out) == set(d_out), "export: output keys differ")
+            differ = [k for k in d_out
+                      if not np.array_equal(a_out[k], d_out[k])]
+            require(not differ, f"export: {differ} differ from the direct "
+                    f"rollout ({what})")
+            require(a_n == d_n, f"export: launches {a_n} != direct {d_n}")
+            require(all(a_n[k] > 0 for k in kernels),
+                    f"export: a kernel of {kernels} never launched: {a_n}")
+            check_rollout({k: torch.as_tensor(v) for k, v in a_out.items()},
+                          load_config(path).replace(
+                              num_recurrent_steps_val=SERVING_FRAMES),
+                          n_steps)
+            for k, n in a_n.items():
+                total[k] = total.get(k, 0) + n
+            emit("export", config=os.path.relpath(path, ROOT), flags=flags,
+                 frames=SERVING_FRAMES, force_insert=True,
+                 export_s=res["export_s"], bytes=res["bytes"],
+                 programs=res["programs"], load_s=res["load_s"],
+                 ms_per_token_step=run["ms"], direct_ms_per_token_step=d_ms,
+                 launches=a_n, agents_inserted=int(a_out["n_inserted"]))
+            proc.join(60)
+    finally:
+        for proc, _ in jobs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    emit("export_phase", seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on "
@@ -4062,6 +4250,9 @@ def main():
     from infgen_torch.data import native
     emit("build", seconds=build(force=True, verbose=True),
          native_seconds=native.build(force=True))
+    # the export phase's tracing, saving and loading run in processes of
+    # their own beside the phases below; their artifacts run at its turn
+    export_jobs = start_exports(dev)
 
     cfg, lat = load_config(FLAGSHIP), load_config(LATENCY)
     attr = build_tokenizers(cfg)[0]
@@ -4125,6 +4316,7 @@ def main():
     womd_launches = check_womd(dev, smi)
     scoring = check_scoring(dev)
     stream_launches = check_stream(dev)
+    export_launches = check_export(dev, export_jobs)
     missing = [k for k in checks if launches[k] == 0]
     require(not missing, f"kernels never launched on a main path: {missing}")
 
@@ -4141,6 +4333,8 @@ def main():
             bound_by=r["bound_by"], library_ms=None))
         if stream_launches.get(name):
             line[-1]["stream_launches"] = stream_launches[name]
+        if export_launches.get(name):
+            line[-1]["export_launches"] = export_launches[name]
     def lane_fields(lane, err_key, launched):
         return dict(lanes_A=lane["A"], lanes_P=lane["P"],
                     lanes=lane["lanes"],

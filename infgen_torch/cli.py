@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: the `rollout`, `stream`, `validate`,
-`train` and `check-inputs` sub-commands.
+`train`, `check-inputs` and `export` sub-commands.
 
   python -m infgen_torch.cli rollout --config configs/ours_long_term.yaml \
       --synthetic [--device cuda|cpu] [--force-insert] [--num-scenarios N] \
@@ -88,6 +88,19 @@ scenario's stitched registry goes to D/stream_{i:06d}.npz (default
 runs/default), then one JSON summary line: ms per segment and per token
 step, agents ever alive, buckets per segment, host reads, agent-steps/s and
 each kernel's launches.
+
+  python -m infgen_torch.cli export --synthetic | --data-dir D \
+      [--config ...] [--device cuda|cpu] [--out F] [--save-dir D] \
+      [--ckpt-path C | --params ...] [--num-recurrent-steps R] \
+      [--force-insert] [--fused-block] [--pallas-attention]
+
+exports the rollout at the config's (A, P) capacity for deployment without
+the model code (`run_export`, rollout/export.py): its template is one
+synthetic scenario or the data directory's first, its weights the
+config's seed's, --params' or --ckpt-path's; the artifact (F, default
+D/rollout_a{A}.pt2, D runs/default) runs on the device it was exported on
+and takes any state dict of the same architecture. It prints one JSON
+line: artifact, bytes, max_agents, max_map_tokens.
 """
 
 import argparse
@@ -215,6 +228,40 @@ def load_checkpoint_weights(model: torch.nn.Module, ckpt_path: str) -> int:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def run_export(cfg: Config, device, out: Optional[str] = None,
+               save_dir: Optional[str] = None,
+               params: Optional[str] = None,
+               num_recurrent_steps: Optional[int] = None,
+               force_insert: bool = False, model=None, tokenizers=None,
+               dataset=None) -> dict:
+    """Export the rollout (rollout/export.export_rollout) at `cfg`'s
+    capacity on `device`, the first scenario of `dataset` (default the
+    synthetic seed 0) as its template and the model's weights (built from
+    `params` or the config's seed unless given) as its template state
+    dict, to `out` (default save_dir/rollout_a{A}.pt2). Returns the
+    printed summary."""
+    from infgen_torch.rollout.export import (export_rollout,
+                                             save_rollout_artifact)
+    device = resolve_device(device)
+    tokenizers = tokenizers or build_tokenizers(cfg)
+    attr, motion_tok, map_vocab = tokenizers
+    model = model or build_model(cfg, attr, device, params)
+    dataset = dataset or make_dataset(cfg, None, 1)
+    scenario = to_device(dataset[0], device)
+    inputs = build_model_inputs(
+        cfg, motion_tok, attr, scenario,
+        torch.Generator(device=device).manual_seed(cfg.seed))
+    blob = export_rollout(cfg, attr, motion_tok, map_vocab, scenario, inputs,
+                          torch.Generator(device=device), model.state_dict(),
+                          num_recurrent_steps, force_insert)
+    out = out or os.path.join(save_dir or "runs/default",
+                              f"rollout_a{cfg.max_agents}.pt2")
+    save_rollout_artifact(out, blob)
+    return {"artifact": out, "bytes": len(blob),
+            "max_agents": cfg.max_agents,
+            "max_map_tokens": cfg.max_map_tokens}
 
 
 def run_rollouts(cfg: Config, device=None, num_scenarios: int = 1,
@@ -832,7 +879,7 @@ def score_rollouts(cfg: Config, outputs, save_dir: str, device=None,
 def main(argv=None):
     p = argparse.ArgumentParser("infgen_torch")
     p.add_argument("mode", choices=["rollout", "stream", "validate",
-                                    "train", "check-inputs"])
+                                    "train", "check-inputs", "export"])
     p.add_argument("--config", default="configs/ours_long_term.yaml",
                    help="YAML config path")
     p.add_argument("--synthetic", action="store_true",
@@ -845,6 +892,9 @@ def main(argv=None):
                    help="cuda (default) or cpu; no fallback between them")
     p.add_argument("--force-insert", action="store_true",
                    help="every insertion iteration proposes an agent")
+    p.add_argument("--out", default=None,
+                   help="export: the artifact's path (default "
+                        "<save-dir>/rollout_a<max_agents>.pt2)")
     p.add_argument("--num-scenarios", type=int, default=None,
                    help="scenarios to roll out, stream or validate (default "
                         "1; check-inputs and validate --open-loop: 8)")
@@ -927,6 +977,12 @@ def main(argv=None):
         tokenizers = build_tokenizers(cfg)
         model = build_model(cfg, tokenizers[0], resolve_device(args.device),
                             ckpt_path=args.ckpt_path)
+    if args.mode == "export":
+        print(json.dumps(run_export(
+            cfg, args.device, args.out, args.save_dir, args.params,
+            args.num_recurrent_steps, args.force_insert, model, tokenizers,
+            dataset)))
+        return
     if args.mode == "validate":
         run_validate(cfg, args.device, n, args.save_dir or "runs/default",
                      args.params, args.log_features, args.dump_rollouts,

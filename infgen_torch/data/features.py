@@ -6,42 +6,17 @@ uniforms, from a `torch.Generator` or handed in directly (`pt_uniform`), so
 that a test can give the JAX and torch versions the same numbers.
 """
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from infgen_torch.config import Config, ENTER_STATE, INVALID_STATE
-from infgen_torch.data.scenario import Scenario, lane_of, stack_scenarios
+from infgen_torch.data.scenario import (ModelInputs, Scenario,
+                                        TokenizedAgents, lane_of,
+                                        stack_scenarios)
 from infgen_torch.tokenizers.attr_tokenizer import AttrTokenizer
-from infgen_torch.tokenizers.motion_tokenizer import (MotionTokenizer,
-                                                      TokenizedAgents)
+from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.utils.geometry import angle_between_2d_vectors, wrap_angle
-
-
-class ModelInputs(NamedTuple):
-    """Everything the decoder consumes for one scenario. T token steps."""
-
-    tokens: TokenizedAgents
-    grid_token_idx: torch.Tensor     # [A, T] int32, -1 out of range/invalid
-    grid_offset_xy: torch.Tensor     # [A, T, 2]
-    heading_token_idx: torch.Tensor  # [A, T] int32
-    pos_xy: torch.Tensor             # [A, T, 2] ego-relative raw offset
-    heading_theta: torch.Tensor      # [A, T] wrapped relative heading
-    sort_indices: torch.Tensor       # [A, T] int32 ego-angle order of enterers
-    inrange_mask: torch.Tensor       # [A, T] bool
-    bos_mask: torch.Tensor           # [A, T] bool
-    pt_grid_token_idx: torch.Tensor  # [T, P] int32, -1 outside
-    ego_pos: torch.Tensor            # [T, 2]
-    ego_head: torch.Tensor           # [T]
-    agent_shape: torch.Tensor        # [A, 3]
-    agent_type: torch.Tensor         # [A]
-    av_index: torch.Tensor           # []
-    slot_mask: torch.Tensor          # [A]
-    train_mask: torch.Tensor         # [A]
-    pt_valid_mask: torch.Tensor      # [P] bool
-    pt_pred_mask: torch.Tensor       # [P] bool
-    pt_target_mask: torch.Tensor     # [P] bool
-    pt_next_token_idx: torch.Tensor  # [P] int32 successor token id (-1 none)
 
 
 def fetch_enterings(attr: AttrTokenizer, cfg: Config,

@@ -1,4 +1,8 @@
-"""Fixed-shape scenario containers (port of infgen_tpu/data/scenario.py).
+"""Fixed-shape scenario containers (port of infgen_tpu/data/scenario.py),
+and the two NamedTuples built from them: the motion tokenizer's
+`TokenizedAgents` and the model's `ModelInputs` (data/features.py), kept
+here so that code which only carries them (an exported rollout's loader,
+rollout/export.py) imports neither the tokenizers nor the model.
 
 `build_scenario` pads host-side numpy arrays to static shapes, as the JAX
 package does; `to_device` turns every leaf into a tensor on one device.
@@ -45,6 +49,44 @@ class Scenario(NamedTuple):
     agents: AgentData
     map: MapData
     scenario_id: object  # [] int32
+
+
+class TokenizedAgents(NamedTuple):
+    """The motion tokenizer's output (tokenizers/motion_tokenizer.py)."""
+
+    token_idx: torch.Tensor        # [A, T] int32; -1 invalid, -2 enter(bos)
+    state_idx: torch.Tensor        # [A, T] int32
+    token_pos: torch.Tensor        # [A, T, 2]
+    token_heading: torch.Tensor    # [A, T]
+    token_contour: torch.Tensor    # [A, T, 4, 2]
+    token_valid: torch.Tensor      # [A, T] bool (enter steps forced False)
+    raw_token_valid: torch.Tensor  # [A, T] bool
+
+
+class ModelInputs(NamedTuple):
+    """Everything the decoder consumes for one scenario. T token steps."""
+
+    tokens: TokenizedAgents
+    grid_token_idx: torch.Tensor     # [A, T] int32, -1 out of range/invalid
+    grid_offset_xy: torch.Tensor     # [A, T, 2]
+    heading_token_idx: torch.Tensor  # [A, T] int32
+    pos_xy: torch.Tensor             # [A, T, 2] ego-relative raw offset
+    heading_theta: torch.Tensor      # [A, T] wrapped relative heading
+    sort_indices: torch.Tensor       # [A, T] int32 ego-angle order of enterers
+    inrange_mask: torch.Tensor       # [A, T] bool
+    bos_mask: torch.Tensor           # [A, T] bool
+    pt_grid_token_idx: torch.Tensor  # [T, P] int32, -1 outside
+    ego_pos: torch.Tensor            # [T, 2]
+    ego_head: torch.Tensor           # [T]
+    agent_shape: torch.Tensor        # [A, 3]
+    agent_type: torch.Tensor         # [A]
+    av_index: torch.Tensor           # []
+    slot_mask: torch.Tensor          # [A]
+    train_mask: torch.Tensor         # [A]
+    pt_valid_mask: torch.Tensor      # [P] bool
+    pt_pred_mask: torch.Tensor       # [P] bool
+    pt_target_mask: torch.Tensor     # [P] bool
+    pt_next_token_idx: torch.Tensor  # [P] int32 successor token id (-1 none)
 
 
 def tree_map(fn, *trees):

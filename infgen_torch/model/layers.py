@@ -21,6 +21,8 @@ does (`sigmoid`). Attention scores and softmax are
 fp32.
 """
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -40,6 +42,44 @@ def _out_dtype(x, dtype, param_dtype=torch.float32):
                                                                param_dtype)
 
 
+_LANE_PRODUCTS = contextvars.ContextVar("lane_products", default=False)
+
+
+@contextlib.contextmanager
+def lane_products():
+    """Within it, a Dense on a CPU input of three or more dims multiplies
+    each slice of the leading (lane) axis as a matrix product of its own,
+    all in one batched product: a lane's rows then round as when that lane
+    is computed alone (the rollout's B-row products otherwise sum in
+    another order than a single rollout's one-row products). CUDA inputs
+    keep the one B-row product, as before: cuBLAS does not promise that a
+    batch entry rounds as the lone product, so there the batched form
+    would buy nothing shown."""
+    token = _LANE_PRODUCTS.set(True)
+    try:
+        yield
+    finally:
+        _LANE_PRODUCTS.reset(token)
+
+
+def _linear(x, w, b=None):
+    """F.linear, lane by lane under lane_products."""
+    if not (_LANE_PRODUCTS.get() and x.dim() >= 3
+            and x.device.type == "cpu"):
+        return F.linear(x, w, b)
+    B = x.shape[0]
+    y = torch.bmm(x.reshape(B, -1, x.shape[-1]),
+                  w.t().expand(B, *w.t().shape))
+    y = y.reshape(*x.shape[:-1], w.shape[0])
+    return y if b is None else y + b
+
+
+def _as(x, dtype):
+    """x in `dtype`: x itself when it has it (as x.to would return), with
+    no cast recorded when a program is traced (torch.export)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def sigmoid(x):
     """jax.nn.sigmoid as XLA evaluates it: 1 / (1 + exp(-x)) with each step
     rounded to x's dtype. Under bf16 that is three roundings, where
@@ -55,12 +95,13 @@ def layer_norm_fp32(v, weight, bias, dtype=None):
     """Two-pass LayerNorm with fp32 statistics, output in `dtype` (None keeps
     the input dtype). The form of infgen_tpu's dense_attention_zero_agg and
     seed_fast helpers."""
-    v32 = v.float()
+    f32 = torch.float32
+    v32 = _as(v, f32)
     m = v32.mean(-1, keepdim=True)
     var = ((v32 - m) ** 2).mean(-1, keepdim=True)
     y = (v32 - m) * torch.rsqrt(var + LN_EPS)
-    y = y * weight.float() + bias.float()
-    return y.to(dtype if dtype is not None else v.dtype)
+    y = y * _as(weight, f32) + _as(bias, f32)
+    return _as(y, dtype if dtype is not None else v.dtype)
 
 
 class Dense(nn.Module):
@@ -73,15 +114,15 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = _out_dtype(x, self.dtype, self.weight.dtype)
-        w = self.weight.to(dt)
+        w = _as(self.weight, dt)
         if self.bias is None or dt == torch.float32:
             # fp32: one kernel; the fused bias equals flax's separate add
             # within fp32 rounding
-            b = self.bias.to(dt) if self.bias is not None else None
-            return F.linear(x.to(dt), w, b)
+            b = _as(self.bias, dt) if self.bias is not None else None
+            return _linear(_as(x, dt), w, b)
         # flax rounds x @ W to the compute dtype, then adds the bias in it:
         # two roundings, where a fused bias would round once
-        return F.linear(x.to(dt), w) + self.bias.to(dt)
+        return _linear(_as(x, dt), w) + _as(self.bias, dt)
 
 
 class LayerNorm(nn.Module):
@@ -97,13 +138,14 @@ class LayerNorm(nn.Module):
     def forward(self, x, dtype=None):
         """`dtype` overrides the module's output dtype (flax's LayerNorm
         built without one)."""
-        x32 = x.float()
+        f32 = torch.float32
+        x32 = _as(x, f32)
         mean = x32.mean(-1, keepdim=True)
         var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
                           min=0.0)
-        mul = torch.rsqrt(var + LN_EPS) * self.weight.float()
-        y = (x32 - mean) * mul + self.bias.float()
-        return y.to(_out_dtype(x, dtype or self.dtype, self.weight.dtype))
+        mul = torch.rsqrt(var + LN_EPS) * _as(self.weight, f32)
+        y = (x32 - mean) * mul + _as(self.bias, f32)
+        return _as(y, _out_dtype(x, dtype or self.dtype, self.weight.dtype))
 
 
 class Embed(nn.Module):
@@ -252,8 +294,8 @@ class DenseAttention(nn.Module):
         """A raw weight in the compute dtype; without one, promoted as jnp
         promotes it against fp32 inputs (a bf16-stored weight computes in
         fp32, param_dtype)."""
-        return w.to(self.dtype if self.dtype is not None else
-                    torch.promote_types(w.dtype, torch.float32))
+        return _as(w, self.dtype if self.dtype is not None else
+                   torch.promote_types(w.dtype, torch.float32))
 
     def forward(self, x_dst, x_src=None, r=None, mask=None, generator=None):
         keep = (None, None)
@@ -308,7 +350,7 @@ class DenseAttention(nn.Module):
 
         # scores accumulate in fp32 under any compute dtype
         f32 = torch.float32
-        sim = torch.einsum("...qhd,...khd->...qkh", q.to(f32), k.to(f32))
+        sim = torch.einsum("...qhd,...khd->...qkh", _as(q, f32), _as(k, f32))
         if self.has_pos_emb and r is not None:
             r_n = self.prenorm_r(r)
             k_r = (r_n @ self._cast(self.w_kr)).reshape(*r_n.shape[:-1], H, Hd)
@@ -316,7 +358,7 @@ class DenseAttention(nn.Module):
                    ).reshape(*r_n.shape[:-1], H, Hd)
             eq = "...qhd,...qkhd->...qkh" if r_per_pair else \
                 "...qhd,...khd->...qkh"
-            sim = sim + torch.einsum(eq, q.to(f32), k_r.to(f32))
+            sim = sim + torch.einsum(eq, _as(q, f32), _as(k_r, f32))
         sim = sim * (Hd ** -0.5)
 
         if mask is not None:
@@ -327,7 +369,7 @@ class DenseAttention(nn.Module):
             any_valid = mask.any(dim=-1)
             attn = torch.where(any_valid[..., None, None], attn, 0.0)
             attn = torch.where(mask[..., None], attn, 0.0)
-        attn = self._drop(attn, attn_keep).to(v.dtype)
+        attn = _as(self._drop(attn, attn_keep), v.dtype)
         agg = torch.einsum("...qkh,...khd->...qhd", attn, v)
         if self.has_pos_emb and r is not None:
             eq = "...qkh,...qkhd->...qhd" if r_per_pair else \

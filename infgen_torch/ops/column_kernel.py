@@ -34,14 +34,14 @@ gives them, bit for bit.
 """
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import ctypes
 import torch
 import torch.nn.functional as F
 
 from infgen_torch.ops.seed_kernel import (_DTYPE_CODE, _check, _flat, _ln,
-                                          _ptr_array)
+                                          _views, ptr_array)
 
 NEG_INF = -1e30
 _KINDS = (("t_attn", False), ("pt2a", True), ("a2a", False))
@@ -53,7 +53,6 @@ class ColumnPack:
     vectors: torch.Tensor          # flat, fp32
     w: Dict[str, torch.Tensor]     # views into `weights`, [3L, ...]
     v: Dict[str, torch.Tensor]     # views into `vectors`, [3L, ...]
-    ptrs: ctypes.Array             # data_ptr of each view, layout order
     L: int
     D: int
     tiles: Optional[torch.Tensor] = None   # bf16 packs: column_tiles
@@ -61,6 +60,24 @@ class ColumnPack:
     @property
     def dtype(self):
         return self.weights.dtype
+
+    @classmethod
+    def of(cls, weights, vectors, tiles, L: int, D: int) -> "ColumnPack":
+        """The pack over the buffers that pack_column_params made (or their
+        counterparts in a traced program): the views are rebuilt."""
+        mats, vecs = _layouts(3 * L, D)
+        return cls(weights, vectors, _views(weights, mats),
+                   _views(vectors, vecs), L, D, tiles)
+
+    def views(self) -> List[torch.Tensor]:
+        """Each view, in the order of the pointer array that
+        csrc/dense_row.cuh reads (its `Arg` enum)."""
+        return [*self.w.values(), *self.v.values()]
+
+    @property
+    def ptrs(self) -> ctypes.Array:
+        """data_ptr of each view, layout order."""
+        return ptr_array(self.views())
 
 
 def _layouts(J: int, D: int):
@@ -86,8 +103,8 @@ def pack_sublayers(subs, dtype=None):
     in the layout of `_layouts`. Matrices go to `dtype` (None = fp32) in
     [in, out] layout; LayerNorm parameters and biases stay fp32. The query
     LayerNorm is prenorm_dst for a bipartite sublayer, prenorm_src
-    otherwise. Returns (weights, vectors, w, v, ptrs, D): the two flat
-    buffers, their per-array views and the pointer array."""
+    otherwise. Returns (weights, vectors, w, v, D): the two flat buffers
+    and their per-array views."""
     dtype = dtype or torch.float32
     st = lambda get: torch.stack([get(p, bip) for p, bip in subs])
     HD = subs[0][0].to_s.weight.shape[0]
@@ -127,7 +144,7 @@ def pack_sublayers(subs, dtype=None):
     device = parts["wq"].device
     weights, w = _flat(parts, mats, dtype, device)
     vectors, v = _flat(parts, vecs, torch.float32, device)
-    return weights, vectors, w, v, _ptr_array({**w, **v}, mats + vecs), D
+    return weights, vectors, w, v, D
 
 
 def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
@@ -138,10 +155,10 @@ def pack_column_params(decoder, L: int, dtype=None) -> ColumnPack:
     for i in range(L):
         subs += [(getattr(decoder, f"{name}_{i}"), bip)
                  for name, bip in _KINDS]
-    weights, vectors, w, v, ptrs, D = pack_sublayers(subs, dtype)
+    weights, vectors, w, v, D = pack_sublayers(subs, dtype)
     tiles = column_tiles(w) if dtype == torch.bfloat16 and D == TILE_D \
         else None
-    return ColumnPack(weights, vectors, w, v, ptrs, L, D, tiles)
+    return ColumnPack(weights, vectors, w, v, L, D, tiles)
 
 
 # the bf16 path's widths (csrc/motion_column.cu: kCD, kCHd) and its [D, D]
@@ -311,10 +328,11 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
     bool; n_rows an int32 scalar tensor on the same device, or None (all
     rows). Returns [L, A, D] fp32. With a lane axis (the module docstring's
     shapes) n_rows is [B] or None and the output [L, B, A, D]; the width
-    limits (kernel_accepts) hold per lane. CUDA tensors launch
-    csrc/motion_column.cu on the current stream (launches_per_call kernels
-    for every lane, counted once in `motion_column_kernel.launches`); CPU
-    tensors take motion_column_reference."""
+    limits (kernel_accepts) hold per lane. Runs the registered op
+    `infgen::motion_column`: CUDA tensors launch csrc/motion_column.cu on
+    the current stream (launches_per_call kernels for every lane, counted
+    once in `motion_column_kernel.launches`); CPU tensors take
+    motion_column_reference."""
     dev = x0.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"motion_column_kernel: unsupported device {dev}")
@@ -338,10 +356,45 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
                lead if lead else n_rows.shape, dev)
         if not lead and n_rows.numel() != 1:
             raise ValueError("n_rows must hold one value")
-    if dev.type == "cpu":
-        return motion_column_reference(pack, x0, key_stack, r_t, t_mask,
-                                       pl_keys, r_pl, pl_mask, r_aa,
-                                       aa_mask, num_heads, head_dim, n_rows)
+    return torch.ops.infgen.motion_column(
+        pack.views(), pack.tiles, x0, key_stack, r_t, t_mask, pl_keys, r_pl,
+        pl_mask, r_aa, aa_mask, L, num_heads, head_dim, n_rows)
+
+
+@torch.library.custom_op("infgen::motion_column", mutates_args=(),
+                         device_types="cpu")
+def _motion_column_op(views: List[torch.Tensor],
+                      tiles: Optional[torch.Tensor], x0: torch.Tensor,
+                      key_stack: torch.Tensor, r_t: torch.Tensor,
+                      t_mask: torch.Tensor, pl_keys: torch.Tensor,
+                      r_pl: torch.Tensor, pl_mask: torch.Tensor,
+                      r_aa: torch.Tensor, aa_mask: torch.Tensor, L: int,
+                      num_heads: int, head_dim: int,
+                      n_rows: Optional[torch.Tensor]) -> torch.Tensor:
+    mats, vecs = _layouts(3 * L, x0.shape[-1])
+    names = [n for n, _ in mats + vecs]
+    pack = ColumnPack(views[0], views[len(mats)],
+                      dict(zip(names[:len(mats)], views[:len(mats)])),
+                      dict(zip(names[len(mats):], views[len(mats):])), L,
+                      x0.shape[-1], tiles)
+    return motion_column_reference(
+        pack, x0, key_stack, r_t, t_mask, pl_keys, r_pl, pl_mask, r_aa,
+        aa_mask, num_heads, head_dim, n_rows).contiguous()
+
+
+@_motion_column_op.register_fake
+def _(views, tiles, x0, key_stack, r_t, t_mask, pl_keys, r_pl, pl_mask, r_aa,
+      aa_mask, L, num_heads, head_dim, n_rows):
+    return x0.new_empty((L, *x0.shape), dtype=torch.float32)
+
+
+@_motion_column_op.register_kernel("cuda")
+def _(views, tiles, x0, key_stack, r_t, t_mask, pl_keys, r_pl, pl_mask, r_aa,
+      aa_mask, L, num_heads, head_dim, n_rows):
+    dev = x0.device
+    D, cdt = x0.shape[-1], views[0].dtype
+    lead = tuple(x0.shape[:-2])
+    A, W, K = x0.shape[-2], key_stack.shape[-2], pl_keys.shape[-2]
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"motion_column_kernel: compute dtype {cdt} "
                          "unsupported")
@@ -351,10 +404,16 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
             "(bf16: D = 128, head_dim 16) and at most 256 keys per query, "
             f"got D={D}, {num_heads} heads of {head_dim}, "
             f"{max(A, W, K)} keys")
-    _check("weights", pack.weights, cdt, pack.weights.shape, dev)
-    _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
+    mats, vecs = _layouts(3 * L, D)
+    if len(views) != len(mats) + len(vecs):
+        raise ValueError(f"motion_column_kernel: {len(views)} views, "
+                         f"expected {len(mats) + len(vecs)}")
+    for (name, shape), t in zip(mats, views):
+        _check(name, t, cdt, shape, dev)
+    for (name, shape), t in zip(vecs, views[len(mats):]):
+        _check(name, t, torch.float32, shape, dev)
     if cdt == torch.bfloat16:
-        _check("tiles", pack.tiles, cdt, (3 * L, len(TILE_ORDER), D, D), dev)
+        _check("tiles", tiles, cdt, (3 * L, len(TILE_ORDER), D, D), dev)
 
     from infgen_torch.ops.build import library
     lib = library()
@@ -372,8 +431,8 @@ def motion_column_kernel(pack: ColumnPack, x0, key_stack, r_t, t_mask,
         r_t.data_ptr(), t_mask.data_ptr(), pl_keys.data_ptr(),
         r_pl.data_ptr(), pl_mask.data_ptr(), r_aa.data_ptr(),
         aa_mask.data_ptr(), 0 if n_rows is None else n_rows.data_ptr(),
-        ctypes.addressof(pack.ptrs),
-        0 if cdt != torch.bfloat16 else pack.tiles.data_ptr(),
+        ctypes.addressof(ptr_array(views)),
+        0 if cdt != torch.bfloat16 else tiles.data_ptr(),
         out.data_ptr(), scratch.data_ptr(),
         L, A, W, K, D, num_heads, head_dim, B, stream)
     if err != 0:

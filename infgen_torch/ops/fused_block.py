@@ -31,13 +31,14 @@ valid key aggregates to 0. At most MAX_KEYS keys per query.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List, Optional
 
 import ctypes
 import torch
 
-from infgen_torch.ops.column_kernel import _KINDS, _sublayer, pack_sublayers
-from infgen_torch.ops.seed_kernel import _DTYPE_CODE, _check
+from infgen_torch.ops.column_kernel import (_KINDS, _layouts, _sublayer,
+                                            pack_sublayers)
+from infgen_torch.ops.seed_kernel import _DTYPE_CODE, _check, _views, ptr_array
 
 MAX_KEYS = 128   # the TPU kernel's single key tile
 _SMEM_OK = set()   # (dtype, D, heads, K, per_query) whose shared memory fits
@@ -50,14 +51,30 @@ class FusedPack:
     w: Dict[str, torch.Tensor]     # views into `weights`, [1, ...]
     v: Dict[str, torch.Tensor]     # views into `vectors`, [1, ...]
     heads: Dict[str, torch.Tensor]  # head-blocked wk / wkr (head_blocked)
-    ptrs: ctypes.Array             # data_ptr of each view, layout order,
-                                   # then of the two `heads`
     D: int
     H: int
 
     @property
     def dtype(self):
         return self.weights.dtype
+
+    @classmethod
+    def of(cls, weights, vectors, heads, D: int, H: int) -> "FusedPack":
+        """The pack over the buffers that pack_fused_block made (or their
+        counterparts in a traced program): the views are rebuilt."""
+        mats, vecs = _layouts(1, D)
+        return cls(weights, vectors, _views(weights, mats),
+                   _views(vectors, vecs), heads, D, H)
+
+    def views(self) -> List[torch.Tensor]:
+        """Each view, layout order, then the two `heads`: the pointer array
+        that csrc/fused_block.cu reads."""
+        return [*self.w.values(), *self.v.values(), self.heads["wkh"],
+                self.heads["wkrh"]]
+
+    @property
+    def ptrs(self) -> ctypes.Array:
+        return ptr_array(self.views())
 
 
 def head_blocked(w, num_heads: int) -> torch.Tensor:
@@ -74,14 +91,12 @@ def pack_fused_block(module) -> FusedPack:
     """The fp32 pack of one DenseAttention module (its query LayerNorm is
     prenorm_dst when the module is bipartite, prenorm_src otherwise), with
     head-blocked copies of to_k and w_kr appended to the pointer array."""
-    weights, vectors, w, v, ptrs, D = pack_sublayers(
+    weights, vectors, w, v, D = pack_sublayers(
         [(module, module.bipartite)], torch.float32)
     H = module.num_heads
     heads = {"wkh": head_blocked(w["wk"][0], H),
              "wkrh": head_blocked(w["wkr"][0], H)}
-    ptrs = (ctypes.c_uint64 * (len(ptrs) + 2))(
-        *ptrs, heads["wkh"].data_ptr(), heads["wkrh"].data_ptr())
-    return FusedPack(weights, vectors, w, v, heads, ptrs, D, H)
+    return FusedPack(weights, vectors, w, v, heads, D, H)
 
 
 def pack_column_blocks(decoder, L: int):
@@ -141,10 +156,11 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
     """One DenseAttention layer (shapes and math of
     fused_attention_block_reference), with or without a leading lane axis.
     x_dst, x_src and r share one dtype, float32 or bfloat16, and are
-    contiguous; the output takes the dtype. CUDA tensors launch
-    csrc/fused_block.cu on the current stream (one launch for every lane,
-    counted once in `fused_attention_block.launches`); CPU tensors take the
-    plain version. The kernel's widths: kernel_accepts."""
+    contiguous; the output takes the dtype. Runs the registered op
+    `infgen::fused_attention_block`: CUDA tensors launch csrc/fused_block.cu
+    on the current stream (one launch for every lane, counted once in
+    `fused_attention_block.launches`); CPU tensors take the plain version.
+    The kernel's widths: kernel_accepts, with the pack's num_heads."""
     dev = x_dst.device
     mode = _mode(x_dst, x_src)
     lead = tuple(x_dst.shape[:-2])
@@ -171,20 +187,63 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
         raise ValueError("self-attention needs r [Q, Q, D]")
     _check("r", r, dt, (*lead, Q, K, D), dev)
     _check("mask", mask, torch.bool, (*lead, Q, K), dev)
-    if dev.type == "cpu":
-        return fused_attention_block_reference(pack, x_dst, x_src, r, mask,
-                                               num_heads)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention_block: unsupported device {dev}")
+    if dev.type == "cuda" and num_heads != pack.H:
+        raise ValueError(f"fused_attention_block: {num_heads} heads, the "
+                         f"pack's {pack.H}")
+    return torch.ops.infgen.fused_attention_block(pack.views(), x_dst, x_src,
+                                                  r, mask, num_heads)
+
+
+def _op_pack(views, D, H) -> FusedPack:
+    """The FusedPack of an op's arguments (its flat buffers are not
+    needed)."""
+    mats, vecs = _layouts(1, D)
+    names = [n for n, _ in mats + vecs]
+    n_w = len(mats)
+    return FusedPack(views[0], views[n_w],
+                     dict(zip(names[:n_w], views[:n_w])),
+                     dict(zip(names[n_w:], views[n_w:len(names)])),
+                     dict(wkh=views[-2], wkrh=views[-1]), D, H)
+
+
+@torch.library.custom_op("infgen::fused_attention_block", mutates_args=(),
+                         device_types="cpu")
+def _fused_block_op(views: List[torch.Tensor], x_dst: torch.Tensor,
+                    x_src: Optional[torch.Tensor], r: torch.Tensor,
+                    mask: torch.Tensor, num_heads: int) -> torch.Tensor:
+    pack = _op_pack(views, x_dst.shape[-1], num_heads)
+    return fused_attention_block_reference(pack, x_dst, x_src, r, mask,
+                                           num_heads).contiguous()
+
+
+@_fused_block_op.register_fake
+def _(views, x_dst, x_src, r, mask, num_heads):
+    return torch.empty_like(x_dst, memory_format=torch.contiguous_format)
+
+
+@_fused_block_op.register_kernel("cuda")
+def _(views, x_dst, x_src, r, mask, num_heads):
+    dev = x_dst.device
+    mode = _mode(x_dst, x_src)
+    lead = tuple(x_dst.shape[:-2])
+    Q, D = x_dst.shape[-2:]
+    K = r.shape[-2]
+    dt = x_dst.dtype
     Hd = D // num_heads
-    if num_heads != pack.H or not kernel_accepts(D, num_heads):
+    if not kernel_accepts(D, num_heads):
         raise ValueError("the fused_attention_block kernel takes D in "
                          "(32, 64, 128), the pack's num_heads, a power of "
                          "two up to 16 with num_heads * D <= 1024, and a "
                          "head_dim divisible by 4 (kernel_accepts)")
-    _check("weights", pack.weights, torch.float32, pack.weights.shape, dev)
-    _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
-    for name, t in pack.heads.items():
+    mats, vecs = _layouts(1, D)
+    if len(views) != len(mats) + len(vecs) + 2:
+        raise ValueError(f"fused_attention_block: {len(views)} views, "
+                         f"expected {len(mats) + len(vecs) + 2}")
+    for (name, shape), t in zip(mats + vecs, views):
+        _check(name, t, torch.float32, shape, dev)
+    for name, t in zip(("wkh", "wkrh"), views[-2:]):
         _check(name, t, torch.float32, (Hd, D * num_heads), dev)
 
     from infgen_torch.ops.build import library
@@ -202,7 +261,7 @@ def fused_attention_block(pack: FusedPack, x_dst, x_src, r, mask,
     err = lib.infgen_fused_block(
         _DTYPE_CODE[dt], x_dst.data_ptr(),
         0 if x_src is None else x_src.data_ptr(), r.data_ptr(),
-        mask.data_ptr(), ctypes.addressof(pack.ptrs), out.data_ptr(),
+        mask.data_ptr(), ctypes.addressof(ptr_array(views)), out.data_ptr(),
         lead[0] if lead else 1, Q, K, D, num_heads, Hd, per_query, stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: cudaError "

@@ -58,11 +58,14 @@ _ARANGE = {}
 def arange_on(n: int, device):
     """torch.arange(n) on `device`, made once and kept: the lane index and
     the one-hot writes' positions, read on every call without a launch of
-    their own. Callers must not write to it."""
+    their own. Callers must not write to it. While a program is traced
+    (torch.export) a fresh one is made and none is kept."""
     key = (n, torch.device(device))
     out = _ARANGE.get(key)
     if out is None:
-        out = _ARANGE[key] = torch.arange(n, device=device)
+        out = torch.arange(n, device=device)
+        if not torch.compiler.is_compiling():
+            _ARANGE[key] = out
     return out
 
 

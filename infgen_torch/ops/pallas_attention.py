@@ -23,6 +23,8 @@ optional per-head multiplier of the softmax weights (attention dropout, the
 denominator left undropped); the caller draws it. Everything is fp32.
 """
 
+from typing import Optional
+
 import torch
 
 from infgen_torch.ops.seed_kernel import _check
@@ -90,9 +92,10 @@ def kernel_accepts(K: int, HD: int, Dr: int, H: int) -> bool:
 def r_biased_attention(q, k, v, r, w_kr, w_vr, mask, num_heads: int,
                        drop=None) -> torch.Tensor:
     """The attention of r_biased_attention_reference, every tensor fp32 and
-    contiguous. CUDA tensors launch csrc/r_biased_attention.cu on the
-    current stream (counted in `r_biased_attention.launches`; widths that
-    kernel_accepts refuses raise); CPU tensors take the plain version."""
+    contiguous, through the registered op `infgen::r_biased_attention`:
+    CUDA tensors launch csrc/r_biased_attention.cu on the current stream
+    (counted in `r_biased_attention.launches`; widths that kernel_accepts
+    refuses raise); CPU tensors take the plain version."""
     dev = q.device
     B, Q, HD = q.shape
     K, Dr, H = k.shape[1], r.shape[-1], num_heads
@@ -108,18 +111,39 @@ def r_biased_attention(q, k, v, r, w_kr, w_vr, mask, num_heads: int,
     _check("mask", mask, torch.bool, (B, Q, K), dev)
     if drop is not None:
         _check("drop", drop, f32, (B, Q, K, H), dev)
-    if dev.type == "cpu":
-        return r_biased_attention_reference(q, k, v, r, w_kr, w_vr, mask,
-                                            num_heads, drop)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"r_biased_attention: unsupported device {dev}")
+    return torch.ops.infgen.r_biased_attention(q, k, v, r, w_kr, w_vr, mask,
+                                               num_heads, drop)
+
+
+@torch.library.custom_op("infgen::r_biased_attention", mutates_args=(),
+                         device_types="cpu")
+def _rba_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            r: torch.Tensor, w_kr: torch.Tensor, w_vr: torch.Tensor,
+            mask: torch.Tensor, num_heads: int,
+            drop: Optional[torch.Tensor]) -> torch.Tensor:
+    return r_biased_attention_reference(q, k, v, r, w_kr, w_vr, mask,
+                                        num_heads, drop).contiguous()
+
+
+@_rba_op.register_fake
+def _(q, k, v, r, w_kr, w_vr, mask, num_heads, drop):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@_rba_op.register_kernel("cuda")
+def _(q, k, v, r, w_kr, w_vr, mask, num_heads, drop):
+    dev = q.device
+    B, Q, HD = q.shape
+    K, Dr, H = k.shape[1], r.shape[-1], num_heads
     if not kernel_accepts(K, HD, Dr, H):
         raise ValueError(f"r_biased_attention: the kernel does not take K={K}"
                          f", HD={HD}, Dr={Dr}, {H} heads")
 
     from infgen_torch.ops.build import library
     lib = library()
-    out = torch.empty((B, Q, HD), dtype=f32, device=dev)
+    out = torch.empty((B, Q, HD), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_r_biased_attention(
         0, q.data_ptr(), k.data_ptr(), v.data_ptr(), r.data_ptr(),

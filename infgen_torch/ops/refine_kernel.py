@@ -27,14 +27,14 @@ logits [angle_size] and the two offset values before tanh. The TPU version's
 """
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import ctypes
 import torch
 import torch.nn.functional as F
 
 from infgen_torch.ops.seed_kernel import (_DTYPE_CODE, SMEM_LIMIT, _check,
-                                          _flat, _ln, _ptr_array)
+                                          _flat, _ln, _views, ptr_array)
 
 _HEADS = ("seed_heading_rel_token_predict_head", "seed_offset_xy_predict_head")
 # the kernel's split (csrc/refine.cu): one CTA per head of SLICE columns, a
@@ -49,7 +49,6 @@ class RefinePack:
     vectors: torch.Tensor          # flat, fp32
     w: Dict[str, torch.Tensor]     # views into `weights`
     v: Dict[str, torch.Tensor]     # views into `vectors`
-    ptrs: ctypes.Array             # data_ptr of each vector, layout order
     L: int
     D: int
     angle_size: int
@@ -58,6 +57,25 @@ class RefinePack:
     @property
     def dtype(self):
         return self.weights.dtype
+
+    @classmethod
+    def of(cls, weights, vectors, tiles, L: int, D: int,
+           angle_size: int) -> "RefinePack":
+        """The pack over the buffers that pack_refine_params made (or their
+        counterparts in a traced program): the views are rebuilt."""
+        mats, vecs = _layouts(L, D, angle_size)
+        return cls(weights, vectors, _views(weights, mats),
+                   _views(vectors, vecs), L, D, angle_size, tiles)
+
+    def views(self) -> List[torch.Tensor]:
+        """Every matrix's view, then every vector's, in layout order."""
+        return [*self.w.values(), *self.v.values()]
+
+    @property
+    def ptrs(self) -> ctypes.Array:
+        """data_ptr of each vector, in the order of the pointer array that
+        csrc/refine.cu reads (its `Arg` enum)."""
+        return ptr_array(self.v.values())
 
 
 def _layouts(L: int, D: int, angle_size: int):
@@ -210,8 +228,7 @@ def pack_refine_params(decoder, L: int, angle_size: int,
     vectors, v = _flat(parts, vecs, torch.float32, device)
     tiles = refine_tiles(w, L, D, angle_size) \
         if D % SLICE == 0 and 2 <= D // SLICE <= MAX_CLUSTER else None
-    return RefinePack(weights, vectors, w, v, _ptr_array(v, vecs), L, D,
-                      angle_size, tiles)
+    return RefinePack(weights, vectors, w, v, L, D, angle_size, tiles)
 
 
 def _mm(pack, a, m):
@@ -323,31 +340,74 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     padding masked) in the pack's compute dtype; mask_pl / mask_a [R] bool.
     Returns (heading logits [angle_size], offset [2] before tanh), fp32,
     and with `trace` also x after each sublayer, [2L, R, D] fp32 (the
-    kernel computes only row 0 of the last one). CUDA tensors launch
-    csrc/refine.cu on the current stream (counted in
-    `refine_kernel.launches`); CPU tensors take the plain version
-    (refine_reference). The kernel takes the widths of kernel_accepts;
-    others raise.
+    kernel computes only row 0 of the last one). Runs the registered op
+    `infgen::refine`: CUDA tensors launch csrc/refine.cu on the current
+    stream (counted in `refine_kernel.launches`); CPU tensors take the
+    plain version (refine_reference). The kernel takes the widths of
+    kernel_accepts; others raise.
 
     Lanes: every input [B, R, ...] refines every lane's insert in one
     launch, one cluster per lane, into head [B, angle_size], offset [B, 2]
     (and trace [B, 2L, R, D]); `lanes` [B] bool switches lanes off (their
     outputs are zeros). One launch counts once, whatever B."""
+    if x_sub.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"refine_kernel: unsupported device {x_sub.device}")
+    if lanes is not None and x_sub.dim() != 3:
+        raise ValueError("refine_kernel: a lane mask needs a lane axis")
+    head, off, tr = torch.ops.infgen.refine(
+        pack.views(), pack.tiles, x_sub, pl_keys, r_pl, mask_pl, r_aa,
+        mask_a, pack.L, pack.angle_size, num_heads, head_dim, trace, lanes)
+    return (head, off, tr) if trace else (head, off)
+
+
+def _op_pack(views, tiles, L, D, angle_size) -> RefinePack:
+    """The RefinePack of an op's arguments (its flat buffers are not
+    needed)."""
+    mats, vecs = _layouts(L, D, angle_size)
+    names = [n for n, _ in mats + vecs]
+    return RefinePack(views[0], views[len(mats)],
+                      dict(zip(names[:len(mats)], views[:len(mats)])),
+                      dict(zip(names[len(mats):], views[len(mats):])), L, D,
+                      angle_size, tiles)
+
+
+@torch.library.custom_op("infgen::refine", mutates_args=(),
+                         device_types="cpu")
+def _refine_op(views: List[torch.Tensor], tiles: Optional[torch.Tensor],
+               x_sub: torch.Tensor, pl_keys: torch.Tensor, r_pl: torch.Tensor,
+               mask_pl: torch.Tensor, r_aa: torch.Tensor,
+               mask_a: torch.Tensor, L: int, angle_size: int, num_heads: int,
+               head_dim: int, trace: bool, lanes: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    pack = _op_pack(views, tiles, L, x_sub.shape[-1], angle_size)
+    args = (pl_keys, r_pl, mask_pl, r_aa, mask_a, num_heads, head_dim)
+    if x_sub.dim() == 3:
+        out = _lanes_of(pack, x_sub, args, lanes, True)
+    else:
+        xs = _sublayers(pack, x_sub, *args)
+        out = (*refine_heads(pack, xs[-1][0]), torch.stack(xs))
+    tr = out[2] if trace else x_sub.new_empty((0,))
+    return out[0].contiguous(), out[1].contiguous(), tr.contiguous()
+
+
+@_refine_op.register_fake
+def _(views, tiles, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a, L,
+      angle_size, num_heads, head_dim, trace, lanes):
+    lead = tuple(x_sub.shape[:-2])
+    R, D = x_sub.shape[-2:]
+    f32 = dict(dtype=torch.float32)
+    tr = x_sub.new_empty((*lead, 2 * L, R, D), **f32) if trace \
+        else x_sub.new_empty((0,), **f32)
+    return (x_sub.new_empty((*lead, angle_size), **f32),
+            x_sub.new_empty((*lead, 2), **f32), tr)
+
+
+@_refine_op.register_kernel("cuda")
+def _(views, tiles, x_sub, pl_keys, r_pl, mask_pl, r_aa, mask_a, L,
+      angle_size, num_heads, head_dim, trace, lanes):
     dev = x_sub.device
     batched = x_sub.dim() == 3
-    if lanes is not None and not batched:
-        raise ValueError("refine_kernel: a lane mask needs a lane axis")
-    if dev.type == "cpu":
-        args = (pl_keys, r_pl, mask_pl, r_aa, mask_a, num_heads, head_dim)
-        if batched:
-            return _lanes_of(pack, x_sub, args, lanes, trace)
-        if not trace:
-            return refine_reference(pack, x_sub, *args)
-        xs = _sublayers(pack, x_sub, *args)
-        return (*refine_heads(pack, xs[-1][0]), torch.stack(xs))
-    if dev.type != "cuda":
-        raise ValueError(f"refine_kernel: unsupported device {dev}")
-    D, cdt = pack.D, pack.dtype
+    D, cdt = x_sub.shape[-1], views[0].dtype
     lead = tuple(x_sub.shape[:1]) if batched else ()
     R = x_sub.shape[-2]
     if not kernel_accepts(cdt, D, num_heads, head_dim, R):
@@ -362,12 +422,16 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
     _check("mask_a", mask_a, torch.bool, (*lead, R), dev)
     if lanes is not None:
         _check("lanes", lanes, torch.bool, lead, dev)
-    _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
-    lay = tile_layout(pack.L, D, pack.angle_size, cdt)
-    _check("tiles", pack.tiles, cdt, (lay["kc"], lay["stages"], lay["slot"]),
-           dev)
+    mats, vecs = _layouts(L, D, angle_size)
+    if len(views) != len(mats) + len(vecs):
+        raise ValueError(f"refine_kernel: {len(views)} views, expected "
+                         f"{len(mats) + len(vecs)}")
+    for (name, shape), t in zip(vecs, views[len(mats):]):
+        _check(name, t, torch.float32, shape, dev)
+    lay = tile_layout(L, D, angle_size, cdt)
+    _check("tiles", tiles, cdt, (lay["kc"], lay["stages"], lay["slot"]), dev)
     from infgen_torch.ops.build import library
-    shape = (_DTYPE_CODE[cdt], pack.L, D, pack.angle_size)
+    shape = (_DTYPE_CODE[cdt], L, D, angle_size)
     if shape not in _SMEM_OK:
         smem = library().infgen_refine_smem(*shape)
         if smem > SMEM_LIMIT:
@@ -375,22 +439,23 @@ def refine_kernel(pack: RefinePack, x_sub, pl_keys, r_pl, mask_pl, r_aa,
                              "exceed the 227 KB a block can use")
         _SMEM_OK.add(shape)
     f32 = dict(dtype=torch.float32, device=dev)
-    head = torch.empty((*lead, pack.angle_size), **f32)
+    head = torch.empty((*lead, angle_size), **f32)
     off = torch.empty((*lead, 2), **f32)
-    tr = torch.zeros((*lead, 2 * pack.L, R, D), **f32) if trace else None
+    tr = torch.zeros((*lead, 2 * L, R, D), **f32) if trace \
+        else torch.empty((0,), **f32)
     err = library().infgen_refine(
         _DTYPE_CODE[cdt], x_sub.data_ptr(), pl_keys.data_ptr(),
         r_pl.data_ptr(), mask_pl.data_ptr(), r_aa.data_ptr(),
-        mask_a.data_ptr(), ctypes.addressof(pack.ptrs),
-        pack.tiles.data_ptr(), head.data_ptr(), off.data_ptr(),
-        0 if tr is None else tr.data_ptr(),
+        mask_a.data_ptr(), ctypes.addressof(ptr_array(views[len(mats):])),
+        tiles.data_ptr(), head.data_ptr(), off.data_ptr(),
+        tr.data_ptr() if trace else 0,
         0 if lanes is None else lanes.data_ptr(), lead[0] if lead else 1,
-        pack.L, R, D, num_heads, head_dim, pack.angle_size,
+        L, R, D, num_heads, head_dim, angle_size,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"refine kernel launch failed: cudaError {err}")
     refine_kernel.launches += 1
-    return (head, off, tr) if trace else (head, off)
+    return head, off, tr
 
 
 refine_kernel.launches = 0

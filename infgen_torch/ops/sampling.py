@@ -1,11 +1,19 @@
 """On-device sampling (port of infgen_tpu/ops/sampling.py): the top-k
-multinomial draw of the rollout (`sample_from_topk`) and the CatK-derived
-guided samplers (`sample_next_token_traj`, `sample_next_gmm_traj`;
-reference scripts/traj_clustering.py:107-295), which no rollout path calls.
+draw of the rollout (`sample_from_topk`, `topk_inverse_cdf`, and the
+uniform variates they take, `draw_uniforms` / `step_variates`) and the
+CatK-derived guided samplers (`sample_next_token_traj`,
+`sample_next_gmm_traj`; reference scripts/traj_clustering.py:107-295),
+which no rollout path calls.
 
-`torch.Generator`s replace `jax.random` keys: the two give different draws
-from one seed, so sampled results agree with JAX only in distribution. At
-k = 1 the draw is the argmax (lowest index among ties, like `lax.top_k`).
+The rollout's draws are uniform variates turned into top-k indices by
+inverse CDF over the renormalised top-k probabilities: a traced program
+takes the variates as tensor inputs (`torch.export` cannot take a
+`torch.Generator` as one), and the eager rollout and the exported one
+(rollout/export.py) draw them from each lane's generator in the same fixed
+order and sample with the same routine. `torch.Generator`s replace
+`jax.random` keys: the two give different draws from one seed, so sampled
+results agree with JAX only in distribution. At k = 1 the draw is the
+argmax (lowest index among ties, like `lax.top_k`) and nothing is drawn.
 """
 
 import torch
@@ -20,31 +28,55 @@ def topk_stable(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def sample_from_topk(generator, probs, k: int):
-    """Top-k, then a multinomial draw over the k renormalised probabilities.
+def draw_uniforms(generators, shape, device, live=None):
+    """Uniform variates in [0, 1) of `shape` per lane, [B, *shape]: lane b
+    draws them from generators[b] alone, lanes in order. `live` (a host
+    list of bools, or None for every lane) leaves the other lanes' rows
+    zero and their generators untouched."""
+    rows = [torch.rand(shape, generator=g, device=device)
+            if live is None or live[b] else
+            torch.zeros(shape, device=device)
+            for b, g in enumerate(generators)]
+    # one lane: a view, with no copy launched
+    return rows[0][None] if len(rows) == 1 else torch.stack(rows)
 
-    probs [..., V] (need not be normalised). Returns indices [...] int64.
-    `generator` may be a list of generators, one per lane: probs is then
-    [B, ..., V] and lane b draws from generator b exactly what a call with
-    probs[b] and that generator alone draws (JAX's per-lane keys under
-    vmap). At k = 1 nothing is drawn.
-    """
+
+def step_variates(generators, device, n_insert: int, n_cand: int,
+                  n_motion: int):
+    """The variates of one token step whose insertion loop runs a fixed
+    number of evaluations: (insertion [B, n_insert, n_cand] or None,
+    motion [B, n_motion] or None), each lane drawing first the insertion's
+    (evaluation by evaluation) and then the motion's. A count of 0 draws
+    nothing."""
+    u_ins = draw_uniforms(generators, (n_insert, n_cand), device) \
+        if n_insert else None
+    u_mot = draw_uniforms(generators, (n_motion,), device) \
+        if n_motion else None
+    return u_ins, u_mot
+
+
+def topk_inverse_cdf(topk_p, u):
+    """Indices [..., n] into the last axis of topk_p [..., k] (probabilities,
+    not necessarily normalised; each clamped to at least 1e-30): for each
+    variate u [..., n] in [0, 1), the first index whose cumulative
+    probability exceeds u times the total, a draw from the renormalised k
+    probabilities."""
+    p = torch.clamp(topk_p, min=1e-30)
+    cdf = torch.cumsum(p, -1)
+    idx = torch.searchsorted(cdf, (u * cdf[..., -1:]).contiguous(),
+                             right=True)
+    return torch.clamp(idx, max=p.shape[-1] - 1)
+
+
+def sample_from_topk(u, probs, k: int):
+    """Top-k, then a draw over the k renormalised probabilities
+    (topk_inverse_cdf) with one variate u [...] per row of probs [..., V]
+    (need not be normalised). Returns indices [...] int64. At k = 1 the
+    argmax, and u is not read (None allowed)."""
     topk_p, topk_idx = topk_stable(probs, k)
     if k == 1:
         return topk_idx[..., 0]
-    if isinstance(generator, (list, tuple)):
-        draws = [_draw(g, p, i) for g, p, i
-                 in zip(generator, topk_p, topk_idx)]
-        # one lane: a view, with no copy launched
-        return draws[0][None] if len(draws) == 1 else torch.stack(draws)
-    return _draw(generator, topk_p, topk_idx)
-
-
-def _draw(generator, topk_p, topk_idx):
-    k = topk_p.shape[-1]
-    flat = torch.clamp(topk_p, min=1e-30).reshape(-1, k)
-    choice = torch.multinomial(flat, 1, generator=generator)
-    choice = choice.reshape(*topk_p.shape[:-1], 1)
+    choice = topk_inverse_cdf(topk_p, u[..., None])
     return torch.gather(topk_idx, -1, choice)[..., 0]
 
 

@@ -27,7 +27,7 @@ head-selector matrix are gone.
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +55,14 @@ class SeedPack:
     def dtype(self):
         return self.weights.dtype
 
+    @classmethod
+    def of(cls, weights, vectors, L: int, D: int, G: int) -> "SeedPack":
+        """The pack over two flat buffers that pack_seed_params made (or
+        their counterparts in a traced program): the views are rebuilt."""
+        mats, vecs = _layouts(L, D, G)
+        return cls(weights, vectors, _views(weights, mats),
+                   _views(vectors, vecs), L, D, G)
+
 
 def _layouts(L: int, D: int, G: int):
     """(name, shape) of each packed array, in buffer order. The order is
@@ -75,17 +83,40 @@ def _layouts(L: int, D: int, G: int):
     return mats, vecs
 
 
-def _flat(parts, layout, dtype, device):
-    n = sum(torch.Size(s).numel() for _, s in layout)
-    buf = torch.empty(n, dtype=dtype, device=device)
+def _views(buf, layout) -> Dict[str, torch.Tensor]:
+    """{name: view of `buf`} for each (name, shape) of `layout`, packed in
+    order from offset 0."""
     views, off = {}, 0
     for name, shape in layout:
         k = torch.Size(shape).numel()
-        view = buf[off:off + k].view(shape)
-        view.copy_(parts[name])
-        views[name] = view
+        views[name] = buf[off:off + k].view(shape)
         off += k
+    return views
+
+
+def _flat(parts, layout, dtype, device):
+    n = sum(torch.Size(s).numel() for _, s in layout)
+    buf = torch.empty(n, dtype=dtype, device=device)
+    views = _views(buf, layout)
+    for name, view in views.items():
+        view.copy_(parts[name])
     return buf, views
+
+
+_PTRS = {}
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """A ctypes array of the tensors' data_ptrs (0 for None), as a kernel's
+    pointer argument reads it; made once per distinct set of pointers and
+    kept, so that a launch with the same buffers adds no allocation."""
+    key = tuple(0 if t is None else t.data_ptr() for t in tensors)
+    arr = _PTRS.get(key)
+    if arr is None:
+        if len(_PTRS) >= 256:
+            _PTRS.clear()
+        arr = _PTRS[key] = (ctypes.c_uint64 * len(key))(*key)
+    return arr
 
 
 @torch.no_grad()
@@ -246,29 +277,57 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
                      lanes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One seed evaluation. sd0 [D] fp32; v_occ [L, D], K_pt / V_pt
     [L, P, D], K_a / V_a [L, A, D] in the pack's compute dtype; mask_pl [P]
-    and mask_a [A] bool. CUDA tensors launch csrc/seed_eval.cu on the
-    current stream (counted in `seed_eval_kernel.launches`); CPU tensors
-    take seed_eval_reference. The kernel takes the widths of
-    seed_eval_accepts whose stack fits a block's shared memory; others
-    raise.
+    and mask_a [A] bool. Runs the registered op `infgen::seed_eval`: CUDA
+    tensors launch csrc/seed_eval.cu on the current stream (counted in
+    `seed_eval_kernel.launches`); CPU tensors take seed_eval_reference. The
+    kernel takes the widths of seed_eval_accepts whose stack fits a block's
+    shared memory; others raise.
 
     Lanes: v_occ [B, L, D], K/V [B, L, N, D] and masks [B, N] (sd0 shared)
     evaluate every lane in one launch, one cluster per lane, into small
     [B, 3, 4] and pos [B, G]; `lanes` [B] bool switches lanes off (their
     outputs are zeros). One launch counts once, whatever B."""
+    if sd0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"seed_eval_kernel: unsupported device "
+                         f"{sd0.device}")
+    return torch.ops.infgen.seed_eval(
+        pack.weights, pack.vectors, sd0, v_occ, K_pt, V_pt, mask_pl, K_a,
+        V_a, mask_a, pack.L, pack.G, num_heads, head_dim, lanes)
+
+
+@torch.library.custom_op("infgen::seed_eval", mutates_args=(),
+                         device_types="cpu")
+def _seed_eval_op(weights: torch.Tensor, vectors: torch.Tensor,
+                  sd0: torch.Tensor, v_occ: torch.Tensor, K_pt: torch.Tensor,
+                  V_pt: torch.Tensor, mask_pl: torch.Tensor,
+                  K_a: torch.Tensor, V_a: torch.Tensor, mask_a: torch.Tensor,
+                  L: int, G: int, num_heads: int, head_dim: int,
+                  lanes: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    pack = SeedPack.of(weights, vectors, L, sd0.shape[0], G)
+    small, pos = seed_eval_reference(pack, sd0, v_occ, K_pt, V_pt, mask_pl,
+                                     K_a, V_a, mask_a, num_heads, head_dim,
+                                     lanes=lanes)
+    return small.contiguous(), pos.contiguous()
+
+
+@_seed_eval_op.register_fake
+def _(weights, vectors, sd0, v_occ, K_pt, V_pt, mask_pl, K_a, V_a, mask_a,
+      L, G, num_heads, head_dim, lanes):
+    lead = tuple(v_occ.shape[:1]) if v_occ.dim() == 3 else ()
+    return (sd0.new_empty((*lead, 3, SMALL_COLS)), sd0.new_empty((*lead, G)))
+
+
+@_seed_eval_op.register_kernel("cuda")
+def _(weights, vectors, sd0, v_occ, K_pt, V_pt, mask_pl, K_a, V_a, mask_a,
+      L, G, num_heads, head_dim, lanes):
     dev = sd0.device
-    if dev.type == "cpu":
-        return seed_eval_reference(pack, sd0, v_occ, K_pt, V_pt, mask_pl,
-                                   K_a, V_a, mask_a, num_heads, head_dim,
-                                   lanes=lanes)
-    if dev.type != "cuda":
-        raise ValueError(f"seed_eval_kernel: unsupported device {dev}")
-    L, D, G = pack.L, pack.D, pack.G
+    D = sd0.shape[0]
     batched = v_occ.dim() == 3
     lead = tuple(v_occ.shape[:1]) if batched else ()
     B = lead[0] if batched else 1
     P, A = K_pt.shape[-2], K_a.shape[-2]
-    cdt = pack.dtype
+    cdt = weights.dtype
     if not seed_eval_accepts(cdt, D, num_heads, head_dim):
         raise ValueError(
             "seed_eval_kernel takes fp32 or bf16, num_heads * head_dim == D "
@@ -286,8 +345,8 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
     _check("mask_a", mask_a, torch.bool, (*lead, A), dev)
     if lanes is not None:
         _check("lanes", lanes, torch.bool, (B,), dev)
-    _check("weights", pack.weights, cdt, pack.weights.shape, dev)
-    _check("vectors", pack.vectors, torch.float32, pack.vectors.shape, dev)
+    _check("weights", weights, cdt, weights.shape, dev)
+    _check("vectors", vectors, torch.float32, vectors.shape, dev)
 
     from infgen_torch.ops.build import library
     lib = library()
@@ -305,7 +364,7 @@ def seed_eval_kernel(pack: SeedPack, sd0, v_occ, K_pt, V_pt, mask_pl,
     err = lib.infgen_seed_eval_lanes(
         _DTYPE_CODE[cdt], sd0.data_ptr(), v_occ.data_ptr(), K_pt.data_ptr(),
         V_pt.data_ptr(), mask_pl.data_ptr(), K_a.data_ptr(), V_a.data_ptr(),
-        mask_a.data_ptr(), pack.weights.data_ptr(), pack.vectors.data_ptr(),
+        mask_a.data_ptr(), weights.data_ptr(), vectors.data_ptr(),
         small.data_ptr(), pos.data_ptr(),
         0 if lanes is None else lanes.data_ptr(), B, L, P, A, D, num_heads,
         head_dim, G, stream)
@@ -330,12 +389,29 @@ class SeedFullPack:
     w: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
     tiles: Optional[torch.Tensor]  # bf16 packs: chain_tiles, else None
-    ptrs: ctypes.Array             # data_ptr of each view, layout order,
-                                   # then of `tiles` (0 when None)
 
     @property
     def dtype(self):
         return self.base.dtype
+
+    @classmethod
+    def of(cls, base: SeedPack, weights, vectors, tiles) -> "SeedFullPack":
+        """The pack over the flat buffers that pack_seed_params_full made
+        (or their counterparts in a traced program)."""
+        mats, vecs = _full_layouts(base.L, base.D, base.G)
+        return cls(base, weights, vectors, _views(weights, mats),
+                   _views(vectors, vecs), tiles)
+
+    def views(self) -> List[torch.Tensor]:
+        """Each precompute array's view, in the order of the pointer array
+        that csrc/seed_eval_full.cu reads (its `FullArg` enum)."""
+        return [*self.w.values(), *self.v.values()]
+
+    @property
+    def ptrs(self) -> ctypes.Array:
+        """data_ptr of each view, layout order, then of `tiles` (0 when
+        None)."""
+        return ptr_array([*self.views(), self.tiles])
 
 
 def _full_layouts(L: int, D: int, G: int):
@@ -351,11 +427,6 @@ def _full_layouts(L: int, D: int, G: int):
     vecs += [("oe_w0", (G, D)), ("oe_b0", (D,)), ("oe_ln_s", (D,)),
              ("oe_ln_b", (D,)), ("oe_w1", (D, D)), ("oe_b1", (D,))]
     return mats, vecs
-
-
-def _ptr_array(views, layout, extra=()):
-    return (ctypes.c_uint64 * (len(layout) + len(extra)))(
-        *(views[name].data_ptr() for name, _ in layout), *extra)
 
 
 def n_chain_tiles(L: int) -> int:
@@ -430,8 +501,7 @@ def pack_seed_params_full(decoder, L: int, grid_size: int,
     weights, w = _flat(parts, mats, dtype, device)
     vectors, v = _flat(parts, vecs, torch.float32, device)
     tiles = chain_tiles(base, w) if dtype == torch.bfloat16 else None
-    return SeedFullPack(base, weights, vectors, w, v, tiles, _ptr_array(
-        {**w, **v}, mats + vecs, (0 if tiles is None else tiles.data_ptr(),)))
+    return SeedFullPack(base, weights, vectors, w, v, tiles)
 
 
 def _zero_agg(pack: SeedPack, x, j):
@@ -542,9 +612,9 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     [L, P, D] (the rollout-invariant x_pt projections), r_pl [P, D] (map
     geometry embedding), agent_col [A, D] (the raw feature column) and r_sa
     [A, D] (agent geometry embedding) in the pack's compute dtype; mask_pl
-    [P], mask_a [A] and occ [G] bool. CUDA tensors launch
-    csrc/seed_eval_full.cu (two kernels in order on the current stream,
-    through seed_eval_full_launch, counted once in
+    [P], mask_a [A] and occ [G] bool. Runs the registered op
+    `infgen::seed_eval_full`: CUDA tensors launch csrc/seed_eval_full.cu
+    (two kernels in order on the current stream, counted once in
     `seed_eval_full_kernel.launches`); CPU tensors take
     seed_eval_full_reference. With return_precompute, the precompute's fp32
     results (v_occ, K_pt, V_pt, K_a, V_a; the rows of masked keys are not
@@ -559,30 +629,82 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     launch over all lanes' tiles, one stack cluster per lane) into small
     [B, 3, 4] and pos [B, G]; `lanes` [B] bool switches lanes off (their
     outputs are zeros). One call counts once, whatever B."""
-    dev = sd0.device
-    batched = k0.dim() == 4
-    if lanes is not None and not batched:
+    if sd0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"seed_eval_full_kernel: unsupported device "
+                         f"{sd0.device}")
+    if lanes is not None and k0.dim() != 4:
         raise ValueError("seed_eval_full_kernel: a lane mask needs a lane "
                          "axis")
-    if dev.type == "cpu":
-        if batched:
-            small, pos, pre = _full_lanes(pack, sd0, k0, v0, r_pl, mask_pl,
-                                          agent_col, r_sa, mask_a, occ,
-                                          num_heads, head_dim, lanes)
-            return (small, pos, pre) if return_precompute else (small, pos)
+    base = pack.base
+    small, pos, *pre = torch.ops.infgen.seed_eval_full(
+        base.weights, base.vectors, pack.views(), pack.tiles, sd0, k0, v0,
+        r_pl, mask_pl, agent_col, r_sa, mask_a, occ, base.L, base.G,
+        num_heads, head_dim, lanes)
+    return (small, pos, tuple(pre)) if return_precompute else (small, pos)
+
+
+def _full_pack(base_weights, base_vectors, views, tiles, L, D, G):
+    """The SeedFullPack of an op's arguments: the precompute's views as
+    given (its flat buffers are not needed)."""
+    base = SeedPack.of(base_weights, base_vectors, L, D, G)
+    mats, vecs = _full_layouts(L, D, G)
+    names = [n for n, _ in mats + vecs]
+    w = dict(zip(names[:len(mats)], views[:len(mats)]))
+    v = dict(zip(names[len(mats):], views[len(mats):]))
+    return SeedFullPack(base, None, None, w, v, tiles)
+
+
+@torch.library.custom_op("infgen::seed_eval_full", mutates_args=(),
+                         device_types="cpu")
+def _seed_eval_full_op(
+        base_weights: torch.Tensor, base_vectors: torch.Tensor,
+        views: List[torch.Tensor], tiles: Optional[torch.Tensor],
+        sd0: torch.Tensor, k0: torch.Tensor, v0: torch.Tensor,
+        r_pl: torch.Tensor, mask_pl: torch.Tensor, agent_col: torch.Tensor,
+        r_sa: torch.Tensor, mask_a: torch.Tensor, occ: torch.Tensor, L: int,
+        G: int, num_heads: int, head_dim: int,
+        lanes: Optional[torch.Tensor]) -> Tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+        torch.Tensor, torch.Tensor]:
+    pack = _full_pack(base_weights, base_vectors, views, tiles, L,
+                      sd0.shape[0], G)
+    if k0.dim() == 4:
+        small, pos, pre = _full_lanes(pack, sd0, k0, v0, r_pl, mask_pl,
+                                      agent_col, r_sa, mask_a, occ,
+                                      num_heads, head_dim, lanes)
+    else:
         pre = seed_eval_full_precompute(pack, k0, v0, r_pl, agent_col, r_sa,
                                         occ)
-        out = seed_eval_reference(pack.base, sd0, pre[0], pre[1], pre[2],
-                                  mask_pl, pre[3], pre[4], mask_a, num_heads,
-                                  head_dim)
-        return out + (pre,) if return_precompute else out
-    if dev.type != "cuda":
-        raise ValueError(f"seed_eval_full_kernel: unsupported device {dev}")
-    base = pack.base
-    L, D, G = base.L, base.D, base.G
+        small, pos = seed_eval_reference(
+            pack.base, sd0, pre[0], pre[1], pre[2], mask_pl, pre[3], pre[4],
+            mask_a, num_heads, head_dim)
+    return tuple(t.contiguous() for t in (small, pos, *pre))
+
+
+def _full_shapes(k0, agent_col, L, D, G):
+    lead = tuple(k0.shape[:1]) if k0.dim() == 4 else ()
+    P, A = k0.shape[-2], agent_col.shape[-2]
+    return [(*lead, 3, SMALL_COLS), (*lead, G), (*lead, L, D),
+            (*lead, L, P, D), (*lead, L, P, D), (*lead, L, A, D),
+            (*lead, L, A, D)]
+
+
+@_seed_eval_full_op.register_fake
+def _(base_weights, base_vectors, views, tiles, sd0, k0, v0, r_pl, mask_pl,
+      agent_col, r_sa, mask_a, occ, L, G, num_heads, head_dim, lanes):
+    return tuple(sd0.new_empty(s) for s in _full_shapes(
+        k0, agent_col, L, sd0.shape[0], G))
+
+
+@_seed_eval_full_op.register_kernel("cuda")
+def _(base_weights, base_vectors, views, tiles, sd0, k0, v0, r_pl, mask_pl,
+      agent_col, r_sa, mask_a, occ, L, G, num_heads, head_dim, lanes):
+    dev = sd0.device
+    D = sd0.shape[0]
+    batched = k0.dim() == 4
     lead = tuple(k0.shape[:1]) if batched else ()
     P, A = k0.shape[-2], agent_col.shape[-2]
-    cdt = pack.dtype
+    cdt = base_weights.dtype
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"seed_eval_full_kernel: compute dtype {cdt} "
                          "unsupported")
@@ -600,16 +722,21 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     _check("occ", occ, torch.bool, (*lead, G), dev)
     if lanes is not None:
         _check("lanes", lanes, torch.bool, lead, dev)
-    for name, t, dt in (("weights", base.weights, cdt),
-                        ("vectors", base.vectors, torch.float32),
-                        ("full weights", pack.weights, cdt),
-                        ("full vectors", pack.vectors, torch.float32)):
-        _check(name, t, dt, t.shape, dev)
+    _check("weights", base_weights, cdt, base_weights.shape, dev)
+    _check("vectors", base_vectors, torch.float32, base_vectors.shape, dev)
+    mats, vecs = _full_layouts(L, D, G)
+    if len(views) != len(mats) + len(vecs):
+        raise ValueError(f"seed_eval_full_kernel: {len(views)} views, "
+                         f"expected {len(mats) + len(vecs)}")
+    for (name, shape), t in zip(mats, views):
+        _check(name, t, cdt, shape, dev)
+    for (name, shape), t in zip(vecs, views[len(mats):]):
+        _check(name, t, torch.float32, shape, dev)
     if cdt == torch.bfloat16:
         if D not in (64, 128):
             raise ValueError("seed_eval_full_kernel in bf16 takes D = 64 or "
                              "128 (its tensor-core tiles)")
-        _check("tiles", pack.tiles, cdt, (n_chain_tiles(L), D, D), dev)
+        _check("tiles", tiles, cdt, (n_chain_tiles(L), D, D), dev)
     if D % 32:
         raise ValueError("seed_eval_full_kernel needs D divisible by 32 "
                          "(the stack's column slices)")
@@ -622,13 +749,12 @@ def seed_eval_full_kernel(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
             raise ValueError(f"seed_eval_full_kernel: {smem} B of shared "
                              "memory exceed the 227 KB a block can use")
         _FULL_SMEM_OK.add(shape)
-    small, pos, pre = seed_eval_full_launch(
-        pack, sd0, k0, v0, r_pl, mask_pl, agent_col, r_sa, mask_a, occ,
-        num_heads, head_dim, lanes=lanes)
+    small, pos, pre = _launch_full(
+        base_weights, base_vectors, ptr_array([*views, tiles]), sd0, k0, v0,
+        r_pl, mask_pl, agent_col, r_sa, mask_a, occ, L, G, num_heads,
+        head_dim, lanes=lanes)
     seed_eval_full_kernel.launches += 1
-    if return_precompute:
-        return small, pos, pre
-    return small, pos
+    return (small, pos, *pre)
 
 
 def seed_eval_full_launch(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
@@ -641,10 +767,19 @@ def seed_eval_full_launch(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     Returns (small, pos, pre); a stage-wise timing uses it directly. With a
     lane axis every array carries it, the scratch too, and `lanes`
     switches lanes off."""
+    base = pack.base
+    return _launch_full(base.weights, base.vectors, pack.ptrs, sd0, k0, v0,
+                        r_pl, mask_pl, agent_col, r_sa, mask_a, occ, base.L,
+                        base.G, num_heads, head_dim, stages, pre, lanes)
+
+
+def _launch_full(base_weights, base_vectors, ptrs, sd0, k0, v0, r_pl,
+                 mask_pl, agent_col, r_sa, mask_a, occ, L: int, G: int,
+                 num_heads: int, head_dim: int, stages: int = 3, pre=None,
+                 lanes=None):
     from infgen_torch.ops.build import library
     lib = library()
-    base = pack.base
-    L, D, G = base.L, base.D, base.G
+    D = sd0.shape[0]
     lead = tuple(k0.shape[:1]) if k0.dim() == 4 else ()
     P, A = k0.shape[-2], agent_col.shape[-2]
     dev = sd0.device
@@ -662,11 +797,11 @@ def seed_eval_full_launch(pack: SeedFullPack, sd0, k0, v0, r_pl, mask_pl,
     pos = torch.empty((*lead, G), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.infgen_seed_eval_full(
-        _DTYPE_CODE[pack.dtype], sd0.data_ptr(), k0.data_ptr(),
+        _DTYPE_CODE[base_weights.dtype], sd0.data_ptr(), k0.data_ptr(),
         v0.data_ptr(), r_pl.data_ptr(), mask_pl.data_ptr(),
         agent_col.data_ptr(), r_sa.data_ptr(), mask_a.data_ptr(),
-        occ.data_ptr(), base.weights.data_ptr(), base.vectors.data_ptr(),
-        ctypes.addressof(pack.ptrs), *(t.data_ptr() for t in pre),
+        occ.data_ptr(), base_weights.data_ptr(), base_vectors.data_ptr(),
+        ctypes.addressof(ptrs), *(t.data_ptr() for t in pre),
         small.data_ptr(), pos.data_ptr(),
         0 if lanes is None else lanes.data_ptr(), lead[0] if lead else 1, L,
         P, A, D, num_heads, head_dim, G, stages, stream)

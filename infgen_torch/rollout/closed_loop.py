@@ -1,15 +1,46 @@
 """Closed-loop rollout: the flagship path (port of
 infgen_tpu/rollout/closed_loop.py).
 
-The JAX package compiles the rollout into one `lax.scan`; here it is an
-eager Python loop over token steps on one device:
+The JAX package compiles the rollout into one `lax.scan`; here it is three
+tensor programs over the model, which `make_rollout_fn` builds and calls
+(and exposes as attributes of the function it returns):
+
+  prologue(scenario, inputs) -> (carry, ctx)
+      map encoding, tables, the kernels' packs built from the parameters,
+      carry init and the column-0 cache prefill
+  step(carry, ctx, col, insert, u_ins, u_mot) -> (carry, out)
+      one token step at column `col`, a 0-d int64 tensor: insertion (when
+      `insert`), then motion, heads and de-tokenization. Nothing in it is
+      keyed on the column's value: its column and window reads are
+      fixed-width gathers and its writes index copies. Under the
+      fixed-trip loop it is insertion_open (the first seed evaluation),
+      insert_limit times insertion_iter, and close_step
+  epilogue(carry, outs, scenario, inputs, ctx) -> dict
+      the outputs
+
+The eager rollout runs them under a Python loop over token steps (step 0
+without insertion); rollout/export.py traces the same functions with
+torch.export (the step as its three parts, the insertion loop's iteration
+once) and loops over the programs. Within a step:
 
   - agent insertion = slot activation inside padded arrays: a bounded loop
     of at most `insert_limit` iterations per step, with occupancy rejection;
   - an incremental per-layer feature cache [L, A, Ti, D]: each step
     refreshes ONE token column;
-  - top-k multinomial sampling on the device, from a `torch.Generator`;
+  - top-k sampling on the device, by inverse CDF of uniform variates
+    (ops/sampling.py);
   - trajectories stay on the device until the loop ends.
+
+Random draws. Each lane draws uniform variates from its own
+`torch.Generator`, per step in a fixed order: first the insertion's,
+n_cand = max(insert_limit, 1) per seed evaluation, then the motion's, one
+per agent slot. Under the early-exit insertion loop a lane draws only for
+the evaluations it runs; under `cfg.insertion_fixed_trip` every lane draws
+for all insert_limit + 1 evaluations at the step's start
+(ops/sampling.step_variates) and the step takes the variates as tensors,
+which is what the exported step program takes, so the eager rollout and
+the artifact give the same results bit for bit. Nothing is drawn at beam
+size 1.
 
 Lanes. Every tensor of the rollout carries a leading lane axis B, one
 scenario per lane (JAX's one rollout function under `vmap`): the scenario
@@ -22,26 +53,27 @@ draw. Every kernel takes every lane in one launch (the seed and refine
 kernels skip the lanes that stopped or do not insert; the column kernel
 skips each lane's rows past its own occupancy bound).
 
-The big rollout state (`RolloutCarry`) is updated in place, column by
-column; the small per-step insertion state is rebuilt functionally, so that
-the fixed-trip form can keep or drop a whole iteration with one select.
-`cfg.rollout_scan_unroll` is read and ignored: an eager loop has no scan to
-unroll.
+The big rollout state (`RolloutCarry`, rollout/carry.py) is updated in
+place, column by column; the small per-step insertion state is rebuilt
+functionally, so that the fixed-trip form can keep or drop a whole
+iteration with one select. `cfg.rollout_scan_unroll` is read and ignored:
+an eager loop has no scan to unroll.
 
 Host reads: the insertion loop's early exit reads the lanes' `running`
 flags on the host once per iteration (at most `insert_limit + 1` times per
 step, whatever the number of lanes); `cfg.insertion_fixed_trip` runs
 exactly `insert_limit` masked iterations and reads nothing. Both give the
 same results whenever no random draw is made (beam sizes 1); with
-sampling, the fixed-trip form's discarded iterations also draw from the
-generator, so its stream differs.
+sampling, the fixed-trip form draws for the discarded iterations too, so
+its stream differs.
 
 Profiler spans (`torch.profiler.record_function`, near free when no
 profiler runs): `rollout.insertion` and `rollout.motion` per token step;
 `infgen_torch/trace_rollout.py` reads them.
 
-Kernels, as in the JAX package (each flag picks a CUDA kernel; the wrapper
-takes its plain twin for CPU tensors):
+Kernels, as in the JAX package (each flag picks a CUDA kernel, reached
+through its registered op `infgen::*`; the op takes its plain twin for CPU
+tensors):
   use_seed_kernel       the seed stack + heads from per-step K/V
                         (ops/seed_kernel.seed_eval_kernel)
   use_seed_kernel_full  the same with the per-step precompute folded in
@@ -58,7 +90,7 @@ takes its plain twin for CPU tensors):
   use_pallas_attention  the attention core of every eligible DenseAttention
                         call (ops/pallas_attention.r_biased_attention): in
                         a rollout, the agent-agent sublayers of the trunk
-All packs are built once per rollout.
+All packs are built once per rollout, by the prologue.
 
 Column convention (num_historical_steps=11, SHIFT=5): token columns 0..1
 hold history; rollout step t has "current" column c = 1 + t and writes
@@ -66,7 +98,7 @@ c + 1.
 """
 
 import math
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -78,6 +110,7 @@ from infgen_torch.data.scenario import tree_map
 from infgen_torch.model import edges as E
 from infgen_torch.model.agent_decoder import (INVALID_SHAPE_VALUE, SEED_TYPE,
                                               map_token_index)
+from infgen_torch.model.layers import lane_products
 from infgen_torch.ops import column_kernel as CK
 from infgen_torch.ops import fused_block as FB
 from infgen_torch.ops import refine_kernel as RFK
@@ -86,34 +119,16 @@ from infgen_torch.ops import seed_kernel as SKN
 from infgen_torch.ops.neighbors import (arange_on, gather_rows,
                                         topk_neighbors)
 from infgen_torch.ops.precision import compute_dtype_of
-from infgen_torch.ops.sampling import sample_from_topk, topk_stable
+from infgen_torch.ops.sampling import (draw_uniforms, sample_from_topk,
+                                       step_variates, topk_inverse_cdf,
+                                       topk_stable)
+from infgen_torch.rollout.carry import RolloutCarry
 from infgen_torch.utils.geometry import (angle_between_2d_vectors,
                                          heading_from_contour, rot_mat_2d,
                                          wrap_angle)
 
 REFINE_A2SA_K = 24   # reference max_num_neighbors=24
 REFINE_PL2SA_K = 32  # 10 m radius holds far fewer map tokens
-
-
-class RolloutCarry(NamedTuple):
-    pos: torch.Tensor          # [B, A, Ti, 2]
-    head: torch.Tensor         # [B, A, Ti]
-    state: torch.Tensor        # [B, A, Ti] int32
-    token: torch.Tensor        # [B, A, Ti] int32
-    grid: torch.Tensor         # [B, A, Ti] int32
-    valid: torch.Tensor        # [B, A, Ti] bool (agent_valid_mask)
-    interact: torch.Tensor     # [B, A, Ti] bool
-    temporal: torch.Tensor     # [B, A, Ti] bool
-    slot_active: torch.Tensor  # [B, A] bool
-    type_: torch.Tensor        # [B, A] int32
-    shape: torch.Tensor        # [B, A, 3]
-    raw_feat: torch.Tensor     # [B, A, Ti, D]
-    cache: torch.Tensor        # [L, B, A, Ti, D]
-    pred_traj: torch.Tensor    # [B, A, R, 2] 10 Hz
-    pred_head: torch.Tensor    # [B, A, R]
-    pred_state: torch.Tensor   # [B, A, R]
-    n_inserted: torch.Tensor   # [B] int32
-    rng: list                  # a torch.Generator per lane
 
 
 def _argmax_first(x, dim=-1):
@@ -165,6 +180,23 @@ def _stack_lanes(xs):
     return xs[0][None] if len(xs) == 1 else torch.stack(xs)
 
 
+def _at(x, col, dim=2):
+    """x's column `col` (a 0-d index tensor) along `dim`, the axis dropped:
+    a gather on the device, no host read."""
+    return x.index_select(dim, col.reshape(1)).squeeze(dim)
+
+
+def _set_at(x, col, val, dim=2):
+    """x's column `col` along `dim` = val (x's shape without that axis), in
+    place."""
+    x.index_copy_(dim, col.reshape(1), val.to(x.dtype).unsqueeze(dim))
+
+
+def _span_cols(start, n, device):
+    """The n columns from `start` (a 0-d tensor) on: [n] int64."""
+    return start + arange_on(n, device)
+
+
 def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                     num_recurrent_steps: int = None,
                     force_insert: bool = False, debug: bool = False):
@@ -180,7 +212,15 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
     force_insert=True makes every insertion iteration propose
     an agent whatever the seed-state head says (bounds the trained-model
     insertion cost for benchmarking). The returned function counts its
-    host reads in `rollout.host_reads` (reset at each call).
+    host reads in `rollout.host_reads` (reset at each call), and carries
+    its three programs (the module docstring) as `rollout.prologue`,
+    `rollout.step` and `rollout.epilogue`, the fixed-trip step's three
+    parts as `rollout.insertion_open`, `rollout.insertion_iter` and
+    `rollout.close_step`, with `rollout.n_steps`,
+    `rollout.variate_counts(insert)` (the counts ops/sampling.step_variates
+    takes for a step) and `rollout.flat_ctx` / `rollout.unflat_ctx` (the
+    step's context with every pack as its buffers, and back), which an
+    exported rollout (rollout/export.py) needs.
 
     debug=True adds the JAX package's per-step debug outputs
     `debug_token_logits` [n_steps, A, V], `debug_state_logits` [n_steps,
@@ -259,6 +299,11 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
     # ---------------------------------------------------------------- #
 
+    n_cand = max(limit, 1)   # grid draws per seed evaluation (0 limit:
+                             # eval-only profiling)
+    draws_ins = cfg.use_grid_token and cfg.insert_beam_size > 1
+    draws_mot = cfg.motion_beam_size > 1
+
     @torch.no_grad()
     def rollout(scenario, inputs, generator) -> Dict[str, Any]:
         rollout.host_reads = 0
@@ -276,7 +321,35 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         return out if lanes else {k: v[0] for k, v in out.items()}
 
     def _rollout(scenario, inputs, gens):
-        B = len(gens)
+        carry, ctx = prologue(scenario, inputs)
+        cols = arange_on(Ti, device)
+        outs = []
+        for t in range(n_steps):
+            insert = not cfg.disable_insertion and t > 0
+            if cfg.insertion_fixed_trip:
+                u_ins, u_mot = step_variates(gens, device,
+                                             *variate_counts(insert))
+                carry, out = step(carry, ctx, cols[t + 1], insert, u_ins,
+                                  u_mot)
+            else:
+                carry, out = step(carry, ctx, cols[t + 1], insert,
+                                  gens=gens)
+            outs.append(out)
+        outs = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
+        return epilogue(carry, outs, scenario, inputs, ctx)
+
+    def variate_counts(insert: bool):
+        """(insertion evaluations, variates per evaluation, motion
+        variates) that a fixed-trip step draws per lane."""
+        return (limit + 1 if insert and draws_ins else 0, n_cand,
+                A if draws_mot else 0)
+
+    def prologue(scenario, inputs):
+        """The rollout's start from lane-stacked `scenario` and `inputs`:
+        (carry, ctx), ctx holding what every step reads (map keys, tables,
+        the ego index, the initial slots, the insertion's invariant state
+        and the kernels' packs)."""
+        B = inputs.slot_mask.shape[0]
         lane = arange_on(B, device)
         av = inputs.av_index.long()                      # [B]
         x_pt = model.encode_map(scenario.map, map_traj)  # [B, P, D]
@@ -387,24 +460,74 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             pred_traj=torch.zeros((B, A, R, 2), device=device),
             pred_head=torch.zeros((B, A, R), device=device),
             pred_state=torch.zeros((B, A, R), device=device),
-            n_inserted=torch.zeros(B, dtype=i32, device=device),
-            rng=gens)
+            n_inserted=torch.zeros(B, dtype=i32, device=device))
 
         # --- prefill cache column 0: the reference never queries column 0,
         # so its cached value per layer is the zero-aggregate transform of
         # the raw fused feature, not an attended motion pass
         carry.cache[:, :, :, 0] = dec.prefill_column(carry.raw_feat[:, :, 0])
+        ctx = dict(pt=pt, tables=tables, av=av, init_active=slot_active,
+                   seed=seed, trunk=trunk_pack)
+        return carry, ctx
 
-        outs = []
-        for t in range(n_steps):
-            carry, out = _step(carry, t, pt, tables, av, slot_active, seed,
-                               trunk_pack)
-            outs.append(out)
-        outs = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
+    def _flat_ctx(ctx):
+        """ctx with every kernel pack as a dict of its buffers: a tree of
+        tensors, which a traced program takes and returns (the views are
+        rebuilt from the buffers by _unflat_ctx)."""
+        bufs = lambda pack, *names: {n: getattr(pack, n) for n in names
+                                     if getattr(pack, n) is not None}
+        seed, trunk = ctx["seed"], ctx["trunk"]
+        if seed is not None:
+            seed = dict(seed)
+            if use_sknf:
+                seed["pack"] = dict(
+                    base_weights=seed["pack"].base.weights,
+                    base_vectors=seed["pack"].base.vectors,
+                    **bufs(seed["pack"], "weights", "vectors", "tiles"))
+            elif use_skn:
+                seed["pack"] = bufs(seed["pack"], "weights", "vectors")
+            if use_refk:
+                seed["refine_pack"] = bufs(seed["refine_pack"], "weights",
+                                           "vectors", "tiles")
+        if cfg.use_column_kernel:
+            trunk = bufs(trunk, "weights", "vectors", "tiles")
+        elif use_fused:
+            trunk = [dict(bufs(p, "weights", "vectors"), **p.heads)
+                     for p in trunk]
+        return dict(ctx, seed=seed, trunk=trunk)
 
-        return _finalize(carry, outs, scenario, inputs, slot_active)
+    def _unflat_ctx(flat):
+        """_flat_ctx's inverse."""
+        seed, trunk = flat["seed"], flat["trunk"]
+        if seed is not None:
+            seed = dict(seed)
+            pk = seed.get("pack")
+            if use_sknf:
+                base = SKN.SeedPack.of(pk["base_weights"], pk["base_vectors"],
+                                       L_s, D, G)
+                seed["pack"] = SKN.SeedFullPack.of(
+                    base, pk["weights"], pk["vectors"], pk.get("tiles"))
+            elif use_skn:
+                seed["pack"] = SKN.SeedPack.of(pk["weights"], pk["vectors"],
+                                               L_s, D, G)
+            if use_refk:
+                rp = seed["refine_pack"]
+                seed["refine_pack"] = RFK.RefinePack.of(
+                    rp["weights"], rp["vectors"], rp.get("tiles"), L_s, D,
+                    attr.angle_size)
+        if cfg.use_column_kernel:
+            trunk = CK.ColumnPack.of(trunk["weights"], trunk["vectors"],
+                                     trunk.get("tiles"), L, D)
+        elif use_fused:
+            trunk = [FB.FusedPack.of(p["weights"], p["vectors"],
+                                     dict(wkh=p["wkh"], wkrh=p["wkrh"]), D,
+                                     cfg.num_heads) for p in trunk]
+        return dict(flat, seed=seed, trunk=trunk)
 
-    rollout.host_reads = 0
+    def epilogue(carry, outs, scenario, inputs, ctx):
+        """The rollout's outputs from the last carry and the steps' outputs
+        `outs` (each [B, n_steps, ...])."""
+        return _finalize(carry, outs, scenario, inputs, ctx["init_active"])
 
     def _fuse(tables, token_emb, motion, head_vec, type_t, shape_t, state,
               grid_idx):
@@ -419,14 +542,14 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
 
     def _motion_pass(carry, c, pt, trunk_pack):
         B = carry.pos.shape[0]
-        pos_c, head_c = carry.pos[:, :, c], carry.head[:, :, c]
-        state_c, inter_c = carry.state[:, :, c], carry.interact[:, :, c]
+        pos_c, head_c = _at(carry.pos, c), _at(carry.head, c)
+        state_c, inter_c = _at(carry.state, c), _at(carry.interact, c)
         hv_c = hv_of(head_c)
 
-        # temporal keys: sliding window of W columns ending at c-1
-        start = min(max(c - W, 0), Ti - W)
-        k_cols = torch.arange(start, start + W, device=device)
-        sl = lambda x: x[:, :, start:start + W]
+        # temporal keys: sliding window of W columns ending at c-1, a
+        # gather of W columns from start = clamp(c - W, 0, Ti - W)
+        k_cols = _span_cols(torch.clamp(c - W, 0, Ti - W), W, device)
+        sl = lambda x: x.index_select(2, k_cols)
         key_pos, key_head = sl(carry.pos), sl(carry.head)
         key_state, key_hist = sl(carry.state), sl(carry.temporal)
 
@@ -458,7 +581,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             (k_cols - c).to(f32) * torch.ones((B, A, 1), device=device),
         ], dim=-1)
         key_stack = torch.cat([sl(carry.raw_feat)[None],
-                               carry.cache[:-1, :, :, start:start + W]], 0)
+                               carry.cache[:-1].index_select(3, k_cols)], 0)
 
         # a2a at column c
         km = inter_c & carry.slot_active
@@ -498,25 +621,38 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             n_rows = torch.where(act.any(-1), A - _argmax_first(act.flip(-1)),
                                  0).to(i32)
         new_cols, out = dec.motion_column(
-            carry.raw_feat[:, :, c], key_stack, t_r_raw, k_valid, a2a_r_raw,
+            _at(carry.raw_feat, c), key_stack, t_r_raw, k_valid, a2a_r_raw,
             a2a_mask, pl_keys, pl_r_raw, val5, n_rows=n_rows,
             column_pack=None if use_fused else trunk_pack,
             fused_packs=trunk_pack if use_fused else None)
-        carry.cache[:, :, :, c] = new_cols
+        _set_at(carry.cache, c, new_cols, 3)
         return carry, out
 
     # ---------------------------------------------------------------- #
     # insertion loop for one step
     # ---------------------------------------------------------------- #
 
-    def _insertion(carry, c, pt, tables, av, seed):
-        """Insertion for one step. The iteration loop carries only column-c
-        slices plus a bounded record buffer (`recs`, <= insert_limit rows);
-        accepted insertions are written into the full carry once per step
-        by `_apply_inserts`."""
+    # The insertion of one step, in three parts: insertion_open (the
+    # step's invariants `ins` and the first seed evaluation), one loop
+    # iteration (iter_body: insert the current proposal, evaluate the
+    # next), and insertion_close (the accepted inserts into the carry). The
+    # loop carries only column-c slices plus a bounded record buffer
+    # (`recs`, <= insert_limit rows); accepted insertions are written into
+    # the full carry once per step by `_apply_inserts`. A loop state is
+    # (slim, prop, n_new, probs, p, fast, recs).
+
+    def insertion_open(carry, ctx, c, u0=None):
+        """(loop, ins) at the current column c: the step's invariants and
+        the loop state after the first seed evaluation, whose grid draw
+        takes the variates u0 [B, n_cand] (None at beam 1)."""
+        pt, tables, av, seed = ctx["pt"], ctx["tables"], ctx["av"], \
+            ctx["seed"]
         B = carry.pos.shape[0]
-        ego_pos = _rows(carry.pos[:, :, c], av)           # [B, 2]
-        ego_head = _rows(carry.head[:, :, c], av)         # [B]
+        pos_c0, head_c0 = _at(carry.pos, c), _at(carry.head, c)
+        grid_c0, inter_c0 = _at(carry.grid, c), _at(carry.interact, c)
+        rawf_c0 = _at(carry.raw_feat, c)
+        ego_pos = _rows(pos_c0, av)                       # [B, 2]
+        ego_head = _rows(head_c0, av)                     # [B]
         ego_hv = hv_of(ego_head)
 
         # map keys within pl2seed radius of ego (shared by all iterations)
@@ -532,6 +668,8 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         # agent-row projections are computed once per step, and single rows
         # are patched per insert
         r_pl_emb = dec.embed_pl2sa_r(pl_r_raw)
+        ins = dict(ego_pos=ego_pos, ego_head=ego_head, ego_hv=ego_hv,
+                   pl_mask=pl_mask, r_pl_emb=r_pl_emb)
         if not use_sknf:
             K_pt, V_pt = [], []
             for i in range(L_s):
@@ -539,8 +677,11 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                                       sf_dt)
                 K_pt.append(seed["ptkv0"][i][0] + kr)
                 V_pt.append(seed["ptkv0"][i][1] + vr)
-        if use_skn:
-            K_pt_s, V_pt_s = torch.stack(K_pt, 1), torch.stack(V_pt, 1)
+            if use_skn:
+                ins.update(K_pt_s=torch.stack(K_pt, 1),
+                           V_pt_s=torch.stack(V_pt, 1))
+            else:
+                ins.update(K_pt=K_pt, V_pt=V_pt)
 
         # per-step refine map-candidate subset: every insert lands within
         # pl2seed_radius of ego and its refine keys within pl2sa_radius of
@@ -557,17 +698,12 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                                   stable=True)
             cand_idx = torch.gather(cand_idx, 1, order)
             cand_ok = torch.gather(cand_ok, 1, order)
-            cand = dict(pos=_rows(pt["pos"], cand_idx),
-                        orient=_rows(pt["orient"], cand_idx),
-                        x=_rows(pt["x"], cand_idx), ok=cand_ok)
+            ins["cand"] = dict(pos=_rows(pt["pos"], cand_idx),
+                               orient=_rows(pt["orient"], cand_idx),
+                               x=_rows(pt["x"], cand_idx), ok=cand_ok)
         else:
-            cand = dict(pos=pt["pos"], orient=pt["orient"], x=pt["x"],
-                        ok=pt["mask"])
-
-        # step-start occupancy / agent geometry (patched per insert)
-        pos_c0, head_c0 = carry.pos[:, :, c], carry.head[:, :, c]
-        grid_c0, inter_c0 = carry.grid[:, :, c], carry.interact[:, :, c]
-        rawf_c0 = carry.raw_feat[:, :, c]
+            ins["cand"] = dict(pos=pt["pos"], orient=pt["orient"],
+                               x=pt["x"], ok=pt["mask"])
 
         # agent-row key snapshots (zero-aggregate chains, independent of
         # the seed query), once per step; only the inserted row changes.
@@ -600,161 +736,6 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             if cfg.use_grid_token:
                 fast0["v_occ"] = _occ_values(occ_vec0)
 
-        def eval_seed(slim, fast, p_used, run=None, live=None):
-            """One seed-head evaluation per lane: the seed stack + heads +
-            grid-cell sampling. Occupied-cell rejections are retried HERE
-            with fresh draws instead of re-running the seed stack: a retry
-            evaluates identical inputs, so one retry is one fresh draw from
-            the same top-k, and each draw consumes one unit of the shared
-            insert_limit budget. All potential retries are drawn at once;
-            "first free candidate among insert_limit draws, budget
-            permitting" has the same joint distribution of (accepted cell,
-            draws consumed). p_used: budget already consumed; the proposal
-            reports n_draws >= 1. run / live: the lanes still running, as
-            a device mask (the seed kernel skips the others) and a host
-            list (only they draw); None: every lane."""
-            occ_vec = fast["occ_vec"]
-            if use_sknf:
-                # precompute + stack + heads of every lane from raw inputs,
-                # one call
-                small, posl = SKN.seed_eval_full_kernel(
-                    seed["pack"], seed["vec"].to(f32), seed["k0"],
-                    seed["v0"], r_pl_emb, pl_mask, fast["agent_col"],
-                    fast["r_sa"], fast["a2sa_mask"], occ_vec, cfg.num_heads,
-                    cfg.head_dim, lanes=run)
-            elif use_skn:
-                # the whole stack + heads of every lane in one CUDA kernel
-                small, posl = SKN.seed_eval_kernel(
-                    seed["pack"], seed["vec"].to(f32), fast["v_occ"],
-                    K_pt_s, V_pt_s, pl_mask, fast["K_a"], fast["V_a"],
-                    fast["a2sa_mask"], cfg.num_heads, cfg.head_dim,
-                    lanes=run)
-            if use_sknf or use_skn:
-                heads = dict(state_logits=small[:, 0, :2],
-                             type_logits=small[:, 1, :3],
-                             shape=small[:, 2, :3], pos_logits=posl[:, :G])
-            else:
-                sd = seed["vec"].expand(B, D)
-                for i in range(L_s):
-                    if cfg.use_grid_token:
-                        sd = SF.attn_1q_single_key(
-                            dec.occ2sa_attn_layers[i], sd,
-                            fast["v_occ"][:, i], sf_dt)
-                    sd = SF.attn_1q(dec.pt2sa_attn_layers[i], sd, K_pt[i],
-                                    V_pt[i], pl_mask, cfg.num_heads, sf_dt)
-                    sd = SF.attn_1q(dec.a2sa_attn_layers[i], sd,
-                                    fast["K_a"][:, i], fast["V_a"][:, i],
-                                    fast["a2sa_mask"], cfg.num_heads, sf_dt,
-                                    bipartite=False)
-                heads = dec.seed_heads(sd)
-
-            heads = {k: v.to(f32) for k, v in heads.items()}
-            enter_prob = torch.softmax(heads["state_logits"], -1)[:, 1]
-            if force_insert:
-                want_enter = torch.ones(B, dtype=torch.bool, device=device)
-            else:
-                want_enter = _argmax_first(heads["state_logits"]) == 1
-            type_idx = _argmax_first(heads["type_logits"]).to(i32)
-            shape_pred = heads["shape"]
-            note_pick("seed_type", heads["type_logits"])
-            if cfg.use_grid_token:
-                note_pick("seed_grid", heads["pos_logits"])
-
-            if cfg.use_grid_token:
-                pos_probs = torch.softmax(heads["pos_logits"], -1)
-                n_cand = max(limit, 1)   # 0 only in eval-only profiling
-                topk_p, topk_idx = topk_stable(pos_probs,
-                                               cfg.insert_beam_size)
-                if cfg.insert_beam_size == 1:
-                    choices = torch.zeros((B, n_cand), dtype=torch.long,
-                                          device=device)
-                else:
-                    # each lane draws from its own generator, and only
-                    # while it runs, as its single rollout draws
-                    choices = _stack_lanes([
-                        torch.multinomial(torch.clamp(p, min=1e-30), n_cand,
-                                          replacement=True, generator=g)
-                        if live is None or live[b] else
-                        torch.zeros(n_cand, dtype=torch.long, device=device)
-                        for b, (p, g) in enumerate(zip(topk_p, carry.rng))])
-                g_cands = torch.gather(topk_idx, 1, choices)    # [B, limit]
-                remaining = limit - p_used
-                in_budget = arange_on(n_cand, device)[None] \
-                    < remaining[:, None]
-                free_ok = ~torch.gather(occ_vec, 1, g_cands) & in_budget
-                any_free = free_ok.any(-1)
-                first = _argmax_first(free_ok)
-                g_idx = _rows(g_cands, first).to(i32)
-                occupied = ~any_free
-                n_draws = torch.where(any_free, first + 1,
-                                      torch.clamp(remaining, min=1)).to(i32)
-                next_pos = _decode_pos(g_idx, ego_pos, ego_head)
-            else:
-                g_idx = torch.full((B,), -1, dtype=i32, device=device)
-                next_pos = heads["pos_xy"] * cfg.pl2seed_radius + ego_pos
-                occupied = torch.zeros(B, dtype=torch.bool, device=device)
-                n_draws = torch.ones(B, dtype=i32, device=device)
-            # stop when the head declines or no free slot remains
-            stop = ~want_enter | slim["active"].all(-1)
-            return dict(enter_prob=enter_prob, type_idx=type_idx,
-                        shape=shape_pred, g_idx=g_idx, next_pos=next_pos,
-                        occupied=occupied, n_draws=n_draws, stop=stop)
-
-        def iter_body(loop, run=None, live=None):
-            """Insert the current (free-cell) proposal, then evaluate the
-            next one. A step whose first evaluation declines pays one seed
-            evaluation and no insert/refine pass."""
-            slim, prop, n_new, probs, p, fast, recs = loop
-            slot = _argmax_first(~slim["active"])
-            do_insert = ~prop["occupied"] & ~prop["stop"]
-
-            slim, recs, new_feat, ins_pos, ins_head = _do_insert(
-                slim, recs, n_new, slot, do_insert, prop["next_pos"],
-                prop["g_idx"], prop["type_idx"], prop["shape"], ego_pos,
-                ego_head, cand, tables, seed, run)
-
-            # ---- patch the inserted row into the fast-eval state ----
-            rel = ins_pos - ego_pos
-            d_row = torch.linalg.norm(rel, dim=-1)
-            r_row_emb = dec.embed_a2sa_r(torch.stack([
-                d_row, angle_between_2d_vectors(ego_hv, rel),
-                wrap_angle(ins_head - ego_head)], -1)[:, None])
-            fast = dict(fast)
-            if use_sknf:
-                # the full kernel recomputes chains and K/V from the raw
-                # inputs: only the raw row and its geometry embedding change
-                fast["agent_col"] = _put(fast["agent_col"], slot, new_feat,
-                                         do_insert)
-                fast["r_sa"] = _put(fast["r_sa"], slot, r_row_emb[:, 0],
-                                    do_insert)
-            else:
-                row_chain = dec.seed_key_chain(new_feat[:, None, :])
-                K_rows, V_rows = [], []
-                for i in range(L_s):
-                    layer = dec.a2sa_attn_layers[i]
-                    ka, va = SF.precompute_src_kv(layer, row_chain[i], sf_dt)
-                    kar, var_ = SF.r_contrib(layer, r_row_emb, sf_dt)
-                    K_rows.append((ka + kar)[:, 0])
-                    V_rows.append((va + var_)[:, 0])
-                fast["K_a"] = _put(fast["K_a"], slot,
-                                   torch.stack(K_rows, 1), do_insert, dim=2)
-                fast["V_a"] = _put(fast["V_a"], slot,
-                                   torch.stack(V_rows, 1), do_insert, dim=2)
-            fast["a2sa_mask"] = _put(fast["a2sa_mask"], slot,
-                                     d_row <= cfg.pl2seed_radius, do_insert)
-            if cfg.use_grid_token:
-                fast["occ_vec"] = _put(fast["occ_vec"], prop["g_idx"], True,
-                                       do_insert)
-                if not use_sknf:
-                    fast["v_occ"] = _occ_values(fast["occ_vec"])
-
-            # the reference records the enter prob at index num_new_agents
-            # after a successful insert
-            probs = _put(probs, n_new + 1, prop["enter_prob"], do_insert)
-            n_new = n_new + do_insert.to(i32)
-            prop = eval_seed(slim, fast, p, run, live)
-            return slim, prop, n_new, probs, p + prop["n_draws"], fast, recs
-
         # The loop exits as soon as the seed head says stop, the budget runs
         # out, or a proposal's retries exhausted the budget while occupied.
         # Every multinomial draw consumes one of the insert_limit units, as
@@ -771,36 +752,217 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                      feat=zeros(K_rec, D, dtype=carry.raw_feat.dtype))
         slim0 = dict(active=carry.slot_active, pos_c=pos_c0, head_c=head_c0,
                      inter_c=inter_c0, rawf_c=rawf_c0)
-        prop0 = eval_seed(slim0, fast0, zeros(dtype=i32))
+        prop0 = eval_seed(ins, ctx, slim0, fast0, zeros(dtype=i32), u0)
         loop = (slim0, prop0, zeros(dtype=i32), zeros(limit + 1),
                 prop0["n_draws"], fast0, recs0)
+        return loop, ins
 
-        def running(loop):
-            return ((loop[4] <= limit) & ~loop[1]["stop"]
-                    & ~loop[1]["occupied"])
 
-        if cfg.insertion_fixed_trip:
-            # exactly insert_limit iterations, a stopped lane frozen by a
-            # full-state select: no host read
-            for _ in range(limit):
-                run = running(loop)
-                loop = _tree_where(run, iter_body(loop), loop)
+    def eval_seed(ins, ctx, slim, fast, p_used, u, run=None):
+        """One seed-head evaluation per lane: the seed stack + heads +
+        grid-cell sampling. Occupied-cell rejections are retried HERE
+        with fresh draws instead of re-running the seed stack: a retry
+        evaluates identical inputs, so one retry is one fresh draw from
+        the same top-k, and each draw consumes one unit of the shared
+        insert_limit budget. All potential retries are drawn at once;
+        "first free candidate among insert_limit draws, budget
+        permitting" has the same joint distribution of (accepted cell,
+        draws consumed). p_used: budget already consumed; the proposal
+        reports n_draws >= 1. u: the grid draw's variates [B, n_cand]
+        (None at beam 1). run: the lanes still running, a device mask
+        (the seed kernel skips the others); None: every lane."""
+        seed, B = ctx["seed"], slim["active"].shape[0]
+        r_pl_emb, pl_mask = ins["r_pl_emb"], ins["pl_mask"]
+        occ_vec = fast["occ_vec"]
+        if use_sknf:
+            # precompute + stack + heads of every lane from raw inputs,
+            # one call
+            small, posl = SKN.seed_eval_full_kernel(
+                seed["pack"], seed["vec"].to(f32), seed["k0"],
+                seed["v0"], r_pl_emb, pl_mask, fast["agent_col"],
+                fast["r_sa"], fast["a2sa_mask"], occ_vec, cfg.num_heads,
+                cfg.head_dim, lanes=run)
+        elif use_skn:
+            # the whole stack + heads of every lane in one CUDA kernel
+            small, posl = SKN.seed_eval_kernel(
+                seed["pack"], seed["vec"].to(f32), fast["v_occ"],
+                ins["K_pt_s"], ins["V_pt_s"], pl_mask, fast["K_a"],
+                fast["V_a"], fast["a2sa_mask"], cfg.num_heads, cfg.head_dim,
+                lanes=run)
+        if use_sknf or use_skn:
+            heads = dict(state_logits=small[:, 0, :2],
+                         type_logits=small[:, 1, :3],
+                         shape=small[:, 2, :3], pos_logits=posl[:, :G])
         else:
-            # while any lane runs: one host read of the lanes' flags per
-            # iteration; the stopped lanes' new state is discarded
-            while True:
-                rollout.host_reads += 1
-                run = running(loop)
-                live = run.tolist()
-                if not any(live):
-                    break
-                if all(live):
-                    loop = iter_body(loop)
-                else:
-                    loop = _tree_where(run, iter_body(loop, run, live), loop)
+            sd = seed["vec"].expand(B, D)
+            for i in range(L_s):
+                if cfg.use_grid_token:
+                    sd = SF.attn_1q_single_key(
+                        dec.occ2sa_attn_layers[i], sd,
+                        fast["v_occ"][:, i], sf_dt)
+                sd = SF.attn_1q(dec.pt2sa_attn_layers[i], sd,
+                                ins["K_pt"][i], ins["V_pt"][i], pl_mask,
+                                cfg.num_heads, sf_dt)
+                sd = SF.attn_1q(dec.a2sa_attn_layers[i], sd,
+                                fast["K_a"][:, i], fast["V_a"][:, i],
+                                fast["a2sa_mask"], cfg.num_heads, sf_dt,
+                                bipartite=False)
+            heads = dec.seed_heads(sd)
+
+        heads = {k: v.to(f32) for k, v in heads.items()}
+        enter_prob = torch.softmax(heads["state_logits"], -1)[:, 1]
+        if force_insert:
+            want_enter = torch.ones(B, dtype=torch.bool, device=device)
+        else:
+            want_enter = _argmax_first(heads["state_logits"]) == 1
+        type_idx = _argmax_first(heads["type_logits"]).to(i32)
+        shape_pred = heads["shape"]
+        note_pick("seed_type", heads["type_logits"])
+        if cfg.use_grid_token:
+            note_pick("seed_grid", heads["pos_logits"])
+
+        if cfg.use_grid_token:
+            pos_probs = torch.softmax(heads["pos_logits"], -1)
+            topk_p, topk_idx = topk_stable(pos_probs,
+                                           cfg.insert_beam_size)
+            if cfg.insert_beam_size == 1:
+                choices = torch.zeros((B, n_cand), dtype=torch.long,
+                                      device=device)
+            else:
+                # each lane's n_cand variates (drawn from its own
+                # generator only while it runs, as its single rollout
+                # draws) by inverse CDF over its top-k
+                choices = topk_inverse_cdf(topk_p, u)
+            g_cands = torch.gather(topk_idx, 1, choices)    # [B, limit]
+            remaining = limit - p_used
+            in_budget = arange_on(n_cand, device)[None] \
+                < remaining[:, None]
+            free_ok = ~torch.gather(occ_vec, 1, g_cands) & in_budget
+            any_free = free_ok.any(-1)
+            first = _argmax_first(free_ok)
+            g_idx = _rows(g_cands, first).to(i32)
+            occupied = ~any_free
+            n_draws = torch.where(any_free, first + 1,
+                                  torch.clamp(remaining, min=1)).to(i32)
+            next_pos = _decode_pos(g_idx, ins["ego_pos"],
+                                   ins["ego_head"])
+        else:
+            g_idx = torch.full((B,), -1, dtype=i32, device=device)
+            next_pos = heads["pos_xy"] * cfg.pl2seed_radius \
+                + ins["ego_pos"]
+            occupied = torch.zeros(B, dtype=torch.bool, device=device)
+            n_draws = torch.ones(B, dtype=i32, device=device)
+        # stop when the head declines or no free slot remains
+        stop = ~want_enter | slim["active"].all(-1)
+        return dict(enter_prob=enter_prob, type_idx=type_idx,
+                    shape=shape_pred, g_idx=g_idx, next_pos=next_pos,
+                    occupied=occupied, n_draws=n_draws, stop=stop)
+
+    def iter_body(ins, ctx, loop, u, run=None):
+        """Insert the current (free-cell) proposal, then evaluate the
+        next one (its grid draw's variates u). A step whose first
+        evaluation declines pays one seed evaluation and no
+        insert/refine pass. run: eval_seed's."""
+        slim, prop, n_new, probs, p, fast, recs = loop
+        ego_pos, ego_head = ins["ego_pos"], ins["ego_head"]
+        slot = _argmax_first(~slim["active"])
+        do_insert = ~prop["occupied"] & ~prop["stop"]
+
+        slim, recs, new_feat, ins_pos, ins_head = _do_insert(
+            slim, recs, n_new, slot, do_insert, prop["next_pos"],
+            prop["g_idx"], prop["type_idx"], prop["shape"], ego_pos,
+            ego_head, ins["cand"], ctx["tables"], ctx["seed"], run)
+
+        # ---- patch the inserted row into the fast-eval state ----
+        rel = ins_pos - ego_pos
+        d_row = torch.linalg.norm(rel, dim=-1)
+        r_row_emb = dec.embed_a2sa_r(torch.stack([
+            d_row, angle_between_2d_vectors(ins["ego_hv"], rel),
+            wrap_angle(ins_head - ego_head)], -1)[:, None])
+        fast = dict(fast)
+        if use_sknf:
+            # the full kernel recomputes chains and K/V from the raw
+            # inputs: only the raw row and its geometry embedding change
+            fast["agent_col"] = _put(fast["agent_col"], slot, new_feat,
+                                     do_insert)
+            fast["r_sa"] = _put(fast["r_sa"], slot, r_row_emb[:, 0],
+                                do_insert)
+        else:
+            row_chain = dec.seed_key_chain(new_feat[:, None, :])
+            K_rows, V_rows = [], []
+            for i in range(L_s):
+                layer = dec.a2sa_attn_layers[i]
+                ka, va = SF.precompute_src_kv(layer, row_chain[i], sf_dt)
+                kar, var_ = SF.r_contrib(layer, r_row_emb, sf_dt)
+                K_rows.append((ka + kar)[:, 0])
+                V_rows.append((va + var_)[:, 0])
+            fast["K_a"] = _put(fast["K_a"], slot,
+                               torch.stack(K_rows, 1), do_insert, dim=2)
+            fast["V_a"] = _put(fast["V_a"], slot,
+                               torch.stack(V_rows, 1), do_insert, dim=2)
+        fast["a2sa_mask"] = _put(fast["a2sa_mask"], slot,
+                                 d_row <= cfg.pl2seed_radius, do_insert)
+        if cfg.use_grid_token:
+            fast["occ_vec"] = _put(fast["occ_vec"], prop["g_idx"], True,
+                                   do_insert)
+            if not use_sknf:
+                fast["v_occ"] = _occ_values(fast["occ_vec"])
+
+        # the reference records the enter prob at index num_new_agents
+        # after a successful insert
+        probs = _put(probs, n_new + 1, prop["enter_prob"], do_insert)
+        n_new = n_new + do_insert.to(i32)
+        prop = eval_seed(ins, ctx, slim, fast, p, u, run)
+        return slim, prop, n_new, probs, p + prop["n_draws"], fast, recs
+
+    def running(loop):
+        """The lanes whose insertion loop goes on: budget left, the seed
+        head's proposal accepted and its cell free."""
+        return ((loop[4] <= limit) & ~loop[1]["stop"]
+                & ~loop[1]["occupied"])
+
+    def insertion_iter(ins, ctx, loop, u=None):
+        """One iteration of the fixed-trip loop: iter_body, a stopped lane
+        frozen by a full-state select; no host read. u: the variates of the
+        evaluation it makes [B, n_cand] (None at beam 1)."""
+        return _tree_where(running(loop), iter_body(ins, ctx, loop, u), loop)
+
+    def insertion_close(carry, ins, loop, c):
+        """The loop's accepted inserts written into the carry at column c:
+        (carry, n_new [B], enter probabilities [B, insert_limit + 1])."""
         slim, _, n_new, probs, _, _, recs = loop
-        carry = _apply_inserts(carry, slim, recs, n_new, c, ego_head)
+        carry = _apply_inserts(carry, slim, recs, n_new, c, ins["ego_head"])
         return carry, n_new, probs
+
+    def _insertion(carry, ctx, c, u_ins, gens):
+        """The whole insertion of one step (the module docstring's two
+        loops): with `gens`, the early-exit loop, each running lane drawing
+        its variates as it goes; otherwise the fixed-trip loop on u_ins
+        [B, insert_limit + 1, n_cand] (None at beam 1)."""
+        if gens is None:
+            u = (lambda j: None) if u_ins is None else (lambda j: u_ins[:, j])
+            loop, ins = insertion_open(carry, ctx, c, u(0))
+            for j in range(1, limit + 1):
+                loop = insertion_iter(ins, ctx, loop, u(j))
+            return insertion_close(carry, ins, loop, c)
+        draw = lambda live: draw_uniforms(gens, (n_cand,), device, live) \
+            if draws_ins else None
+        loop, ins = insertion_open(carry, ctx, c, draw(None))
+        # while any lane runs: one host read of the lanes' flags per
+        # iteration; the stopped lanes' new state is discarded, and only
+        # the running lanes draw
+        while True:
+            rollout.host_reads += 1
+            run = running(loop)
+            live = run.tolist()
+            if not any(live):
+                break
+            if all(live):
+                loop = iter_body(ins, ctx, loop, draw(None))
+            else:
+                loop = _tree_where(run, iter_body(ins, ctx, loop, draw(live),
+                                                  run), loop)
+        return insertion_close(carry, ins, loop, c)
 
     def _occ_values(occ_vec):
         """[B, L_s, D] occ2sa values (the single key's value projection) of
@@ -907,10 +1069,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             heads = dict(head_logits=head_logits,
                          offset_xy=torch.tanh(off) * 2.0)
         else:
-            refined = dec.refine_column_sub(x_sub, pl_x, r_pp, val_p, r_aa,
-                                            val_a)
-            heads = {k: v.to(f32)
-                     for k, v in dec.refine_heads(refined).items()}
+            # lane by lane in its products (on the CPU): each lane's insert
+            # refines as its single rollout's does
+            with lane_products():
+                refined = dec.refine_column_sub(x_sub, pl_x, r_pp, val_p,
+                                                r_aa, val_a)
+                heads = {k: v.to(f32)
+                         for k, v in dec.refine_heads(refined).items()}
         if cfg.use_head_token:
             note_pick("refine_head", heads["head_logits"])
             h_idx = _argmax_first(heads["head_logits"]).to(i32)
@@ -960,19 +1125,15 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         pick = lambda x: _rows(x, sel)
         h1, h2 = hit[..., None], hit[..., None, None]
         colr = torch.arange(Ti, device=device)[None, None]
-        carry.pos[:, :, c] = torch.where(h1, pick(recs["pos"]),
-                                         carry.pos[:, :, c])
-        carry.head[:, :, c] = torch.where(hit, pick(recs["head"]),
-                                          carry.head[:, :, c])
-        carry.state[:, :, c] = torch.where(hit, ENTER_STATE,
-                                           carry.state[:, :, c])
+        patch = lambda x, h, v: _set_at(x, c, torch.where(h, v, _at(x, c)))
+        patch(carry.pos, h1, pick(recs["pos"]))
+        patch(carry.head, hit, pick(recs["head"]))
+        patch(carry.state, hit, ENTER_STATE)
         # -2 at the enter column = bos sentinel (token emb -> bos row); the
         # rest of the row is already -1 (inactive-slot init)
-        carry.token[:, :, c] = torch.where(hit, -2, carry.token[:, :, c])
-        carry.grid[:, :, c] = torch.where(hit, pick(recs["g"]),
-                                          carry.grid[:, :, c])
-        carry.raw_feat[:, :, c] = torch.where(h1, pick(recs["feat"]),
-                                              carry.raw_feat[:, :, c])
+        patch(carry.token, hit, -2)
+        patch(carry.grid, hit, pick(recs["g"]))
+        patch(carry.raw_feat, h1, pick(recs["feat"]))
         carry = carry._replace(
             valid=torch.where(h1, colr > c, carry.valid),
             interact=torch.where(h1, colr >= c, carry.interact),
@@ -982,47 +1143,70 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             shape=torch.where(h1, pick(recs["shape"]), carry.shape),
             n_inserted=carry.n_inserted + n_new)
 
-        # pred placeholders for the elapsed segment: pre-refine pose, ego
-        # heading, ENTER state
-        t_step = c - 1                 # rollout step index (c = 1 + t)
-        if t_step > 0:
-            seg = min(max((t_step - 1) * SHIFT, 0), R - SHIFT)
-            cols = slice(seg, seg + SHIFT)
-            carry.pred_traj[:, :, cols] = torch.where(
-                h2, pick(recs["pos_pre"])[:, :, None],
-                carry.pred_traj[:, :, cols])
-            carry.pred_head[:, :, cols] = torch.where(
-                h1, ego_head[:, None, None], carry.pred_head[:, :, cols])
-            carry.pred_state[:, :, cols] = torch.where(
-                h1, float(ENTER_STATE), carry.pred_state[:, :, cols])
+        # pred placeholders for the elapsed segment (of step t - 1, t = c - 1
+        # >= 1: step 0 inserts nothing): pre-refine pose, ego heading, ENTER
+        # state
+        cols = _span_cols(torch.clamp((c - 2) * SHIFT, 0, R - SHIFT), SHIFT,
+                          device)
+        for x, h, v in ((carry.pred_traj, h2,
+                         pick(recs["pos_pre"])[:, :, None]),
+                        (carry.pred_head, h1, ego_head[:, None, None]),
+                        (carry.pred_state, h1, float(ENTER_STATE))):
+            x.index_copy_(2, cols, torch.where(h, v, x.index_select(2, cols)))
         return carry
 
     # ---------------------------------------------------------------- #
     # one token step
     # ---------------------------------------------------------------- #
 
-    def _step(carry, t, pt, tables, av, init_active, seed, trunk_pack):
-        c = t + 1  # current column
+    def step(carry, ctx, c, insert: bool, u_ins=None, u_mot=None,
+             gens=None):
+        """One token step at the current column c = 1 + t (a 0-d int64
+        tensor on the device), in place on `carry`; returns (carry, out).
+        insert: whether the step runs the insertion loop (never at step 0,
+        nor with cfg.disable_insertion). The variates: with `gens` (a
+        generator per lane) each lane draws them as it goes, under the
+        early-exit loop; otherwise u_ins [B, insert_limit + 1, n_cand] and
+        u_mot [B, A] (ops/sampling.step_variates with variate_counts;
+        None where nothing is drawn), under the fixed-trip loop. An
+        exported step (rollout/export.py) is insertion_open, then
+        insertion_iter insert_limit times, then close_step."""
         B = carry.pos.shape[0]
-        lane = arange_on(B, device)
-
         picks.clear()
         # 1. insertion (skipped at t=0)
-        if cfg.disable_insertion or t == 0:
+        if not insert:
             n_new = torch.zeros(B, dtype=i32, device=device)
             seed_probs = torch.zeros((B, limit + 1), device=device)
         else:
             with record_function("rollout.insertion"):
-                carry, n_new, seed_probs = _insertion(carry, c, pt, tables,
-                                                      av, seed)
+                carry, n_new, seed_probs = _insertion(carry, ctx, c, u_ins,
+                                                      gens)
+        return motion_step(carry, ctx, c, n_new, seed_probs, u_mot, gens)
+
+    def close_step(carry, ctx, ins, loop, c, u_mot=None):
+        """The step after its fixed-trip insertion loop: insertion_close,
+        then motion_step."""
+        carry, n_new, seed_probs = insertion_close(carry, ins, loop, c)
+        return motion_step(carry, ctx, c, n_new, seed_probs, u_mot)
+
+    def motion_step(carry, ctx, c, n_new, seed_probs, u_mot=None,
+                    gens=None):
+        """The step's motion, heads and de-tokenization at column c after
+        its insertion (n_new inserts, the enter probabilities seed_probs):
+        (carry, out)."""
+        B = carry.pos.shape[0]
+        lane = arange_on(B, device)
+        pt, tables, av = ctx["pt"], ctx["tables"], ctx["av"]
 
         # 2. motion for all agents
         with record_function("rollout.motion"):
-            carry, feat_c = _motion_pass(carry, c, pt, trunk_pack)
+            carry, feat_c = _motion_pass(carry, c, pt, ctx["trunk"])
         token_logits, state_logits = dec.motion_heads(feat_c)
         token_logits, state_logits = token_logits.to(f32), state_logits.to(f32)
         probs = torch.softmax(token_logits, -1)
-        next_token = sample_from_topk(carry.rng, probs, cfg.motion_beam_size)
+        if draws_mot and gens is not None:
+            u_mot = draw_uniforms(gens, (A,), device)
+        next_token = sample_from_topk(u_mot, probs, cfg.motion_beam_size)
 
         next_state = _argmax_first(state_logits, -1).to(i32)
         next_state = torch.where(next_state == 2, EXIT_STATE, next_state)
@@ -1036,7 +1220,7 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                                  INVALID_STATE).to(i32)
 
         # 3. de-tokenize: contour trajectory in the world frame
-        pos_c, head_c = carry.pos[:, :, c], carry.head[:, :, c]
+        pos_c, head_c = _at(carry.pos, c), _at(carry.head, c)
         # direct (type, token) gather
         tokc = token_traj_all[torch.clamp(carry.type_, 0, 2).long(),
                               torch.clamp(next_token, min=0).long()]
@@ -1059,13 +1243,13 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         tok_new = torch.where(is_invalid, -1, next_token).to(i32)
 
         c1 = c + 1
-        carry.pos[:, :, c1] = new_pos
-        carry.head[:, :, c1] = new_head
-        carry.state[:, :, c1] = next_state
-        carry.token[:, :, c1] = tok_new
-        carry.grid[:, :, c1] = g_new
-        carry.valid[:, :, c1] &= ~is_invalid
-        carry.interact[:, :, c1] &= ~is_invalid
+        prev_inv = _at(carry.state, c) == INVALID_STATE
+        for x, v in ((carry.pos, new_pos), (carry.head, new_head),
+                     (carry.state, next_state), (carry.token, tok_new),
+                     (carry.grid, g_new),
+                     (carry.valid, _at(carry.valid, c1) & ~is_invalid),
+                     (carry.interact, _at(carry.interact, c1) & ~is_invalid)):
+            _set_at(x, c1, v)
 
         # token / categorical embeddings at c+1
         t_idx = map_token_index(tok_new, cfg.token_size).long()
@@ -1076,18 +1260,17 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
         # keep seed-type / invalid-shape categorical embeddings on every
         # rollout column; agents inserted during the rollout carry their
         # real type / shape
-        as_seed = is_invalid | init_active if cfg.ref_rollout_quirks \
+        as_seed = is_invalid | ctx["init_active"] if cfg.ref_rollout_quirks \
             else is_invalid
         te_new = dec.type_a_emb(torch.where(as_seed, SEED_TYPE, carry.type_))
         se_new = dec.shape_emb(torch.where(as_seed[..., None],
                                            INVALID_SHAPE_VALUE, carry.shape))
 
         # 4. refresh fused features at c+1 (incremental)
-        motion_new = carry.pos[:, :, c1] - carry.pos[:, :, c]
+        motion_new = new_pos - pos_c
         inv_new = is_invalid
         motion_new = torch.where(inv_new[..., None], E.INVALID_MOTION_VALUE,
                                  motion_new)
-        prev_inv = carry.state[:, :, c] == INVALID_STATE
         motion_new = torch.where((prev_inv & ~inv_new)[..., None],
                                  E.MOTION_GAP, motion_new)
         motion_new = torch.where((~prev_inv & inv_new)[..., None],
@@ -1102,19 +1285,19 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
             parts.append(tables["grid_table"][
                 torch.where(g_new >= 0, g_new, G).long()])
         feat_new = dec.fusion_emb(torch.cat(parts, dim=-1))
-        carry.raw_feat[:, :, c1] = feat_new
+        _set_at(carry.raw_feat, c1, feat_new)
 
-        # 5. write 10 Hz predictions for this segment
-        seg = slice(t * SHIFT, (t + 1) * SHIFT)
-        carry.pred_traj[:, :, seg] = seg_traj
-        carry.pred_head[:, :, seg] = seg_head
-        carry.pred_state[:, :, seg] = next_state[..., None].to(f32)
+        # 5. write 10 Hz predictions for this segment (step t = c - 1)
+        seg = _span_cols((c - 1) * SHIFT, SHIFT, device)
+        carry.pred_traj.index_copy_(2, seg, seg_traj)
+        carry.pred_head.index_copy_(2, seg, seg_head)
+        carry.pred_state.index_copy_(
+            2, seg, next_state[..., None].to(f32).expand(-1, -1, SHIFT))
 
         out = dict(n_inserted=n_new, seed_probs=seed_probs)
         if debug:
             out.update(token_logits=token_logits, state_logits=state_logits,
-                       layer_cols=carry.cache[:, :, :, c].transpose(0, 1)
-                       .clone())
+                       layer_cols=_at(carry.cache, c, 3).transpose(0, 1))
             for head, width in pick_width.items():
                 got = picks.get(head, [])[:width]
                 pad = width - len(got)
@@ -1196,4 +1379,12 @@ def make_rollout_fn(model, cfg: Config, attr, motion_tok, map_vocab,
                 "n_inserted", "seed_probs")},
         )
 
+    rollout.host_reads = 0
+    rollout.prologue, rollout.step, rollout.epilogue = prologue, step, epilogue
+    rollout.insertion_open, rollout.insertion_iter = insertion_open, \
+        insertion_iter
+    rollout.close_step = close_step
+    rollout.n_steps = n_steps
+    rollout.variate_counts = variate_counts
+    rollout.flat_ctx, rollout.unflat_ctx = _flat_ctx, _unflat_ctx
     return rollout

@@ -45,10 +45,14 @@ class AttrTokenizer:
         assert bool(np.all(self.grid[self.grid_size // 2] == 0.0))
 
     def grid_on(self, device) -> torch.Tensor:
-        """The [grid_size, 2] grid as a tensor on `device` (cached)."""
+        """The [grid_size, 2] grid as a tensor on `device` (cached; while a
+        program is traced, torch.export, a fresh one that is not kept)."""
         key = str(device)
         if key not in self._grid_t:
-            self._grid_t[key] = torch.as_tensor(self.grid, device=device)
+            grid = torch.as_tensor(self.grid, device=device)
+            if torch.compiler.is_compiling():
+                return grid
+            self._grid_t[key] = grid
         return self._grid_t[key]
 
     def encode_pos(self, x, y, theta_y=None):

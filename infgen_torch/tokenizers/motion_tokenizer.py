@@ -8,27 +8,16 @@ masks. Inputs are fixed-shape padded tensors:
     type_ [A] int (0 veh / 1 ped / 2 cyc)
 """
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
 from infgen_torch.config import (ENTER_STATE, EXIT_STATE, INVALID_STATE,
                                  SHIFT, VALID_STATE)
+from infgen_torch.data.scenario import TokenizedAgents
 from infgen_torch.tokenizers.vocab import load_agent_vocab
 from infgen_torch.utils.geometry import (cal_polygon_contour,
                                          heading_from_contour, rot_mat_2d,
                                          wrap_angle)
-
-
-class TokenizedAgents(NamedTuple):
-    token_idx: torch.Tensor        # [A, T] int32; -1 invalid, -2 enter(bos)
-    state_idx: torch.Tensor        # [A, T] int32
-    token_pos: torch.Tensor        # [A, T, 2]
-    token_heading: torch.Tensor    # [A, T]
-    token_contour: torch.Tensor    # [A, T, 4, 2]
-    token_valid: torch.Tensor      # [A, T] bool (enter steps forced False)
-    raw_token_valid: torch.Tensor  # [A, T] bool
 
 
 def _argmax_first(x, dim):

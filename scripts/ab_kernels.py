@@ -227,14 +227,12 @@ def rba_call(lib, args, H):
 def parent_refine(lib, pack, args, H, Hd):
     """The parent build's refine (one pointer array for the pack's
     matrices and vectors) on the wrapper's inputs."""
-    from infgen_torch.ops import refine_kernel as RK
-    from infgen_torch.ops.seed_kernel import _DTYPE_CODE, _ptr_array
+    from infgen_torch.ops.seed_kernel import _DTYPE_CODE, ptr_array
 
     x = args[0]
     R, D = x.shape
     if not hasattr(pack, "parent_ptrs"):
-        mats, vecs = RK._layouts(pack.L, D, pack.angle_size)
-        pack.parent_ptrs = _ptr_array({**pack.w, **pack.v}, mats + vecs)
+        pack.parent_ptrs = ptr_array(pack.views())
     f32 = dict(dtype=torch.float32, device=x.device)
     head = torch.empty((pack.angle_size,), **f32)
     off = torch.empty((2,), **f32)

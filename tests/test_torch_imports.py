@@ -28,7 +28,9 @@ def test_port_imports_no_jax():
     assert {f"infgen_torch/train/{m}.py" for m in (
         "targets", "losses", "train_step", "loop", "checkpoint")} <= names
     assert {f"infgen_torch/metrics/{m}.py" for m in METRICS} <= names
-    assert "infgen_torch/rollout/streaming.py" in names
+    assert {"infgen_torch/rollout/streaming.py",
+            "infgen_torch/rollout/export.py",
+            "infgen_torch/rollout/carry.py"} <= names
     assert {"infgen_torch/model/occ_decoder.py", "infgen_torch/data/loader.py",
             "infgen_torch/utils/logging.py", "infgen_torch/utils/backup.py",
             "infgen_torch/utils/profiling.py"} <= names
@@ -146,3 +148,26 @@ def test_data_modules_import_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and \
         out.stdout.strip().splitlines()[-1] == "ok True 1 9", out.stderr
+
+
+def test_export_imports_without_jax():
+    """The export module imports where JAX, flax, optax and the JAX package
+    cannot be imported, registers the six kernels' ops, and loading needs
+    no model or tokenizer module: importing it imports none."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+            "import torch\n"
+            "import infgen_torch.rollout.export\n"
+            "ops = [n for n in ('seed_eval', 'seed_eval_full', 'refine',\n"
+            "       'motion_column', 'fused_attention_block',\n"
+            "       'r_biased_attention') if hasattr(torch.ops.infgen, n)]\n"
+            "bad = [m for m in sys.modules if m.startswith(\n"
+            "    ('infgen_torch.model', 'infgen_torch.tokenizers'))]\n"
+            "print('ok', len(ops), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok 6 []", \
+        out.stderr + out.stdout

@@ -340,7 +340,7 @@ def column_pack():
             mod = DenseAttention(128, 8, 16, bipartite=bip)
             _fill(mod, rng)
             subs.append((mod, bip))
-    weights, vectors, w, v, ptrs, D = CK.pack_sublayers(subs, torch.bfloat16)
+    weights, vectors, w, v, D = CK.pack_sublayers(subs, torch.bfloat16)
     return w, CK.column_tiles(w), subs
 
 

@@ -20,6 +20,7 @@ logits come from a debug compile made only when a token differs.
 
 import filecmp
 import json
+import multiprocessing
 import os
 
 import jax
@@ -57,6 +58,7 @@ from infgen_torch.tokenizers.motion_tokenizer import MotionTokenizer
 from infgen_torch.tokenizers.vocab import load_map_vocab
 from infgen_torch.utils.device import resolve_device
 
+import test_torch_export as TE
 from test_torch_layers import (  # noqa: F401 (one_torch_thread: autouse)
     random_flax_params, one_torch_thread)
 
@@ -79,7 +81,7 @@ def _np(x):
 
 
 @pytest.fixture(scope="module")
-def both():
+def both(tmp_path_factory):
     jcfg = JConfig(**CFG)
     jattr = JAttr(jcfg.grid_range, jcfg.grid_interval, jcfg.pl2seed_radius,
                   jcfg.angle_interval)
@@ -104,6 +106,12 @@ def both():
     model = InfGenModel(cfg, attr.grid, attr.grid_size, attr.angle_size)
     load_flax_params(model, params)
     model.eval()
+    # the insert mode's exported rollout (test_artifact_matches_jax), made
+    # in a spawned process while the JAX side compiles
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    artifact = pool.apply_async(TE.export_and_run, (
+        CFG, model.state_dict(), scen, inputs,
+        str(tmp_path_factory.mktemp("export") / "rollout.pt2"), True, 7))
 
     runs, logits, jfns = {}, {}, {}
     for mode, over, force in (("insert", {}, True),
@@ -120,10 +128,15 @@ def both():
         runs[mode] = (jout, {k: _np(v) for k, v in out.items()})
         logits[mode] = _debug_logits(jmodel, jc, (jattr, jmt, jmv), force,
                                      (params, jscen, jinputs))
-    return dict(jscen=jscen, jinputs=jinputs, scen=scen, inputs=inputs,
-                runs=runs, logits=logits, model=model, cfg=cfg,
-                tok=(attr, mt, mv), jtok=(jattr, jmt, jmv), jfns=jfns,
-                jbuild=jbuild, params=params, pt_uniform=pt_uniform)
+    try:
+        yield dict(jscen=jscen, jinputs=jinputs, scen=scen, inputs=inputs,
+                   runs=runs, logits=logits, model=model, cfg=cfg,
+                   tok=(attr, mt, mv), jtok=(jattr, jmt, jmv), jfns=jfns,
+                   jbuild=jbuild, params=params, pt_uniform=pt_uniform,
+                   artifact=artifact)
+    finally:
+        pool.terminate()
+        pool.join()
 
 
 def _debug_logits(jmodel, jcfg, jtok, force, args):
@@ -398,3 +411,22 @@ def test_vocab_copies_identical(name):
     assert filecmp.cmp(os.path.join(root, "infgen_tpu", "tokens", name),
                        os.path.join(root, "infgen_torch", "tokens", name),
                        shallow=False)
+
+
+def test_artifact_matches_jax(both):
+    """The exported rollout (infgen_torch/rollout/export.py) of the insert
+    mode, beam 1, forced insertion, loaded back and run on the fixture's
+    inputs, against the JAX package's rollout the fixture compiled:
+    decisions bitwise, poses within POSE_TOL. Exported and run in a
+    spawned process started by the fixture."""
+    out, ops, header = both["artifact"].get(timeout=900)
+    jout = both["runs"]["insert"][0]
+    assert set(out) == set(jout)
+    assert "seed_eval" in ops and header["force_insert"]
+    for k in EXACT:
+        np.testing.assert_array_equal(out[k], np.asarray(jout[k]),
+                                      err_msg=k)
+    for k in CLOSE:
+        np.testing.assert_allclose(out[k], np.asarray(jout[k]),
+                                   atol=POSE_TOL, rtol=0, err_msg=k)
+    assert int(out["n_inserted"]) > 0
