@@ -93,6 +93,14 @@ before the last line):
            `cli rollout --ckpt-path` from it (70 frames, seed_eval launched)
            making the decisions of the trainer's in-memory weights, and
            ours_standard.yaml warm-started from it (`--pretrain-ckpt`)
+  learning the learning-dynamics path (python -m
+           infgen_torch.validate_learning) at the flagship's full width:
+           2 synthetic 48-agent scenarios, 4 train steps at batch 2, scored
+           before and after at 150 frames (production beams, seed_eval),
+           each kernel count set to 0 before and read after: finite losses
+           and metametrics, seed_eval launched in the scorings only; seconds,
+           ms per train step and per scoring, the scores and the share of
+           the active agents' future frames that are valid
   womd     the WOMD input pipeline at the flagship's full width: synthetic
            WOMD tfrecords from a seeded generator (8 scenarios of 60-120
            agents and more than 6 km of map, one more of 132 agents),
@@ -167,7 +175,8 @@ r_biased_attention's also carries its lane form's time, bound and
 launches in the served batches (`serving`, `serving_kernels`,
 `serving_latency`), each kernel that `stream` launched its
 `stream_launches`, each kernel that `export`'s artifacts launched its
-`export_launches`; seed_eval's `warm_start_launches` and `womd_launches`,
+`export_launches`; seed_eval's `warm_start_launches`,
+`learning_launches` and `womd_launches`,
 r_biased_attention's `train_configs_launches`,
 `train_configs_backward_calls`, `open_loop_launches` and `womd_launches`)
 and, last, the device line {"ok": true, "device": {...}}. Without CUDA it
@@ -2708,6 +2717,52 @@ def check_warm_start(dev):
     return launches
 
 
+LEARNING_SCENARIOS = 2   # synthetic 48-agent scenarios (seeds 0, 1)
+LEARNING_STEPS = 4
+LEARNING_FRAMES = 150
+
+
+def check_learning(dev):
+    """The learning-dynamics path (validate_learning.learning_dynamics) at
+    the flagship's full width on the card: LEARNING_SCENARIOS scenarios,
+    LEARNING_STEPS train steps at batch 2, scored before and after at
+    LEARNING_FRAMES frames (production beams, bf16, seed_eval), every
+    count set to 0 just before and read just after: finite losses and
+    metametrics, seed_eval launched in the scorings (and only there).
+    Returns seed_eval's launches."""
+    from infgen_torch.cli import kernel_launches
+    from infgen_torch.config import load_config
+    from infgen_torch.validate_learning import learning_dynamics
+
+    cfg = load_config(FLAGSHIP).replace(
+        num_recurrent_steps_val=LEARNING_FRAMES)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = learning_dynamics(cfg, dev, LEARNING_STEPS, LEARNING_SCENARIOS,
+                            out=None, log_fn=lambda msg: None)
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    emit("learning", config=os.path.relpath(FLAGSHIP, ROOT),
+         scenarios=LEARNING_SCENARIOS, steps=LEARNING_STEPS,
+         frames=LEARNING_FRAMES, seconds=seconds,
+         ms_per_train_step=res["ms_per_train_step"],
+         ms_scoring=res["ms_scoring"],
+         seed_eval_launches=res["seed_eval_launches"],
+         kernel_launches=launches, losses=res["losses"],
+         before=res["before"], after=res["after"],
+         gt_replay=[res["gt_replay_metametric"],
+                    res["gt_replay_collision_rate"]], device=res["device"])
+    require(np.isfinite(res["losses"]).all(),
+            f"learning: a loss is not finite {res['losses']}")
+    require(all(np.isfinite(r["metametric"]) for r in res["curve"]),
+            f"learning: a metametric is not finite {res['curve']}")
+    require(res["seed_eval_launches"] > 0,
+            "learning: the scorings launched no seed_eval")
+    require(launches["seed_eval"] == res["seed_eval_launches"],
+            f"learning: seed_eval launched outside the scorings {launches}")
+    return res["seed_eval_launches"]
+
+
 # --------------------------------------------------------------------- #
 # the WOMD input pipeline
 # --------------------------------------------------------------------- #
@@ -4313,6 +4368,7 @@ def main():
     open_loop_launches = check_open_loop(dev)
     check_check_inputs(dev)
     warm_start_launches = check_warm_start(dev)
+    learning_launches = check_learning(dev)
     womd_launches = check_womd(dev, smi)
     scoring = check_scoring(dev)
     stream_launches = check_stream(dev)
@@ -4351,6 +4407,7 @@ def main():
                                lanes_launches["seed_eval"]),
                    scoring_launches=scoring["launches"]["seed_eval"],
                    warm_start_launches=warm_start_launches,
+                   learning_launches=learning_launches,
                    womd_launches=womd_launches["seed_eval"])
     for entry in line:
         name = entry["name"]

@@ -62,7 +62,8 @@ accuracy and grid overlap of their tokenised ground truth
 
   python -m infgen_torch.cli validate --synthetic [--config ...] \
       [--num-scenarios N] [--device cuda|cpu] [--save-dir D] \
-      [--log-features total_features.npz] [--dump-rollouts] [--params ...]
+      [--log-features total_features.npz] [--dump-rollouts] \
+      [--plot-rollouts] [--params ...]
 
 rolls out N scenarios (n_rollout_close_val rollouts each, as
 lanes of one batched rollout) and scores them with the WOSAC metrics
@@ -72,6 +73,11 @@ against them on the device, and the aggregated realism metametric, its
 buckets and the validation metrics go to D/rollout_metrics.json and three
 printed lines. `rollout --save-dir D` scores its rollouts the same way
 after its timed window and adds the metametric to its summary line.
+`--plot-rollouts` draws each scenario's first rollout into D/vis; the
+environment variable PLOT_EDGE_INFERENCE plots its agent-agent masks
+(PLOT_EDGE_DIR, default D/edge_maps), and PLOT_EDGE the tokenised ground
+truth's masks under `check-inputs` (default runs/edge_maps). These need
+matplotlib: without it they are refused before anything runs.
 
   python -m infgen_torch.cli stream --synthetic [--config ...] \
       [--total-steps 900] [--segment-steps R] [--fused-stream] \
@@ -780,7 +786,7 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
                  dump_rollouts: bool = False,
                  num_recurrent_steps: Optional[int] = None, model=None,
                  tokenizers=None, keep: bool = False, log_fn=print,
-                 dataset=None):
+                 dataset=None, plot_rollouts: bool = False):
     """Closed-loop validation with WOSAC scoring (the JAX package's `cli
     validate`), on the card unless `device` says cpu.
 
@@ -792,7 +798,13 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
     concatenated along the agent axis and scored, on the device. With
     `dump_rollouts` each scenario's first rollout goes to
     save_dir/rollout_{i:06d}.npz for offline scoring, and a scenario whose
-    dump exists is skipped (resume). Returns (summary, scorer): the summary
+    dump exists is skipped (resume). With `plot_rollouts` each scenario's
+    first rollout is drawn into save_dir/vis/scenario_{i:06d}_rollout.png;
+    with the environment variable PLOT_EDGE_INFERENCE set, its agent-agent
+    masks at columns 2, middle and last (visualization.a2a_inference_masks)
+    into PLOT_EDGE_DIR (default save_dir/edge_maps). Either needs
+    matplotlib and raises before any rollout without it.
+    Returns (summary, scorer): the summary
     has ms per scenario of the rollout, of the feature extraction and of
     the scoring, the peak memory of each scoring on a card, the
     metametric, its buckets and every kernel's launches; the scorer holds
@@ -800,6 +812,10 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
     inputs, rollout outputs, road edges and device features and metrics.
     """
     device = resolve_device(device)
+    plot_edges = bool(os.environ.get("PLOT_EDGE_INFERENCE"))
+    if plot_rollouts or plot_edges:
+        from infgen_torch.utils import visualization as VIS
+        VIS.require_matplotlib()
     tokenizers = tokenizers or build_tokenizers(cfg)
     attr, mt, mv = tokenizers
     model = model or build_model(cfg, attr, device, params)
@@ -837,6 +853,9 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
         packed, road = _road_edges(scen, device)
         if dump_rollouts:
             save_rollout_dump(dump, outs[0], *packed)
+        if plot_rollouts or plot_edges:
+            _plot_rollout(cfg, i, scen, outs[0], save_dir or ".",
+                          plot_rollouts, plot_edges)
         scorer.score(i, s, inputs, outs, *road)
         if keep:
             scorer.kept[-1].update(scenario=s, inputs=inputs, outputs=outs,
@@ -858,6 +877,31 @@ def run_validate(cfg: Config, device=None, num_scenarios: int = 8,
         agents_inserted=[m["n_inserted"] for m in scorer.rows],
         **_launch_counts(launches0))
     return summary, scorer
+
+
+def _plot_rollout(cfg: Config, i: int, scen, out, save_dir: str,
+                  rollout: bool, edges: bool):
+    """Scenario i's rollout drawn into save_dir/vis, and with `edges` its
+    agent-agent masks rebuilt on the host into PLOT_EDGE_DIR (default
+    save_dir/edge_maps)."""
+    from infgen_torch.utils import visualization as VIS
+
+    o = {k: out[k].cpu().numpy() for k in (
+        "pred_traj", "pred_head", "pred_state", "pred_type", "av_index",
+        "slot_active", "pos_a", "next_state_idx")}
+    if rollout:
+        VIS.plot_scenario_rollout(
+            f"scenario_{i:06d}", np.asarray(scen.map.position),
+            o["pred_traj"], o["pred_head"], o["pred_state"], o["pred_type"],
+            int(o["av_index"]), os.path.join(save_dir, "vis"),
+            slot_active=o["slot_active"])
+    if edges:
+        VIS.plot_attention_masks(
+            f"rollout_{i:06d}", VIS.a2a_inference_masks(
+                o["pos_a"], o["next_state_idx"], o["slot_active"],
+                cfg.a2a_radius),
+            os.environ.get("PLOT_EDGE_DIR",
+                           os.path.join(save_dir, "edge_maps")))
 
 
 def score_rollouts(cfg: Config, outputs, save_dir: str, device=None,
@@ -926,6 +970,9 @@ def main(argv=None):
     p.add_argument("--dump-rollouts", action="store_true",
                    help="validate: write each scenario's rollout for "
                         "offline scoring (skips scenarios already dumped)")
+    p.add_argument("--plot-rollouts", action="store_true",
+                   help="validate: draw each scenario's first rollout into "
+                        "<save-dir>/vis (needs matplotlib)")
     p.add_argument("--num-recurrent-steps", type=int, default=None,
                    help="10 Hz frames to roll out (default from the config)")
     p.add_argument("--params", default=None,
@@ -956,6 +1003,18 @@ def main(argv=None):
                 "back repadded to their bucket and compacted; drop --batch")
     if args.params and args.ckpt_path:
         p.error("give --params or --ckpt-path, not both")
+    plots = [what for what, on in (
+        ("--plot-rollouts", args.plot_rollouts),
+        ("PLOT_EDGE", args.mode == "check-inputs"
+         and os.environ.get("PLOT_EDGE")),
+        ("PLOT_EDGE_INFERENCE", args.mode == "validate"
+         and os.environ.get("PLOT_EDGE_INFERENCE"))) if on]
+    if plots:
+        from infgen_torch.utils.visualization import require_matplotlib
+        try:
+            require_matplotlib()
+        except RuntimeError as e:
+            p.error(f"{' and '.join(plots)}: {e}")
     cfg = apply_variant_flags(load_config(args.config), args)
     open_loop = args.mode == "validate" and (args.open_loop
                                              or cfg.val_open_loop)
@@ -987,7 +1046,7 @@ def main(argv=None):
         run_validate(cfg, args.device, n, args.save_dir or "runs/default",
                      args.params, args.log_features, args.dump_rollouts,
                      args.num_recurrent_steps, model, tokenizers,
-                     dataset=dataset)
+                     dataset=dataset, plot_rollouts=args.plot_rollouts)
         return
     if args.mode == "stream":
         results, summary = run_stream(

@@ -305,6 +305,27 @@ def validate_open_loop(trainer: Trainer, dataset, num_scenarios: int = 8,
     return out
 
 
+def edge_map_masks(cfg: Config, tokens, slot_mask) -> Dict[str, torch.Tensor]:
+    """The dense attention masks of one scenario's tokenised ground truth,
+    as the training forward builds them without its random history drop:
+    {"a2a": [T, A, A], "temporal": [A, T, T]} (bool). `tokens` is the
+    motion tokenizer's TokenizedAgents, `slot_mask` [A]."""
+    from infgen_torch.model import edges as E
+
+    _, hv = E.build_motion_vectors(tokens.token_pos, tokens.token_heading,
+                                   tokens.state_idx)
+    interact = (tokens.raw_token_valid | (tokens.state_idx == 2)) \
+        & slot_mask[:, None]
+    a2a = E.build_a2a_edges(tokens.token_pos, tokens.token_heading,
+                            tokens.state_idx, hv, interact, cfg.a2a_radius)
+    hist = E.training_hist_mask(tokens.raw_token_valid,
+                                tokens.state_idx) & slot_mask[:, None]
+    temporal = E.build_temporal_edges(
+        tokens.token_pos, tokens.token_heading, tokens.state_idx, hv, hist,
+        cfg.time_span // cfg.shift)
+    return {"a2a": a2a.mask, "temporal": temporal.mask}
+
+
 @torch.no_grad()
 def check_inputs(cfg: Config, dataset, num_scenarios: int = 8,
                  log_fn: Callable[[str], None] = print, device=None):
@@ -316,10 +337,16 @@ def check_inputs(cfg: Config, dataset, num_scenarios: int = 8,
     (totals, overlap): the four state-accuracy counts as ints and the
     per-step grid-overlap counts (numpy), summed over the scenarios.
 
-    The JAX function's PLOT_EDGE branch (edge-map plots of scenario 0) is
-    not ported: it needs utils/visualization.py (ROADMAP Queue 1 item
-    9)."""
+    With the environment variable PLOT_EDGE set, scenario 0's dense a2a
+    and temporal attention masks (`edge_map_masks`) are plotted into
+    PLOT_EDGE_DIR (default runs/edge_maps); that mode needs matplotlib
+    and raises at once without it."""
     dev = resolve_device(device)
+    plot_edge = bool(os.environ.get("PLOT_EDGE"))
+    if plot_edge:
+        from infgen_torch.utils.visualization import (plot_attention_masks,
+                                                      require_matplotlib)
+        require_matplotlib()
     attr = AttrTokenizer(cfg.grid_range, cfg.grid_interval,
                          cfg.pl2seed_radius, cfg.angle_interval)
     mt = MotionTokenizer()
@@ -329,6 +356,11 @@ def check_inputs(cfg: Config, dataset, num_scenarios: int = 8,
         gen = torch.Generator(device=dev).manual_seed(i)
         inputs = build_model_inputs(cfg, mt, attr, to_device(dataset[i], dev),
                                     gen)
+        if i == 0 and plot_edge:
+            masks = edge_map_masks(cfg, inputs.tokens, inputs.slot_mask)
+            plot_attention_masks(
+                "check_inputs", {k: v.cpu().numpy() for k, v in masks.items()},
+                os.environ.get("PLOT_EDGE_DIR", "runs/edge_maps"))
         sa = state_accuracy(inputs.tokens.state_idx)
         sa = torch.stack([sa[k] for k in keys]).long()
         go = grid_overlap_rate(inputs.tokens.state_idx,

@@ -189,7 +189,7 @@ class Trainer:
         if cfg.mesh_shape.get("model", 1) > 1 or \
                 cfg.mesh_shape.get("data", 0) > 1:
             raise NotImplementedError("data and tensor parallelism are not "
-                                      "ported (ROADMAP Queue 1 item 8)")
+                                      "ported (ROADMAP Queue 1 item 3)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attr = AttrTokenizer(cfg.grid_range, cfg.grid_interval,

@@ -1,5 +1,6 @@
 """The JAX package's side of the port's parity tests that run it in spawned
-processes (tests/test_torch_configs.py, tests/test_torch_validation.py).
+processes (tests/test_torch_configs.py, tests/test_torch_validation.py,
+tests/test_torch_learning.py).
 
 This module imports JAX, optax, numpy and the JAX package only: a spawned
 process imports the module of the function it runs, and this one starts
@@ -215,3 +216,107 @@ def bf16_sides(occ, agent):
     """bf16_occupancy_step(*occ) and bf16_agent_loss(*agent) in one
     process."""
     return bf16_occupancy_step(*occ), bf16_agent_loss(*agent)
+
+
+def learning_scores(cfg, tree, n, agents, steps):
+    """scripts/validate_learning.py's set-up at `cfg` (total_steps set to
+    `steps`; the synthetic scenarios 0 .. n - 1 of `agents` agents, their
+    inputs from PRNGKey(0) split n ways), its GT-replay ceiling and its
+    untrained score (`score`: the scenarios as lanes of one jit(vmap)
+    rollout from PRNGKey(7) split n ways, features and metrics per
+    scenario, jitted; the log histograms jitted too, where the script
+    builds them op by op) on the flax params `tree`: {"gt_replay": ...,
+    "before": ...}, each per-scenario lists of the metametric and the
+    simulated collision rate."""
+    from infgen_tpu.metrics.features import compute_metric_features
+    from infgen_tpu.metrics.wosac import (WosacConfig,
+                                          compute_scenario_metrics,
+                                          make_log_distributions)
+    from infgen_tpu.rollout.closed_loop import make_rollout_fn as j_rollout_fn
+
+    jcfg = JConfig(**cfg).replace(total_steps=steps)
+    jt = _trainer(jcfg)
+    scens = [j_synth(jcfg, seed=s, num_agents=agents) for s in range(n)]
+    inputs_b = jax.jit(jax.vmap(lambda s, r: j_build_inputs(
+        jcfg, jt.motion_tok, jt.attr, s, r)))(
+            j_stack(scens), jax.random.split(jax.random.PRNGKey(0), n))
+    wcfg = WosacConfig()
+    gt_fn = jax.jit(lambda s, i: compute_metric_features(
+        s.agents.position[..., :2], s.agents.heading, s.agents.valid,
+        s.agents.shape[:, 0], s.agents.shape[:, 1], s.agents.slot_mask,
+        s.agents.av_index, i.tokens.token_pos, i.tokens.state_idx,
+        traj_z=s.agents.elevation))
+    score_fn = jax.jit(lambda ld, f: compute_scenario_metrics(wcfg, ld, f))
+    dist_fn = jax.jit(lambda f: make_log_distributions(wcfg, f))
+    log_dists, gt = [], []
+    for i in range(n):
+        f = gt_fn(scens[i], jax.tree.map(lambda x, i=i: x[i], inputs_b))
+        log_dists.append(dist_fn(f))
+        gt.append(score_fn(log_dists[i], f))
+    rollout = jax.jit(jax.vmap(
+        j_rollout_fn(jt.model, jcfg, jt.attr, jt.motion_tok, jt.map_vocab,
+                     jit=False), in_axes=(None, 0, 0, 0)))
+    out = rollout(jax.tree.map(jnp.asarray, tree), j_stack(scens), inputs_b,
+                  jax.random.split(jax.random.PRNGKey(7), n))
+    feats_fn = jax.jit(lambda o: compute_metric_features(
+        o["pred_traj"], o["pred_head"], o["pred_valid"],
+        o["eval_shape"][:, 0], o["eval_shape"][:, 1], o["slot_active"],
+        o["av_index"], o["pos_a"], o["next_state_idx"]))
+    before = [score_fn(log_dists[i], feats_fn(
+        jax.tree.map(lambda x, i=i: x[i], out))) for i in range(n)]
+    pick = lambda ms: dict(
+        metametric=[float(m["metametric"]) for m in ms],
+        collision_rate=[float(m["simulated_collision_rate"]) for m in ms])
+    return dict(gt_replay=pick(gt), before=pick(before))
+
+
+def learning_losses(cfg, tree, n, agents, steps, n_losses):
+    """The script's training loop from the flax params `tree`: the losses
+    of its first `n_losses` steps (Trainer.train_step on the batch of
+    scenarios (i, i + 1 mod n) for even i, cycled, under the host-side key
+    [1, step]). The step is Trainer.train_step's math with batch_loss's
+    vmap written out: each scenario's value_and_grad of Trainer.loss_fn
+    under its key of the batch's split (one jitted program for both: the
+    vmapped step took 66 s to trace and compile here, this 43 s), their
+    means, then the trainer's optax chain (jitted). Returns (losses,
+    draws): draws[step] the random inputs of each scenario of the step's
+    batch as loss_fn splits its key (the map mask's uniforms, the history
+    drop, the pseudo-seed uniforms)."""
+    jcfg = JConfig(**cfg).replace(total_steps=steps)
+    jt = _trainer(jcfg)
+    scens = [jax.tree.map(jnp.asarray, j_synth(jcfg, seed=s,
+                                               num_agents=agents))
+             for s in range(n)]
+    grad_fn = jax.jit(jax.value_and_grad(jt.loss_fn, has_aux=True))
+
+    @jax.jit
+    def update(g0, g1, opt_state, params):
+        grads = jax.tree.map(lambda a, b: (a + b) * 0.5, g0, g1)
+        updates, opt_state = jt.tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    params = jax.tree.map(jnp.asarray, tree)
+    opt_state = jt.tx.init(params)
+    pairs = [(i, (i + 1) % n) for i in range(0, n, 2)]
+    A, T, P = jcfg.max_agents, jcfg.num_token_steps, jcfg.max_map_tokens
+    losses, draws = [], []
+    for step in range(n_losses):
+        keys = jax.random.split(jnp.asarray(np.array([1, step], np.uint32)),
+                                2)
+        (l0, _), g0 = grad_fn(params, scens[pairs[step % len(pairs)][0]],
+                              keys[0])
+        (l1, _), g1 = grad_fn(params, scens[pairs[step % len(pairs)][1]],
+                              keys[1])
+        losses.append(float(jnp.mean(jnp.stack([l0, l1]))))
+        params, opt_state = update(g0, g1, opt_state, params)
+        per = []
+        for r in keys:
+            rng_in, rng_fwd, _ = jax.random.split(r, 3)
+            rng_hist, rng_sa = jax.random.split(rng_fwd)
+            per.append(dict(
+                pt_uniform=_uniform(jax.random.split(rng_in)[0], (P,)),
+                hist_drop=np.array(jax.random.randint(rng_hist, (A, 10), 0,
+                                                      T)),
+                sa_uniform=_uniform(rng_sa, (A, T))))
+        draws.append(per)
+    return losses, draws

@@ -171,3 +171,28 @@ def test_export_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok 6 []", \
         out.stderr + out.stdout
+
+
+def test_learning_and_plot_modules_import_without_jax():
+    """validate_learning, the plots and the hub helpers import where JAX,
+    flax, optax, the JAX package, matplotlib and huggingface_hub cannot be
+    imported; the plots and the hub then refuse with RuntimeError."""
+    import subprocess
+    import sys
+
+    hidden = sorted(FORBIDDEN | {"matplotlib", "huggingface_hub"})
+    code = ("import sys\n"
+            f"for m in {hidden!r}: sys.modules[m] = None\n"
+            "import infgen_torch.validate_learning\n"
+            "from infgen_torch.utils import hub, visualization\n"
+            "refused = []\n"
+            "for fn in (visualization.require_matplotlib, hub._require_hub):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError:\n"
+            "        refused.append(fn.__name__)\n"
+            "print('ok', *refused)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == \
+        "ok require_matplotlib _require_hub", out.stderr + out.stdout
